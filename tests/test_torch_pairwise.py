@@ -1,0 +1,205 @@
+"""The port's pair scorers (``falcon_tpu_torch.ops.pairwise``) against the
+JAX package's on the CPU.
+
+On a CPU tensor each wrapper runs its kernel's plain version; the JAX side
+runs the Pallas panel kernel in interpret mode, as the JAX package's own
+tests do, and its XLA ``batched_block_scores``.  Distances and scores agree
+to 1e-6 (the packages add the selected weights in different orders); match
+counts exactly.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from falcon_tpu.ops import pairwise as jp
+from falcon_tpu.preprocess import process_spectrum
+from falcon_tpu.simulate import make_clustered_spectra
+from falcon_tpu.store.store import padded_peaks
+from falcon_tpu_torch.ops import pairwise as tp
+
+TOL = 0.05
+ATOL = 1e-6
+
+
+@pytest.fixture(scope="module")
+def padded_dataset():
+    spectra, _ = make_clustered_spectra(
+        n_clusters=12, cluster_size=4, n_noise=20, seed=3
+    )
+    rows = []
+    for s in spectra:
+        out = process_spectrum(s, 5, 250, 101.0, 1500.0, 1.5, 0.01, 50, None)
+        if out is not None:
+            rows.append(out)
+    offsets = np.zeros(len(rows) + 1, np.int64)
+    offsets[1:] = np.cumsum([len(r["mz"]) for r in rows])
+    mz_flat = np.concatenate([r["mz"] for r in rows])
+    int_flat = np.concatenate([r["intensity"] for r in rows])
+    mz, intensity, _ = padded_peaks(offsets, mz_flat, int_flat, 64)
+    return mz, intensity
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32))
+
+
+@pytest.mark.parametrize("min_matches", [0, 6])
+def test_condensed_distances_vs_pallas_interpret(padded_dataset,
+                                                 min_matches):
+    mz, intensity = padded_dataset
+    sub = 40
+    ours = tp.condensed_distances(mz[:sub], intensity[:sub], TOL,
+                                  min_matches=min_matches, panel_rows=16,
+                                  device="cpu")
+    ref = jp.condensed_distances(mz[:sub], intensity[:sub], TOL,
+                                 min_matches=min_matches,
+                                 backend="pallas_interpret", panel_rows=16)
+    assert ours.dtype == np.float32 and ours.shape == ref.shape
+    np.testing.assert_allclose(ours, ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("upper_only", [False, True])
+def test_panel_scores_row_offset_vs_pallas_interpret(padded_dataset,
+                                                     upper_only):
+    # A 16-row panel starting at global row 12 against 40 columns: the
+    # diagonal runs through the middle of the panel.
+    mz, intensity = padded_dataset
+    r0, r1, n = 12, 28, 40
+    ours, ours_m = tp.panel_scores(
+        _t(mz[r0:r1]), _t(intensity[r0:r1]), _t(mz[:n]), _t(intensity[:n]),
+        r0, TOL, upper_only=upper_only,
+    )
+    cols = 64  # the Pallas kernel takes whole column tiles
+    ref, ref_m = jp.panel_scores_pallas(
+        jnp.asarray(mz[r0:r1]), jnp.asarray(intensity[r0:r1]),
+        jnp.asarray(jp._pad_rows(mz[:n], cols, jp.PAD_MZ)),
+        jnp.asarray(jp._pad_rows(intensity[:n], cols, 0.0)),
+        jnp.int32(r0), TOL, upper_only=upper_only, interpret=True,
+        tile_j=cols,
+    )
+    ref, ref_m = np.asarray(ref)[:, :n], np.asarray(ref_m)[:, :n]
+    ours, ours_m = ours.numpy(), ours_m.numpy()
+    upper = (np.arange(n)[None, :] > (r0 + np.arange(r1 - r0))[:, None])
+    keep = upper if upper_only else np.ones_like(upper)
+    np.testing.assert_allclose(ours[keep], ref[keep], atol=ATOL, rtol=0)
+    np.testing.assert_array_equal(ours_m[keep], ref_m[keep])
+    # Pairs outside the requested triangle are never scored.
+    assert (ours[~keep] == 0).all() and (ours_m[~keep] == 0).all()
+
+
+def test_panel_scores_without_matches(padded_dataset):
+    mz, intensity = padded_dataset
+    args = (_t(mz[:8]), _t(intensity[:8]), _t(mz[:20]), _t(intensity[:20]),
+            0, TOL)
+    with_m, matches = tp.panel_scores(*args, upper_only=True)
+    without, none = tp.panel_scores(*args, upper_only=True,
+                                    with_matches=False)
+    assert none is None and matches.dtype == torch.int32
+    assert torch.equal(with_m, without)
+
+
+def _intervals(sizes, seed=5):
+    spectra, _ = make_clustered_spectra(
+        n_clusters=25, cluster_size=8, n_noise=120, seed=seed
+    )
+    rows = [process_spectrum(s, 5, 250, 101.0, 1500.0, 1.5, 0.01, 50, None)
+            for s in spectra]
+    rows = [r for r in rows if r is not None]
+    offsets = np.zeros(len(rows) + 1, np.int64)
+    offsets[1:] = np.cumsum([len(r["mz"]) for r in rows])
+    mz, intensity, _ = padded_peaks(
+        offsets, np.concatenate([r["mz"] for r in rows]),
+        np.concatenate([r["intensity"] for r in rows]), 64)
+    rng = np.random.default_rng(seed)
+    out = []
+    for m in sizes:
+        idx = rng.choice(mz.shape[0], size=m, replace=False)
+        out.append((mz[idx], intensity[idx]))
+    return out
+
+
+SIZES = [1, 2, 3, 9, 17, 33, 70, 5, 64, 12]
+
+
+@pytest.mark.parametrize("min_matches", [0, 6])
+def test_grouped_condensed_distances_vs_jax(min_matches):
+    peaks = _intervals(SIZES)
+    # A small pair budget splits the intervals over several launches.
+    ours = dict(tp.grouped_condensed_distances(
+        peaks, TOL, min_matches=min_matches, max_group_pairs=3000,
+        device="cpu"))
+    ref = dict(jp.grouped_condensed_distances(peaks, TOL,
+                                              min_matches=min_matches))
+    assert sorted(ours) == sorted(ref) == list(range(len(SIZES)))
+    for k, m in enumerate(SIZES):
+        assert ours[k].dtype == np.float32
+        assert ours[k].shape == ref[k].shape == (m * (m - 1) // 2,)
+        np.testing.assert_allclose(ours[k], ref[k], atol=ATOL, rtol=0)
+
+
+def test_batched_block_scores_vs_jax():
+    # The port takes ragged intervals; the JAX op takes them padded to one
+    # size.  Both must give the same upper-triangle scores and counts.
+    sizes = [7, 16, 2, 11]
+    peaks = _intervals(sizes, seed=9)
+    m_pad = 16
+    mz_g = np.full((len(sizes), m_pad, 64), jp.PAD_MZ, np.float32)
+    int_g = np.zeros((len(sizes), m_pad, 64), np.float32)
+    for g, (mz, intensity) in enumerate(peaks):
+        mz_g[g, :len(mz)] = mz
+        int_g[g, :len(mz)] = intensity
+    ref_s, ref_m = jp.batched_block_scores(jnp.asarray(mz_g),
+                                           jnp.asarray(int_g), TOL)
+    ref_s, ref_m = np.asarray(ref_s), np.asarray(ref_m)
+
+    starts = torch.tensor(np.concatenate([[0], np.cumsum(sizes)]))
+    ours_s, ours_m = tp.batched_block_scores(
+        _t(np.concatenate([p[0] for p in peaks])),
+        _t(np.concatenate([p[1] for p in peaks])), starts, TOL,
+    )
+    want_s = np.concatenate([ref_s[g][np.triu_indices(m, 1)]
+                             for g, m in enumerate(sizes)])
+    want_m = np.concatenate([ref_m[g][np.triu_indices(m, 1)]
+                             for g, m in enumerate(sizes)])
+    np.testing.assert_allclose(ours_s.numpy(), want_s, atol=ATOL, rtol=0)
+    np.testing.assert_array_equal(ours_m.numpy(), want_m)
+
+
+def test_cpu_tensors_take_the_plain_version(padded_dataset):
+    mz, intensity = padded_dataset
+    before = (tp.panel_scores.launches, tp.batched_block_scores.launches)
+    s, m = tp.panel_scores(_t(mz[:4]), _t(intensity[:4]), _t(mz[:9]),
+                           _t(intensity[:9]), 0, TOL)
+    ref_s, ref_m = tp.panel_scores_plain(_t(mz[:4]), _t(intensity[:4]),
+                                         _t(mz[:9]), _t(intensity[:9]), 0,
+                                         TOL)
+    assert torch.equal(s, ref_s) and torch.equal(m, ref_m)
+    tp.batched_block_scores(_t(mz[:9]), _t(intensity[:9]),
+                            torch.tensor([0, 4, 9]), TOL)
+    # Launch counters count kernel launches only.
+    assert (tp.panel_scores.launches,
+            tp.batched_block_scores.launches) == before
+
+
+@pytest.mark.parametrize("bad", ["float64", "non_contiguous", "rank",
+                                 "shape", "starts"])
+def test_wrappers_reject_bad_inputs(padded_dataset, bad):
+    mz, intensity = (_t(a[:8]) for a in padded_dataset)
+    starts = torch.tensor([0, 3, 8])
+    if bad == "float64":
+        mz = mz.double()
+    elif bad == "non_contiguous":
+        mz = mz.t().contiguous().t()
+    elif bad == "rank":
+        mz = mz[None]
+    elif bad == "shape":
+        intensity = intensity[:, :32].contiguous()
+    else:
+        starts = torch.tensor([0, 5, 4, 8])
+    with pytest.raises((TypeError, ValueError)):
+        if bad == "starts":
+            tp.batched_block_scores(mz, intensity, starts, TOL)
+        else:
+            tp.panel_scores(mz, intensity, mz, intensity, 0, TOL)
