@@ -19,9 +19,15 @@ It builds the port's CUDA kernels from ``falcon_tpu_torch/csrc`` and then:
    precursor intervals: the grouped kernel, K4);
 4. runs the same CLI on a dense corpus whose precursors crowd into 2 m/z,
    one ~20,000-spectrum interval per charge (the panel kernel, K1);
-5. clusters a 3,000-spectrum interval through the kernels and through the
-   plain versions, both on the GPU, and requires identical labels and
-   medoids.
+5. clusters a 3,000-spectrum interval, and with the ann engine's exact
+   index a block holding small components and one chain of 1,500 spectra,
+   through the kernels and through the plain versions, both on the GPU,
+   and requires identical labels and medoids;
+6. runs the CLI with ``--backend ann --ann_index exact`` on the
+   bench-shaped corpus, the dense corpus and a corpus of long chains of
+   similar spectra (large sparse eps-components: the pruned pair lists),
+   so the banded kernel (K2) takes every band and the pair-list launcher
+   the chains.
 
 Every phase raises on failure, so the script exits non-zero; it also exits
 non-zero, printing no result, without a CUDA GPU.  On success the last two
@@ -50,10 +56,22 @@ BENCH_CORPUS = dict(n_clusters=3500, cluster_size=10, n_noise=15000,
                     precursor_classes=600, seed=42)
 DENSE_CORPUS = dict(n_clusters=3000, cluster_size=10, n_noise=10000,
                     precursor_mz_range=(500.0, 502.0), seed=7)
-SOURCE = "falcon_tpu_torch/csrc/pairwise.cu"
+# Chains of spectra, each a small step from the last (one of 40 peaks
+# replaced, precursor 2 ppm higher): eps-components of 1,500 spectra.
+CHAIN_CORPUS = dict(n_chains=3, chain_len=1500, seed=11)
+ANN = ["--backend", "ann", "--ann_index", "exact"]
+K2_BLOCK_ROWS = 4096  # exact_banded_topk's row block
+K1, K2, K4, PL = ("K1 panel_scores", "K2 banded_panel_scores",
+                  "K4 batched_block_scores", "pair_list_scores")
+SOURCES = {K1: "falcon_tpu_torch/csrc/pairwise.cu",
+           K2: "falcon_tpu_torch/csrc/exact_knn.cu",
+           K4: "falcon_tpu_torch/csrc/pairwise.cu",
+           PL: "falcon_tpu_torch/csrc/pairwise.cu"}
 REPLACES = {
-    "K1 panel_scores": "falcon_tpu/ops/pairwise.py:44",
-    "K4 batched_block_scores": "falcon_tpu/ops/pairwise.py:218",
+    K1: "falcon_tpu/ops/pairwise.py:44",
+    K2: "falcon_tpu/ops/exact_knn.py:243",
+    K4: "falcon_tpu/ops/pairwise.py:218",
+    PL: "falcon_tpu/ops/rerank.py:32",
 }
 
 
@@ -158,7 +176,41 @@ def tie_heavy(n: int, seed: int):
     return np.repeat(mz, 2, axis=0), np.repeat(intensity, 2, axis=0)
 
 
-def phase_kernels(dev, dense_rows, bench_rows, report):
+def chained_spectra(n_chains: int, chain_len: int, seed: int):
+    """Chains of spectra in which each member replaces one of the last
+    one's 40 peaks and sits 2 ppm higher in precursor m/z: neighbours are
+    within eps and tolerance, members far apart are not.  Returns
+    (spectra, chain id per spectrum)."""
+    from falcon_tpu.ms_io.containers import Spectrum
+
+    rng = np.random.default_rng(seed)
+    spectra, truth = [], []
+    for c in range(n_chains):
+        base = float(rng.uniform(450.0, 1100.0))
+        mz = rng.uniform(150.0, 1400.0, 40)
+        intensity = rng.uniform(0.5, 1.0, 40)
+        for step in range(chain_len):
+            spectra.append(Spectrum(
+                f"chain{c}_member{step}", base * (1 + 2e-6 * step), 2,
+                mz.copy(), intensity.copy(),
+                float(rng.uniform(0.0, 3600.0))))
+            truth.append(c)
+            k = int(rng.integers(40))
+            mz[k] = rng.uniform(150.0, 1400.0)
+            intensity[k] = rng.uniform(0.5, 1.0)
+    return spectra, np.asarray(truth)
+
+
+def wrappers():
+    """The four kernel wrappers, by name: (module, attribute)."""
+    from falcon_tpu_torch.ops import exact_knn as ex
+    from falcon_tpu_torch.ops import pairwise as pw
+
+    return {K1: (pw, "panel_scores"), K2: (ex, "banded_panel_scores"),
+            K4: (pw, "batched_block_scores"), PL: (pw, "pair_list_scores")}
+
+
+def phase_kernels(dev, dense_rows, bench_rows, chain_rows, report):
     """Phase 2: each kernel against its plain version on the card."""
     import torch
 
@@ -171,7 +223,7 @@ def phase_kernels(dev, dense_rows, bench_rows, report):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     mz_all, int_all = padded(dense_rows)
-    k1 = "K1 panel_scores"
+    k1 = K1
     if len(dense_rows) < max(K1_COLS):
         raise RuntimeError(f"the dense interval holds {len(dense_rows)} "
                            f"spectra, fewer than {max(K1_COLS)}")
@@ -209,7 +261,7 @@ def phase_kernels(dev, dense_rows, bench_rows, report):
 
     # K4: intervals of 2..1024 consecutive spectra of the bench corpus,
     # sorted by precursor m/z, in one launch.
-    k4 = "K4 batched_block_scores"
+    k4 = K4
     mz_b, int_b = padded(bench_rows)
     sizes = list(K4_SIZES)
     starts = np.concatenate([[0], np.cumsum(sizes)])
@@ -245,9 +297,119 @@ def phase_kernels(dev, dense_rows, bench_rows, report):
                      pw.batched_block_scores(mz_t, int_t, st, TOL, rounds),
                      pw.batched_block_scores_plain(mz_t, int_t, st, TOL,
                                                    rounds))
+    phase_banded(dev, parity, times, {"bench": bench_rows,
+                                      "dense": dense_rows}, chain_rows)
     report["kernel_times_ms"] = {" | ".join(map(str, k)): v
                                  for k, v in times.items()}
     return parity.err, times
+
+
+def band_block(rows, dev):
+    """The first row block of ``exact_banded_topk`` on sorted ``rows`` at
+    the CLI's 20 ppm: (rows m/z, rows intensity, pool m/z, pool
+    intensity, starts, window)."""
+    import torch
+
+    from falcon_tpu_torch.ops import exact_knn as ex
+    from falcon_tpu_torch.ops.knn import _pow2_at_least
+
+    mz, intensity = padded(rows)
+    n = len(rows)
+    n_pad = _pow2_at_least(n, 512)
+    pool_mz = np.full((n_pad, 64), -1e6, np.float32)
+    pool_int = np.zeros((n_pad, 64), np.float32)
+    pool_mz[:n], pool_int[:n] = mz, intensity
+    starts, window = ex.window_layout(
+        np.asarray([r["precursor_mz"] for r in rows]), 20.0, "ppm", n_pad)
+    b = min(K2_BLOCK_ROWS, n)
+    pool_mz, pool_int = (torch.from_numpy(a).to(dev)
+                         for a in (pool_mz, pool_int))
+    return (pool_mz[:b], pool_int[:b], pool_mz, pool_int,
+            torch.from_numpy(starts[:b]).to(dev), window)
+
+
+def chain_pair_lists(rows, dev):
+    """The pruned linkage's pair lists of one chain, as
+    ``pruned_condensed_distances`` builds them on the card: (m/z,
+    intensity, ids (m, k))."""
+    import torch
+
+    from falcon_tpu.preprocess import get_dim
+    from falcon_tpu_torch.ops import pairwise as pw
+    from falcon_tpu_torch.ops.knn import _pow2_at_least
+    from falcon_tpu_torch.ops.vectorize import SpectrumHasher
+
+    mz, intensity = (torch.from_numpy(a).to(dev) for a in padded(rows))
+    _, mz_min, mz_max = get_dim(101.0, 1500.0, TOL)
+    hasher = SpectrumHasher(mz_min, mz_max, TOL)
+    spread = hasher.vectorize(mz, intensity, norm=False, spread=True)
+    plain = hasher.vectorize(mz, intensity, norm=False)
+    thr = 1.0 - 0.1 - 1e-3
+    kmax = int(pw.ub_pass_counts(spread, plain, thr, 1024).max())
+    ids = pw.ub_pass_topk(spread, plain, thr, _pow2_at_least(kmax, 16),
+                          1024)
+    return mz, intensity, ids
+
+
+def phase_banded(dev, parity, times, rows_by_name, chain_rows):
+    """Phase 2, continued: K2 and the pair-list launcher."""
+    import torch
+
+    from falcon_tpu_torch.ops import exact_knn as ex
+    from falcon_tpu_torch.ops import pairwise as pw
+
+    for name, rows in rows_by_name.items():
+        mz_r, int_r, mz_p, int_p, starts, window = band_block(rows, dev)
+        args = (mz_r, int_r, mz_p, int_p, starts, 0, window, TOL, 4)
+        shape = f"{name} {mz_r.shape[0]}x{window}"
+        want, t_plain = plain_ms(lambda: ex.banded_panel_scores_plain(*args))
+        times[(K2, name, "plain")] = t_plain
+        for with_matches in (True, False):
+            got = ex.banded_panel_scores(*args, with_matches=with_matches)
+            torch.cuda.synchronize()
+            parity.check(K2, f"{shape} with_matches={with_matches}", got,
+                         want if with_matches else (want[0], None))
+        # The main path asks for match counts only with min_matches > 0.
+        ms = kernel_ms(lambda: ex.banded_panel_scores(
+            *args, with_matches=False), reps=5)
+        times[(K2, name, "kernel")] = ms
+        log(f"  {K2} {shape}: kernel {ms:.3f} ms, plain version "
+            f"{t_plain:.1f} ms ({mz_r.shape[0] * window} pairs)")
+
+    mz, intensity, ids = chain_pair_lists(chain_rows, dev)
+    args = (mz, intensity, mz, intensity, ids, TOL, 4)
+    shape = (f"chain of {mz.shape[0]}, {ids.shape[1]} slots, "
+             f"{int((ids >= 0).sum())} pairs")
+    want, t_plain = plain_ms(lambda: pw.pair_list_scores_plain(*args))
+    times[(PL, "plain")] = t_plain
+    for with_matches in (True, False):
+        got = pw.pair_list_scores(*args, with_matches=with_matches)
+        torch.cuda.synchronize()
+        parity.check(PL, f"{shape} with_matches={with_matches}", got,
+                     want if with_matches else (want[0], None))
+    times[(PL, "kernel")] = kernel_ms(
+        lambda: pw.pair_list_scores(*args, with_matches=False), reps=5)
+    log(f"  {PL} {shape}: kernel {times[(PL, 'kernel')]:.3f} ms, plain "
+        f"version {t_plain:.1f} ms")
+
+    # Tie-heavy spectra, with the round cap hit.
+    mz_t, int_t = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                   for a in tie_heavy(128, seed=6))
+    starts = torch.tensor([0, 1] * 64, dtype=torch.int32, device=dev)
+    gen = torch.Generator().manual_seed(2)
+    ids = torch.randint(0, 256, (128, 24), generator=gen)
+    ids[torch.rand(ids.shape, generator=gen) < 0.25] = -1
+    ids = ids.to(dev)
+    for rounds in (1, 4, 32):
+        args = (mz_t[:128], int_t[:128], mz_t, int_t, starts, 0, 128, TOL,
+                rounds)
+        parity.check(K2, f"tie-heavy 128x128 rounds={rounds}",
+                     ex.banded_panel_scores(*args),
+                     ex.banded_panel_scores_plain(*args))
+        args = (mz_t[:128], int_t[:128], mz_t, int_t, ids, TOL, rounds)
+        parity.check(PL, f"tie-heavy 128x24 rounds={rounds}",
+                     pw.pair_list_scores(*args),
+                     pw.pair_list_scores_plain(*args))
 
 
 def read_labels(csv_path: str):
@@ -257,10 +419,10 @@ def read_labels(csv_path: str):
         return {r["spectrum_id"]: int(r["cluster"]) for r in rows}
 
 
-def run_cli(name, spectra, truth, tmp):
+def run_cli(name, spectra, truth, tmp, flags=()):
     """Write ``spectra`` as MGF and run the port's CLI on them with its
-    defaults; returns (seconds, phase summary, purity, completeness,
-    n_clustered)."""
+    defaults and ``flags``; returns (seconds, phase summary, purity,
+    completeness, n_clustered)."""
     from falcon_tpu.metrics import cluster_completeness, cluster_purity
     from falcon_tpu.simulate import write_mgf
     from falcon_tpu_torch import cli
@@ -269,7 +431,8 @@ def run_cli(name, spectra, truth, tmp):
     mgf = write_mgf(os.path.join(tmp, f"{name}.mgf"), spectra)
     out = os.path.join(tmp, f"{name}_out")
     t0 = time.perf_counter()
-    rc = cli.main([mgf, out, "--work_dir", os.path.join(tmp, f"{name}_work")])
+    rc = cli.main([mgf, out, "--work_dir", os.path.join(tmp, f"{name}_work")]
+                  + list(flags))
     seconds = time.perf_counter() - t0
     if rc != 0:
         raise RuntimeError(f"{name}: the port's CLI exited {rc}")
@@ -299,17 +462,18 @@ def largest_interval(rows_by_charge):
     return best
 
 
-def phase_main_path(name, spectra, truth, tmp, report, kernel_name):
-    """Phases 3 and 4: the CLI with its defaults; returns the launch
-    counts of the run."""
-    from falcon_tpu_torch.ops import pairwise as pw
-
-    pw.panel_scores.launches = 0
-    pw.batched_block_scores.launches = 0
+def phase_main_path(name, spectra, truth, tmp, report, required,
+                    flags=(), min_completeness=0.9):
+    """Phases 3, 4 and 6: the CLI with ``flags``; returns the launch
+    counts of the run and raises if a kernel in ``required`` was never
+    launched."""
+    kernels = wrappers()
+    for module, attr in kernels.values():
+        getattr(module, attr).launches = 0
     seconds, summary, purity, completeness, n = run_cli(
-        name, spectra, truth, tmp)
-    launches = {"K1 panel_scores": pw.panel_scores.launches,
-                "K4 batched_block_scores": pw.batched_block_scores.launches}
+        name, spectra, truth, tmp, flags)
+    launches = {k: getattr(module, attr).launches
+                for k, (module, attr) in kernels.items()}
     log(f"  {n} spectra clustered in {seconds:.2f} s "
         f"({n / seconds:.0f} spectra/s, ingest included)")
     log(f"  launches: {launches}")
@@ -319,26 +483,25 @@ def phase_main_path(name, spectra, truth, tmp, report, kernel_name):
     report[name] = dict(seconds=seconds, spectra=n,
                         spectra_per_s=n / seconds, purity=purity,
                         completeness=completeness, phases=summary,
-                        launches=launches)
-    if launches[kernel_name] <= 0:
-        raise AssertionError(f"{name}: {kernel_name} never launched")
-    # The exact backend recovers these generators' clusters almost
-    # perfectly (the JAX package: purity 1.00, completeness 0.93 on the
-    # bench corpus); far lower values mean wrong distances.
-    if purity < 0.99 or completeness < 0.9:
+                        launches=launches, flags=list(flags))
+    for kernel_name in required:
+        if launches[kernel_name] <= 0:
+            raise AssertionError(f"{name}: {kernel_name} never launched")
+    # Both backends recover these generators' clusters almost perfectly
+    # (the JAX package: purity 1.00, completeness 0.93 on the bench
+    # corpus); far lower values mean wrong distances.
+    if purity < 0.99 or completeness < min_completeness:
         raise AssertionError(f"{name}: purity {purity:.4f}, completeness "
-                             f"{completeness:.4f} below 0.99 / 0.9")
+                             f"{completeness:.4f} below 0.99 / "
+                             f"{min_completeness}")
     return launches
 
 
 def phase_whole_path(dev, rows, tmp, report):
     """Phase 5: one interval through the kernels and through the plain
     versions, both on the card."""
-    import torch
-
     from falcon_tpu.store.store import SpectrumStore
     from falcon_tpu_torch.cluster import engine
-    from falcon_tpu_torch.ops import pairwise as pw
 
     store = SpectrumStore(os.path.join(tmp, "whole_path"))
     writer = store.writer()
@@ -346,33 +509,65 @@ def phase_whole_path(dev, rows, tmp, report):
     writer.close()
     dataset = store.dataset(rows[0]["precursor_charge"])
     args = (dataset, "complete", 0.1, 0, 20.0, "ppm", None, TOL, 2**15)
-    launches = pw.panel_scores.launches
+    compare_kernels_with_plain(
+        "whole path, exact backend", report, dev, [K1],
+        lambda: engine.generate_clusters(*args, device=dev), len(rows))
+
+
+def phase_whole_path_ann(dev, rows, tmp, report):
+    """Phase 5, continued: the ann engine's exact index on one block,
+    through the kernels and through the plain versions, on the card."""
+    from falcon_tpu.store.store import SpectrumStore
+    from falcon_tpu_torch.cluster import ann_engine
+
+    store = SpectrumStore(os.path.join(tmp, "whole_path_ann"))
+    writer = store.writer()
+    writer.add_many(rows)
+    writer.close()
+    dataset = store.dataset(2)
+    compare_kernels_with_plain(
+        "whole path, ann exact index", report, dev, [K2, K4, PL],
+        lambda: ann_engine.generate_clusters(
+            dataset, 0.1, 0, 20.0, "ppm", None, TOL, 2**15, device=dev),
+        len(rows))
+
+
+def compare_kernels_with_plain(name, report, dev, required, run, n):
+    """Run ``run`` through the kernels, then with every wrapper replaced
+    by its plain version; raise unless labels and medoids are identical
+    and each kernel in ``required`` was launched."""
+    import torch
+
+    kernels = wrappers()
+    before = {k: getattr(m, a).launches for k, (m, a) in kernels.items()}
     t0 = time.perf_counter()
-    labels, medoids = engine.generate_clusters(*args, device=dev)
+    labels, medoids = run()
     t_kernel = time.perf_counter() - t0
-    if pw.panel_scores.launches == launches:
-        raise AssertionError("whole path: K1 was not launched")
-    kernels = pw.panel_scores, pw.batched_block_scores
-    pw.panel_scores = pw.panel_scores_plain
-    pw.batched_block_scores = pw.batched_block_scores_plain
+    for k in required:
+        module, attr = kernels[k]
+        if getattr(module, attr).launches == before[k]:
+            raise AssertionError(f"{name}: {k} was not launched")
+    saved = {k: getattr(m, a) for k, (m, a) in kernels.items()}
+    for k, (module, attr) in kernels.items():
+        setattr(module, attr, getattr(module, f"{attr}_plain"))
     try:
         t0 = time.perf_counter()
-        ref_labels, ref_medoids = engine.generate_clusters(*args,
-                                                           device=dev)
+        ref_labels, ref_medoids = run()
         t_plain = time.perf_counter() - t0
     finally:
-        pw.panel_scores, pw.batched_block_scores = kernels
+        for k, (module, attr) in kernels.items():
+            setattr(module, attr, saved[k])
     torch.cuda.synchronize()
     same = (np.array_equal(labels, ref_labels)
             and np.array_equal(medoids, ref_medoids))
-    log(f"  {len(rows)} spectra, {len(np.unique(labels))} clusters: labels "
+    log(f"  {name}: {n} spectra, {len(np.unique(labels))} clusters: labels "
         f"and medoids {'identical' if same else 'DIFFER'} (kernels "
         f"{t_kernel:.2f} s, plain versions {t_plain:.2f} s)")
-    report["whole_path"] = dict(spectra=len(rows), identical=same,
-                                kernel_s=t_kernel, plain_s=t_plain)
+    report[name] = dict(spectra=n, identical=same, kernel_s=t_kernel,
+                        plain_s=t_plain)
     if not same:
-        raise AssertionError("whole path: kernels and plain versions "
-                             "disagree on labels or medoids")
+        raise AssertionError(f"{name}: kernels and plain versions disagree "
+                             "on labels or medoids")
 
 
 def main() -> int:
@@ -397,8 +592,10 @@ def main() -> int:
     _build.library()
     log(f"  kernel build: {_build.build_seconds or 0.0:.1f} s "
         f"({os.path.relpath(_build.library_path())})")
+    # Registers, shared memory and spills of each kernel (-Xptxas -v).
     report.update(card=card, torch=torch.__version__,
-                  cuda=torch.version.cuda, build_s=_build.build_seconds)
+                  cuda=torch.version.cuda, build_s=_build.build_seconds,
+                  build_log=_build.build_log)
 
     bench_spectra, bench_truth = make_clustered_spectra(**BENCH_CORPUS)
     dense_spectra, dense_truth = make_clustered_spectra(**DENSE_CORPUS)
@@ -408,39 +605,59 @@ def main() -> int:
     charge2 = sorted(dense_by_charge[2], key=lambda r: r["precursor_mz"])
     bench_rows = sorted(preprocess(bench_spectra[:6000]),
                         key=lambda r: r["precursor_mz"])
+    chain_rows = preprocess(chained_spectra(
+        1, CHAIN_CORPUS["chain_len"], seed=3)[0])
 
     log("== phase 2: kernels against their plain versions on the card")
     dev = torch.device("cuda")
-    errs, times = phase_kernels(dev, charge2, bench_rows, report)
+    errs, times = phase_kernels(dev, charge2, bench_rows, chain_rows,
+                                report)
 
+    launches = []
     with tempfile.TemporaryDirectory(prefix="falcon_chip_smoke_") as tmp:
         log("== phase 3: main path, bench-shaped corpus (small intervals)")
-        l3 = phase_main_path("bench_corpus", bench_spectra, bench_truth,
-                             tmp, report, "K4 batched_block_scores")
+        launches.append(phase_main_path(
+            "bench_corpus", bench_spectra, bench_truth, tmp, report, [K4]))
         log("== phase 4: main path, dense corpus (large intervals)")
         big = largest_interval(dense_by_charge)
         log(f"  largest precursor interval: {big} spectra")
         report["dense_largest_interval"] = big
-        l4 = phase_main_path("dense_corpus", dense_spectra, dense_truth,
-                             tmp, report, "K1 panel_scores")
+        launches.append(phase_main_path(
+            "dense_corpus", dense_spectra, dense_truth, tmp, report, [K1]))
         log("== phase 5: whole path, kernels against plain versions")
         phase_whole_path(dev, charge2[:3000], tmp, report)
+        small = [r for r in bench_rows if r["precursor_charge"] == 2][:1500]
+        phase_whole_path_ann(dev, small + chain_rows, tmp, report)
+        log("== phase 6: main path, --backend ann --ann_index exact")
+        log("  bench-shaped corpus")
+        launches.append(phase_main_path(
+            "ann_bench_corpus", bench_spectra, bench_truth, tmp, report,
+            [K2, K4], ANN))
+        log("  dense corpus")
+        launches.append(phase_main_path(
+            "ann_dense_corpus", dense_spectra, dense_truth, tmp, report,
+            [K2], ANN))
+        log("  chained corpus (eps-components of 1,500 spectra)")
+        chains, chain_truth = chained_spectra(**CHAIN_CORPUS)
+        # Complete linkage splits a chain into many clusters, so only
+        # purity is held to the generator's truth here.
+        launches.append(phase_main_path(
+            "ann_chained_corpus", chains, chain_truth, tmp, report,
+            [K2, PL], ANN, min_completeness=0.0))
 
-    k1_shape = f"{PANEL_ROWS}x{max(K1_COLS)}"
+    shapes = {K1: (K1, f"{PANEL_ROWS}x{max(K1_COLS)}", False, True),
+              K2: (K2, "dense", "kernel"), K4: (K4, "kernel"),
+              PL: (PL, "kernel")}
+    plain_shapes = {K1: (K1, f"{PANEL_ROWS}x{max(K1_COLS)}", "plain"),
+                    K2: (K2, "dense", "plain"), K4: (K4, "plain"),
+                    PL: (PL, "plain")}
     kernels = [
-        {"name": "K1 panel_scores", "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES["K1 panel_scores"],
-         "launches": l3["K1 panel_scores"] + l4["K1 panel_scores"],
-         "max_abs_err": errs["K1 panel_scores"],
-         "ms": times[("K1 panel_scores", k1_shape, False, True)],
-         "plain_ms": times[("K1 panel_scores", k1_shape, "plain")]},
-        {"name": "K4 batched_block_scores", "route": "cuda",
-         "source": SOURCE, "replaces": REPLACES["K4 batched_block_scores"],
-         "launches": (l3["K4 batched_block_scores"]
-                      + l4["K4 batched_block_scores"]),
-         "max_abs_err": errs["K4 batched_block_scores"],
-         "ms": times[("K4 batched_block_scores", "kernel")],
-         "plain_ms": times[("K4 batched_block_scores", "plain")]},
+        {"name": k, "route": "cuda", "source": SOURCES[k],
+         "replaces": REPLACES[k],
+         "launches": sum(run[k] for run in launches),
+         "max_abs_err": errs[k], "ms": times[shapes[k]],
+         "plain_ms": times[plain_shapes[k]]}
+        for k in (K1, K2, K4, PL)
     ]
     report["kernels"] = kernels
     if args.report:

@@ -7,7 +7,8 @@ hot path as CUDA kernels written for NVIDIA Hopper (``csrc/``).  It imports
 (configuration, store, ingest, readers, preprocessing, native linkage,
 export) are shared, not copied.
 
-Ported so far: the default exact backend (``cluster/engine.py``).  See
+Ported so far: the default exact backend (``cluster/engine.py``) and
+``--backend ann --ann_index exact`` (``cluster/ann_engine.py``).  See
 ``README.md`` for what still raises.
 """
 

@@ -7,8 +7,12 @@ The same surface as ``falcon_tpu.api``::
     result = falcon_tpu_torch.cluster_files(["peaks/*.mgf"])
     result.cluster            # np.int64 label per spectrum
     result.spectrum_id        # identifiers aligned with the labels
+    ann = falcon_tpu_torch.cluster_files(
+        ["peaks/*.mgf"], backend="ann", ann_index="exact", eps=0.10)
 
-Options take the CLI option names as keyword arguments.  With ``output``
+Options take the CLI option names as keyword arguments and reach the CLI
+unchanged (``ann_index``, ``eps``, ``n_neighbors`` and the other ann
+options included).  With ``output``
 the CSV/MGF files are written exactly as the CLI writes them; without it
 nothing is written.  Invalid inputs raise (``ValueError``,
 ``FileExistsError``, ``NotImplementedError`` for options not ported yet)

@@ -5,10 +5,14 @@ Port of ``falcon_tpu/cli.py`` with the same parser (the shared
 ingest resume, per-charge clustering with globally disjoint labels, CSV and
 medoid-MGF export and run manifest, so that its CSV equals the JAX
 package's byte for byte apart from the ``# work_dir`` line.  Clustering
-runs the exact backend's engine (``cluster/engine.py``) on the device
-named by ``FALCON_TPU_TORCH_DEVICE`` (default ``cuda``).
+runs on the device named by ``FALCON_TPU_TORCH_DEVICE`` (default
+``cuda``): the exact backend's engine (``cluster/engine.py``), or with
+``--backend ann --ann_index exact`` the ann engine (``cluster/
+ann_engine.py``), whose charges run two at a time when each fits one
+device block, as in the JAX package.
 
-Not ported yet, and refused with exit code 1: ``--backend ann`` and
+Not ported yet, and refused with exit code 1: ``--backend ann`` with
+``--ann_index auto|brute|ivf`` or ``--cluster_method dbscan``, and
 ``--representative_method consensus``.
 """
 
@@ -57,9 +61,14 @@ def main(args: Union[str, List[str], None] = None,
 
 def _not_ported() -> Union[str, None]:
     """Why the parsed configuration cannot run on the port, or None."""
-    if config.backend == "ann":
-        return ("--backend ann is not yet ported to falcon_tpu_torch; use "
+    if config.backend == "ann" and config.ann_index != "exact":
+        return (f"--backend ann with --ann_index {config.ann_index} is not "
+                "yet ported to falcon_tpu_torch; use --ann_index exact, "
                 "--backend exact, or the JAX package (python -m falcon_tpu)")
+    if config.backend == "ann" and config.cluster_method != "linkage":
+        return (f"--cluster_method {config.cluster_method} is not yet "
+                "ported to falcon_tpu_torch; use linkage, or the JAX "
+                "package (python -m falcon_tpu)")
     if config.representative_method == "consensus":
         return ("--representative_method consensus is not yet ported to "
                 "falcon_tpu_torch; use medoid, or the JAX package "
@@ -207,6 +216,7 @@ def _run(args: Union[str, List[str], None], cleanup: list,
                 return 1
 
     from .cluster import engine
+    from .cluster.ann_engine import device_block_cap
 
     labels_by_charge: list = []
     current_label, representatives = 0, []
@@ -226,30 +236,59 @@ def _run(args: Union[str, List[str], None], cleanup: list,
             continue
         datasets.append((charge, dataset))
 
-    for charge, dataset in datasets:
-        with profiler.phase(f"cluster charge {charge}"):
-            clusters, medoids = engine.generate_clusters(
-                dataset,
-                config.linkage,
-                config.distance_threshold,
-                config.min_matched_peaks,
-                config.precursor_tol[0],
-                config.precursor_tol[1],
-                config.rt_tol,
-                config.fragment_tol,
-                config.batch_size,
-                max_peaks=config.max_peaks_used,
-                devices=config.devices,
-                device=device,
-            )
-        # Globally disjoint labels across charges.
-        clusters = clusters + current_label
-        current_label = int(np.amax(clusters)) + 1
-        total_rows += len(clusters)
-        total_clusters += len(np.unique(clusters))
-        labels_by_charge.append((dataset, clusters.astype(np.int64)))
-        if config.export_representatives:
-            representatives.extend(dataset.take(medoids))
+    # The ann backend clusters two charges at once when each fits one
+    # device block (the JAX package's rule): one charge's host linkage
+    # overlaps the other's device work.  Labels and representatives are
+    # still taken in charge order below.
+    overlap = (
+        config.backend == "ann"
+        and len(datasets) > 1
+        and all(d.count_rows() <= device_block_cap() for _, d in datasets)
+    )
+    futures = {}
+    charge_pool = None
+    if overlap:
+        from concurrent.futures import ThreadPoolExecutor
+
+        charge_pool = ThreadPoolExecutor(max_workers=2)
+        for charge, dataset in datasets:
+            futures[charge] = charge_pool.submit(
+                _generate_for_charge, dataset, mz_min, mz_max, device)
+
+    try:
+        for charge, dataset in datasets:
+            with profiler.phase(f"cluster charge {charge}"):
+                if charge in futures:
+                    clusters, medoids = futures[charge].result()
+                elif config.backend == "ann":
+                    clusters, medoids = _generate_for_charge(
+                        dataset, mz_min, mz_max, device)
+                else:
+                    clusters, medoids = engine.generate_clusters(
+                        dataset,
+                        config.linkage,
+                        config.distance_threshold,
+                        config.min_matched_peaks,
+                        config.precursor_tol[0],
+                        config.precursor_tol[1],
+                        config.rt_tol,
+                        config.fragment_tol,
+                        config.batch_size,
+                        max_peaks=config.max_peaks_used,
+                        devices=config.devices,
+                        device=device,
+                    )
+            # Globally disjoint labels across charges.
+            clusters = clusters + current_label
+            current_label = int(np.amax(clusters)) + 1
+            total_rows += len(clusters)
+            total_clusters += len(np.unique(clusters))
+            labels_by_charge.append((dataset, clusters.astype(np.int64)))
+            if config.export_representatives:
+                representatives.extend(dataset.take(medoids))
+    finally:
+        if charge_pool is not None:
+            charge_pool.shutdown(wait=True, cancel_futures=True)
 
     if not labels_by_charge:
         logger.error("No spectra found to cluster")
@@ -335,3 +374,30 @@ def _run(args: Union[str, List[str], None], cleanup: list,
 
     logging.shutdown()
     return 0
+
+
+def _generate_for_charge(dataset, mz_min: float, mz_max: float, device):
+    """The ann engine on one charge bucket with the parsed options."""
+    from .cluster import ann_engine
+
+    return ann_engine.generate_clusters(
+        dataset,
+        eps=config.eps,
+        min_matches=config.min_matched_peaks,
+        precursor_tol_mass=config.precursor_tol[0],
+        precursor_tol_mode=config.precursor_tol[1],
+        rt_tol=config.rt_tol,
+        fragment_tol=config.fragment_tol,
+        batch_size=config.batch_size,
+        low_dim=config.low_dim,
+        n_neighbors=config.n_neighbors,
+        hash_seed=config.hash_seed,
+        min_mz=mz_min,
+        max_mz=mz_max,
+        max_peaks=config.max_peaks_used,
+        devices=config.devices,
+        ann_index=config.ann_index,
+        cluster_method=config.cluster_method,
+        linkage=config.linkage,
+        device=device,
+    )

@@ -1,4 +1,4 @@
-// The two launchers of the pair-matching routine (matching.cuh), with a
+// Three launchers of the pair-matching routine (matching.cuh), with a
 // plain C interface for ctypes (falcon_tpu_torch/ops/_build.py).  Each
 // function launches on the given stream, does not synchronise, allocates
 // nothing and returns cudaGetLastError() of its launch.
@@ -20,6 +20,15 @@
 // Design: a grid-stride loop of warps over the pair index; a warp finds its
 // interval by binary search over `pair_starts` and its (i, j) by inverting
 // the condensed index.
+//
+// falcon_pair_list_scores replaces the exact scoring inside
+// falcon_tpu/ops/rerank.py::rerank_scan_body (XLA, no Pallas), as the
+// pruned linkage calls it (falcon_tpu/ops/pairwise.py::_rerank_pool): each
+// query row against its own list of K pool ids, -1 = none.  Same bound as
+// K1.  Design: K4's grid-stride loop of warps over the (query, slot)
+// entries in row-major order, so the warps of a block share one query row;
+// a warp whose id is -1 writes PL_MISSING and takes the next entry.  The
+// later rerank adds a top-k over each row's slots around this launcher.
 
 #include <cuda_runtime.h>
 
@@ -34,6 +43,9 @@ constexpr int K1_WARPS = 2;   // 2 x 17 KB of shared memory per block
 constexpr int K1_COLS = 32;   // columns per block
 constexpr int K4_WARPS = 2;
 constexpr int K4_MAX_BLOCKS = 8192;
+constexpr int PL_WARPS = 2;
+constexpr int PL_MAX_BLOCKS = 8192;
+constexpr float PL_MISSING = -2.f;  // ops/knn.py NEG: below any score
 
 __global__ void __launch_bounds__(K1_WARPS * 32) panel_kernel(
     const float* __restrict__ mz_rows, const float* __restrict__ int_rows,
@@ -112,6 +124,34 @@ __global__ void __launch_bounds__(K4_WARPS * 32) grouped_kernel(
   }
 }
 
+__global__ void __launch_bounds__(PL_WARPS * 32) pair_list_kernel(
+    const float* __restrict__ mz_q, const float* __restrict__ int_q,
+    const float* __restrict__ mz_pool, const float* __restrict__ int_pool,
+    const long long* __restrict__ ids, long long n_entries, int k,
+    float tol, int rounds, float* __restrict__ scores,
+    int* __restrict__ matches) {
+  __shared__ WarpScratch scratch[PL_WARPS];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long stride = (long long)gridDim.x * PL_WARPS;
+  for (long long t = (long long)blockIdx.x * PL_WARPS + warp; t < n_entries;
+       t += stride) {
+    const long long id = ids[t];  // the same for every lane of the warp
+    float score = PL_MISSING;
+    int n_match = 0;
+    if (id >= 0) {
+      const long long q = t / k;
+      match_pair(mz_q + q * P, int_q + q * P, mz_pool + id * P,
+                 int_pool + id * P, tol, rounds, scratch[warp], score,
+                 n_match);
+    }
+    if (lane == 0) {
+      scores[t] = score;
+      if (matches != nullptr) matches[t] = n_match;
+    }
+  }
+}
+
 }  // namespace falcon
 
 extern "C" {
@@ -150,6 +190,27 @@ int falcon_grouped_scores(const float* mz, const float* intensity,
     falcon::grouped_kernel<<<(unsigned)blocks, falcon::K4_WARPS * 32, 0,
                              (cudaStream_t)stream>>>(
         mz, intensity, starts, pair_starts, n_groups, n_pairs, tol, rounds,
+        scores, matches);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Pair lists.  Queries (n_q, 64) and pool (n_pool, 64) f32; ids (n_q, k)
+// int64 pool rows, -1 = none, n_entries = n_q * k; every id < n_pool.
+// Writes scores (and matches, if not null) (n_q, k): PL_MISSING and 0 for
+// id -1.
+int falcon_pair_list_scores(const float* mz_q, const float* int_q,
+                            const float* mz_pool, const float* int_pool,
+                            const long long* ids, long long n_entries,
+                            int k, float tol, int rounds, float* scores,
+                            int* matches, void* stream) {
+  if (n_entries > 0) {
+    long long blocks =
+        (n_entries + falcon::PL_WARPS - 1) / falcon::PL_WARPS;
+    if (blocks > falcon::PL_MAX_BLOCKS) blocks = falcon::PL_MAX_BLOCKS;
+    falcon::pair_list_kernel<<<(unsigned)blocks, falcon::PL_WARPS * 32, 0,
+                               (cudaStream_t)stream>>>(
+        mz_q, int_q, mz_pool, int_pool, ids, n_entries, k, tol, rounds,
         scores, matches);
   }
   return (int)cudaGetLastError();

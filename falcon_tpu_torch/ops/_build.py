@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-At first use, ``nvcc`` compiles ``falcon_tpu_torch/csrc/*.cu`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, which is
-loaded with ``ctypes``.  The library lands in ``falcon_tpu_torch/_build/``
-under a name keyed by a hash of the sources and flags, so a changed source
-is rebuilt and an unchanged one is reused.  Nothing is built or imported
+At first use, ``nvcc`` compiles each ``falcon_tpu_torch/csrc/*.cu`` for
+Hopper (``sm_90a``), all sources at once in parallel processes, and links
+the objects into one shared library with a plain C interface, which is
+loaded with ``ctypes``.  ``build_log`` keeps what ``-Xptxas -v`` said about
+each kernel (registers, shared memory, spills).  The library lands in
+``falcon_tpu_torch/_build/`` under a name keyed by a hash of the sources
+and flags, so a changed source is rebuilt and an unchanged one is reused.  Nothing is built or imported
 when this module is imported: the CPU tests import every module.
 """
 
@@ -20,11 +22,12 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
 build_seconds = None  # wall time of the build this process ran, if any
+build_log = ""  # the compilers' messages of that build
 
 _p, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
@@ -36,6 +39,14 @@ _SIGNATURES = {
     # mz, intensity, starts, pair_starts, n_groups, n_pairs, tol, rounds,
     # scores, matches, stream
     "falcon_grouped_scores": [_p, _p, _p, _p, _i, _ll, _f, _i, _p, _p, _p],
+    # mz_rows, int_rows, n_rows, mz_pool, int_pool, starts, pass_offset,
+    # window, tol, rounds, scores, matches, stream
+    "falcon_banded_scores": [_p, _p, _i, _p, _p, _p, _ll, _i, _f, _i, _p,
+                             _p, _p],
+    # mz_q, int_q, mz_pool, int_pool, ids, n_entries, k, tol, rounds,
+    # scores, matches, stream
+    "falcon_pair_list_scores": [_p, _p, _p, _p, _p, _ll, _i, _f, _i, _p,
+                                _p, _p],
 }
 
 
@@ -72,29 +83,49 @@ def library_path() -> str:
         BUILD_DIR, f"libfalcon_tpu_torch_{digest.hexdigest()[:16]}.so")
 
 
-def _compile(out: str) -> None:
+def _run(cmds):
+    """Run the commands in parallel; raise with the first failure's
+    command and messages; return everything they printed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"CUDA kernel build failed (exit {proc.returncode}):\n"
+                f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
+def _compile(out: str) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = ([_nvcc()] + NVCC_FLAGS + ["-o", tmp]
-           + [s for s in _sources() if s.endswith(".cu")])
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"CUDA kernel build failed (exit {proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}"
-        )
+    nvcc = _nvcc()
+    sources = [s for s in _sources() if s.endswith(".cu")]
+    objects = [f"{tmp}.{os.path.basename(s)}.o" for s in sources]
+    try:
+        log = _run([[nvcc] + NVCC_FLAGS + ["-c", "-o", o, s]
+                    for s, o in zip(sources, objects)])
+        log += _run([[nvcc] + NVCC_FLAGS + ["-shared", "-o", tmp]
+                     + objects])
+    finally:
+        for o in objects:
+            if os.path.exists(o):
+                os.remove(o)
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half
+    return log
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
-    global _lib, build_seconds
+    global _lib, build_seconds, build_log
     with _lock:
         if _lib is None:
             path = library_path()
             if not os.path.isfile(path):
                 start = time.perf_counter()
-                _compile(path)
+                build_log = _compile(path)
                 build_seconds = time.perf_counter() - start
             lib = ctypes.CDLL(path)
             for name, argtypes in _SIGNATURES.items():

@@ -1,6 +1,6 @@
-"""All-pairs spectrum similarity: the two CUDA kernels and their callers.
+"""Spectrum-pair similarity: three CUDA kernels and their callers.
 
-Port of the exact backend's scoring in ``falcon_tpu/ops/pairwise.py``:
+Port of the scoring in ``falcon_tpu/ops/pairwise.py``:
 
 - ``panel_scores`` (K1) replaces the Pallas kernel ``panel_scores_pallas``:
   every (row, column) pair of a panel of spectra, or only the pairs above
@@ -11,8 +11,13 @@ Port of the exact backend's scoring in ``falcon_tpu/ops/pairwise.py``:
   intervals are ragged (``starts`` offsets) rather than padded to a common
   size, and the output is the concatenation of their condensed orders.
   ``grouped_condensed_distances`` feeds it.
+- ``pair_list_scores`` replaces the exact scoring of the XLA
+  ``rerank_scan_body`` (``falcon_tpu/ops/rerank.py``): each query row
+  against its own list of pool ids.  ``pruned_condensed_distances`` feeds
+  it the pairs of a large linkage component whose spread upper bound
+  (``ub_pass_counts``, ``ub_pass_topk``) can reach ``1 - eps``.
 
-Both kernels are the matching routine of ``csrc/matching.cuh`` at two
+All three are the matching routine of ``csrc/matching.cuh`` at different
 launch shapes (``csrc/pairwise.cu``).  Each wrapper checks its inputs,
 launches its kernel for CUDA tensors and counts the launch in its
 ``launches`` attribute; for CPU tensors it runs its plain version
@@ -24,6 +29,7 @@ m/z ``PAD_MZ``, intensity 0, as ``falcon_tpu.store.store.padded_peaks``
 makes them), so padded peaks never match.
 """
 
+import threading
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -32,6 +38,7 @@ import torch
 from ..device import resolve_device, synchronize
 from ..utils.profiling import profiler
 from . import _build
+from .knn import NEG, _pow2_at_least, stable_topk
 from .matching import DEFAULT_ROUNDS, f32_tolerance, indexed_pair_scores
 
 PAD_MZ = -1e6  # padding m/z: outside every tolerance window
@@ -73,6 +80,16 @@ def _check_spectra(name: str, *arrays: torch.Tensor) -> torch.device:
 def _check_launch(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+_launch_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (charges may be clustered on two
+    threads at once, and ``+=`` on an attribute is not atomic)."""
+    with _launch_lock:
+        wrapper.launches += 1
 
 
 def panel_scores(
@@ -123,7 +140,7 @@ def panel_scores(
             torch.cuda.current_stream(device).cuda_stream,
         )
     _check_launch("K1 panel", err)
-    panel_scores.launches += 1
+    count_launch(panel_scores)
     return scores, matches
 
 
@@ -223,7 +240,7 @@ def batched_block_scores(
             torch.cuda.current_stream(device).cuda_stream,
         )
     _check_launch("K4 grouped", err)
-    batched_block_scores.launches += 1
+    count_launch(batched_block_scores)
     return scores, matches
 
 
@@ -355,4 +372,213 @@ def condensed_distances(
             segment = (1.0 - scores[upper]).cpu().numpy()
             start = n * r0 - r0 * (r0 + 1) // 2
             out[start:start + segment.shape[0]] = segment
+    return out
+
+
+def _check_ids(ids: torch.Tensor, n_rows: int, n_pool: int,
+               device: torch.device) -> None:
+    if (ids.dtype != torch.int64 or ids.ndim != 2 or ids.shape[0] != n_rows
+            or ids.device != device or not ids.is_contiguous()):
+        raise ValueError(f"pair_list_scores: ids must be a contiguous "
+                         f"(n_rows={n_rows}, K) int64 tensor on {device}")
+    if ids.numel() and int(ids.max()) >= n_pool:
+        raise ValueError(f"pair_list_scores: an id is outside the "
+                         f"{n_pool}-spectrum pool")
+
+
+def pair_list_scores(
+    mz_q: torch.Tensor,
+    int_q: torch.Tensor,
+    mz_pool: torch.Tensor,
+    int_pool: torch.Tensor,
+    ids: torch.Tensor,
+    fragment_tol: float,
+    rounds: int,
+    with_matches: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Scores of each query row against its own pool ids.
+
+    ``mz_q``/``int_q``: (n_q, P) queries; ``ids``: (n_q, K) int64 rows of
+    the (n_pool, P) pool, -1 = none.  Returns (scores f32, matches i32 or
+    None), each (n_q, K); an entry with id -1 gets score ``NEG`` and 0
+    matches.
+    """
+    device = _check_spectra("pair_list_scores", mz_q, int_q, mz_pool,
+                            int_pool)
+    if mz_q.shape != int_q.shape or mz_pool.shape != int_pool.shape:
+        raise ValueError("pair_list_scores: m/z and intensity shapes differ")
+    if rounds < 0:
+        raise ValueError(f"pair_list_scores: rounds must be >= 0, got "
+                         f"{rounds}")
+    _check_ids(ids, mz_q.shape[0], mz_pool.shape[0], device)
+    if device.type == "cpu":
+        return pair_list_scores_plain(mz_q, int_q, mz_pool, int_pool, ids,
+                                      fragment_tol, rounds, with_matches)
+    lib = _build.library()
+    scores = torch.empty(ids.shape, dtype=torch.float32, device=device)
+    matches = (torch.empty(ids.shape, dtype=torch.int32, device=device)
+               if with_matches else None)
+    with torch.cuda.device(device):
+        err = lib.falcon_pair_list_scores(
+            mz_q.data_ptr(), int_q.data_ptr(), mz_pool.data_ptr(),
+            int_pool.data_ptr(), ids.data_ptr(), ids.numel(),
+            ids.shape[1], f32_tolerance(fragment_tol), int(rounds),
+            scores.data_ptr(), matches.data_ptr() if with_matches else None,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _check_launch("pair-list", err)
+    count_launch(pair_list_scores)
+    return scores, matches
+
+
+pair_list_scores.launches = 0
+
+
+def pair_list_scores_plain(
+    mz_q: torch.Tensor,
+    int_q: torch.Tensor,
+    mz_pool: torch.Tensor,
+    int_pool: torch.Tensor,
+    ids: torch.Tensor,
+    fragment_tol: float,
+    rounds: int,
+    with_matches: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch version of :func:`pair_list_scores` (any device)."""
+    n_q, k = ids.shape
+    flat = ids.reshape(-1)
+    keep = torch.nonzero(flat >= 0)[:, 0]
+    s, m = indexed_pair_scores(mz_q, int_q, keep // max(k, 1), mz_pool,
+                               int_pool, flat[keep], fragment_tol, rounds)
+    scores = torch.full((n_q * k,), NEG, device=mz_q.device)
+    scores[keep] = s
+    if not with_matches:
+        return scores.view(n_q, k), None
+    matches = torch.zeros(n_q * k, dtype=torch.int32, device=mz_q.device)
+    matches[keep] = m
+    return scores.view(n_q, k), matches.view(n_q, k)
+
+
+def _bound_panels(spread: torch.Tensor, plain: torch.Tensor, thr: float,
+                  panel: int) -> Iterator[Tuple[int, torch.Tensor,
+                                                torch.Tensor]]:
+    """(first row, bound, passing mask) per row panel of the (m, m)
+    bound matrix ``spread @ plain.T``; a pair passes when it lies above
+    the diagonal and its bound reaches ``thr`` (compared in float32)."""
+    if spread.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "the spread upper bound needs full float32 matmuls; TF32 is on "
+            "(torch.backends.cuda.matmul.allow_tf32 / "
+            "torch.set_float32_matmul_precision)")
+    m = spread.shape[0]
+    cols = torch.arange(m, device=spread.device)
+    plain_t = plain.t()
+    thr32 = f32_tolerance(thr)
+    for r0 in range(0, m, panel):
+        r1 = min(r0 + panel, m)
+        ub = spread[r0:r1] @ plain_t
+        rows = torch.arange(r0, r1, device=spread.device)
+        yield r0, ub, (cols[None, :] > rows[:, None]) & (ub >= thr32)
+
+
+def ub_pass_counts(spread: torch.Tensor, plain: torch.Tensor, thr: float,
+                   panel: int) -> torch.Tensor:
+    """Per row, the number of pairs above the diagonal whose spread upper
+    bound ``spread_i . plain_j`` reaches ``thr`` (int64, (m,))."""
+    counts = torch.empty(spread.shape[0], dtype=torch.int64,
+                         device=spread.device)
+    for r0, _, ok in _bound_panels(spread, plain, thr, panel):
+        counts[r0:r0 + ok.shape[0]] = ok.sum(dim=1)
+    return counts
+
+
+def ub_pass_topk(spread: torch.Tensor, plain: torch.Tensor, thr: float,
+                 k: int, panel: int) -> torch.Tensor:
+    """Per row, the column ids of the passing pairs, best bound first
+    (ties to the lower column), -1 padded to (m, k); ``k`` must cover the
+    largest count of :func:`ub_pass_counts`."""
+    ids = torch.full((spread.shape[0], k), -1, dtype=torch.int64,
+                     device=spread.device)
+    thr32 = f32_tolerance(thr)
+    for r0, ub, ok in _bound_panels(spread, plain, thr, panel):
+        vals, pos = stable_topk(torch.where(ok, ub, -1.0), k)
+        ids[r0:r0 + ok.shape[0], :pos.shape[1]] = torch.where(
+            vals >= thr32, pos, -1)
+    return ids
+
+
+def pruned_condensed_distances(
+    mz: np.ndarray,
+    intensity: np.ndarray,
+    hasher,
+    eps: float,
+    fragment_tol: float,
+    min_matches: int = 0,
+    rounds: int = 4,
+    panel_rows: int = 1024,
+    device=None,
+) -> np.ndarray:
+    """Condensed distances with provably unused pairs clamped to 1.0.
+
+    ``falcon_tpu/ops/pairwise.py::pruned_condensed_distances``: a complete
+    or single linkage cut at ``eps`` never reads the exact value of a
+    distance above ``eps`` (the argument is in that docstring), so only
+    the pairs whose tolerance-spread upper bound reaches
+    ``1 - eps - 1e-3`` are scored exactly (``pair_list_scores``, at
+    ``rounds``), and every other pair gets distance 1.0.  Not valid for
+    average linkage.  With ``eps`` near 1 nothing can be pruned, and when
+    a row passes more than a quarter of the padded block the component is
+    dense; both go to :func:`condensed_distances` (K1) instead.
+    ``hasher`` is a ``falcon_tpu_torch.ops.vectorize.SpectrumHasher``.
+    """
+    n = mz.shape[0]
+    if n < 2:
+        return np.zeros(0, np.float32)
+    thr = 1.0 - float(eps) - 1e-3
+    if thr <= 0.0:
+        return condensed_distances(mz, intensity, fragment_tol, min_matches,
+                                   rounds=DEFAULT_ROUNDS, device=device)
+    dev = resolve_device(device)
+    m_pad = _pow2_at_least(n, 512)  # the JAX package's block; sets "dense"
+    mz_d = torch.from_numpy(np.ascontiguousarray(mz, np.float32)).to(dev)
+    int_d = torch.from_numpy(
+        np.ascontiguousarray(intensity, np.float32)).to(dev)
+    panel = min(panel_rows, m_pad)
+    with profiler.phase("bound pairs"):
+        spread = hasher.vectorize(mz_d, int_d, norm=False, spread=True)
+        plain = hasher.vectorize(mz_d, int_d, norm=False)
+        kmax = int(ub_pass_counts(spread, plain, thr, panel).max())
+    out = np.ones(n * (n - 1) // 2, np.float32)
+    if kmax == 0:
+        return out
+    k = _pow2_at_least(kmax, 16)
+    if k > m_pad // 4:
+        return condensed_distances(mz, intensity, fragment_tol, min_matches,
+                                   rounds=DEFAULT_ROUNDS, device=dev)
+    with profiler.phase("bound pairs"):
+        neigh = ub_pass_topk(spread, plain, thr, k, panel)
+    del spread, plain
+    # Row chunks bound the (rows, k) score slabs.
+    row_chunk = n
+    while row_chunk * k > 2**24 and row_chunk > 512:
+        row_chunk //= 2
+    with_matches = min_matches > 0
+    for r0 in range(0, n, row_chunk):
+        r1 = min(r0 + row_chunk, n)
+        ids = neigh[r0:r1]
+        with profiler.phase("score pair lists"):
+            scores, matches = pair_list_scores(
+                mz_d[r0:r1], int_d[r0:r1], mz_d, int_d, ids, fragment_tol,
+                rounds, with_matches)
+            valid = (ids >= 0) & (scores > NEG)
+            if with_matches:
+                # Too few matched peaks means similarity 0, distance 1.0:
+                # the clamp already.
+                valid &= matches >= min_matches
+            ii = torch.arange(r0, r1, device=dev)[:, None].expand_as(
+                ids)[valid]
+            jj = ids[valid]
+            cond = (ii * n - ii * (ii + 1) // 2 + (jj - ii - 1)).cpu()
+            dist = (1.0 - scores[valid].clamp(0.0, 1.0)).cpu()
+        out[cond.numpy()] = dist.numpy()
     return out

@@ -1,6 +1,7 @@
 """The port's CLI (``python -m falcon_tpu_torch``) against the JAX
 package's on the CPU: the same corpus gives the same CSV bytes (apart from
-the ``# work_dir`` line) and the same medoid MGF, a work_dir ingested by one
+the ``# work_dir`` line) and the same medoid MGF, with the exact backend
+and with ``--backend ann --ann_index exact``; a work_dir ingested by one
 package resumes under the other, and the port never imports JAX.
 """
 
@@ -16,6 +17,8 @@ import torch
 from falcon_tpu import cli as jax_cli
 from falcon_tpu.simulate import make_clustered_spectra, write_mgf
 from falcon_tpu_torch import api, cli
+from falcon_tpu_torch.cluster import ann_engine
+from falcon_tpu_torch.ops import exact_knn
 from falcon_tpu_torch.device import DEVICE_ENV, resolve_device
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -63,6 +66,68 @@ def test_csv_and_mgf_identical_to_jax(mgf_inputs, extra):
         str(tmp_path / "jax.mgf"))
 
 
+ANN = ["--backend", "ann", "--ann_index", "exact"]
+
+
+@pytest.mark.parametrize("extra,group_max", [
+    ([], None),
+    (["--linkage", "single", "--min_matched_peaks", "3", "--rt_tol", "30"],
+     None),
+    (["--linkage", "average"], 4),
+    (["--eps", "0.2"], 4),
+], ids=["complete", "single_min_matches_rt", "average_large",
+        "complete_large_pruned"])
+def test_ann_exact_csv_and_mgf_identical_to_jax(mgf_inputs, monkeypatch,
+                                                extra, group_max):
+    # group_max 4 sends the 5-spectrum clusters' components down the
+    # large-component routes: K1 under average linkage, the pruned pair
+    # lists under complete linkage.
+    if group_max is not None:
+        monkeypatch.setenv("FALCON_TPU_LINKAGE_GROUP_MAX", str(group_max))
+        monkeypatch.setattr(ann_engine, "LINKAGE_GROUP_MAX", group_max)
+    tmp_path, files = mgf_inputs
+    flags = ["--export_representatives"] + ANN + extra
+    assert jax_cli.main(files + [str(tmp_path / "jax"), "--work_dir",
+                                 str(tmp_path / "w_jax")] + flags) == 0
+    assert cli.main(files + [str(tmp_path / "torch"), "--work_dir",
+                             str(tmp_path / "w_torch")] + flags) == 0
+    assert (_csv_without_work_dir(str(tmp_path / "torch.csv"))
+            == _csv_without_work_dir(str(tmp_path / "jax.csv")))
+    assert _read(str(tmp_path / "torch.mgf")) == _read(
+        str(tmp_path / "jax.mgf"))
+
+
+def test_ann_exact_two_passes_csv_and_mgf_identical_to_jax(tmp_path,
+                                                         monkeypatch):
+    # ~160 charge-2 spectra in 1 m/z: a 500 ppm band spans 256 columns,
+    # and a tiny panel budget makes the port cover it in two passes.
+    monkeypatch.setenv(DEVICE_ENV, "cpu")
+    monkeypatch.setattr(exact_knn, "PANEL_BYTES", 1)
+    spectra, _ = make_clustered_spectra(
+        n_clusters=20, cluster_size=6, n_noise=40, seed=33, charges=(2,),
+        precursor_mz_range=(600.0, 601.0))
+    files = [write_mgf(str(tmp_path / "dense.mgf"), spectra)]
+    flags = (["--export_representatives", "--precursor_tol", "500", "ppm"]
+             + ANN)
+    calls = []
+    banded = exact_knn.banded_panel_scores
+
+    def count(*a, **k):
+        calls.append(a[6])  # the pass width
+        return banded(*a, **k)
+
+    monkeypatch.setattr(exact_knn, "banded_panel_scores", count)
+    assert jax_cli.main(files + [str(tmp_path / "jax"), "--work_dir",
+                                 str(tmp_path / "w_jax")] + flags) == 0
+    assert cli.main(files + [str(tmp_path / "torch"), "--work_dir",
+                             str(tmp_path / "w_torch")] + flags) == 0
+    assert calls == [128, 128]
+    assert (_csv_without_work_dir(str(tmp_path / "torch.csv"))
+            == _csv_without_work_dir(str(tmp_path / "jax.csv")))
+    assert _read(str(tmp_path / "torch.mgf")) == _read(
+        str(tmp_path / "jax.mgf"))
+
+
 def test_work_dir_resumes_across_packages(mgf_inputs, caplog):
     tmp_path, files = mgf_inputs
     work = str(tmp_path / "work")
@@ -97,6 +162,23 @@ def test_api_matches_jax_api(mgf_inputs):
         api.cluster(files, backend="ann")
 
 
+def test_api_passes_ann_options_through(mgf_inputs):
+    from falcon_tpu import api as jax_api
+
+    tmp_path, files = mgf_inputs
+    options = dict(backend="ann", ann_index="exact", eps=0.2,
+                   n_neighbors=8, export_representatives=True)
+    result = api.cluster(files, **options)
+    ref = jax_api.cluster(files, **options)
+    for field in ("spectrum_id", "precursor_charge", "cluster"):
+        assert (getattr(result, field) == getattr(ref, field)).all()
+    assert ([s.identifier for s in result.representatives]
+            == [s.identifier for s in ref.representatives])
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        api.cluster(files, backend="ann", ann_index="exact",
+                    cluster_method="dbscan")
+
+
 def test_profile_writes_a_torch_trace(mgf_inputs):
     tmp_path, files = mgf_inputs
     trace_dir = tmp_path / "trace"
@@ -105,12 +187,14 @@ def test_profile_writes_a_torch_trace(mgf_inputs):
     assert (trace_dir / "trace.json").stat().st_size > 0
 
 
-def test_no_jax_is_imported(mgf_inputs):
+@pytest.mark.parametrize("flags", [[], ANN], ids=["exact", "ann_exact"])
+def test_no_jax_is_imported(mgf_inputs, flags):
     tmp_path, files = mgf_inputs
     script = (
         "import sys\n"
         "from falcon_tpu_torch import cli\n"
-        f"rc = cli.main({files!r} + [{str(tmp_path / 'out')!r}])\n"
+        f"rc = cli.main({files!r} + [{str(tmp_path / 'out')!r}] + "
+        f"{flags!r})\n"
         "assert rc == 0, rc\n"
         "leaked = sorted(m for m in sys.modules\n"
         "                if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
@@ -147,7 +231,9 @@ def test_cuda_without_gpu_raises(monkeypatch):
 @pytest.mark.parametrize("flags", [
     ["--backend", "ann"],
     ["--export_representatives", "--representative_method", "consensus"],
-], ids=["ann", "consensus"])
+    ANN + ["--cluster_method", "dbscan"],
+    ["--backend", "ann", "--ann_index", "ivf"],
+], ids=["ann", "consensus", "ann_dbscan", "ann_ivf"])
 def test_unported_options_exit_1(mgf_inputs, flags, caplog):
     tmp_path, files = mgf_inputs
     out = str(tmp_path / "out")

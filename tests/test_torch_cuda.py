@@ -19,7 +19,8 @@ import torch
 from falcon_tpu.preprocess import process_spectrum
 from falcon_tpu.simulate import make_clustered_spectra
 from falcon_tpu.store.store import SpectrumStore, padded_peaks
-from falcon_tpu_torch.cluster import engine
+from falcon_tpu_torch.cluster import ann_engine, engine
+from falcon_tpu_torch.ops import exact_knn as ex
 from falcon_tpu_torch.ops import pairwise as pw
 
 pytestmark = pytest.mark.cuda
@@ -131,3 +132,83 @@ def test_engine_gpu_equals_cpu(cuda, rows, tmp_path, panel_only):
         *args, device="cpu", panel_only=panel_only)
     np.testing.assert_array_equal(labels, ref_labels)
     np.testing.assert_array_equal(medoids, ref_medoids)
+
+
+@pytest.mark.parametrize("pass_offset,window", [(0, 256), (128, 128),
+                                                (0, 96)])
+@pytest.mark.parametrize("with_matches", [False, True])
+@pytest.mark.parametrize("rounds", [1, 4])
+def test_banded_kernel_matches_plain(cuda, rows, pass_offset, window,
+                                     with_matches, rounds):
+    mz, intensity = _padded(rows, cuda)
+    n_pool = mz.shape[0] // 128 * 128
+    pool = mz[:n_pool].contiguous(), intensity[:n_pool].contiguous()
+    max_start = (n_pool - pass_offset - window) // 128
+    starts = torch.arange(70, device=cuda, dtype=torch.int32) % (
+        max_start + 1)
+    args = (mz[10:80], intensity[10:80], *pool, starts, pass_offset, window,
+            TOL, rounds, with_matches)
+    before = ex.banded_panel_scores.launches
+    got = ex.banded_panel_scores(*args)
+    torch.cuda.synchronize()
+    assert ex.banded_panel_scores.launches == before + 1
+    _assert_same(got, ex.banded_panel_scores_plain(*args))
+
+
+@pytest.mark.parametrize("with_matches", [False, True])
+def test_pair_list_kernel_matches_plain(cuda, rows, with_matches):
+    mz, intensity = _padded(rows, cuda)
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    ids = torch.randint(0, mz.shape[0], (50, 37), generator=gen)
+    ids[torch.rand(ids.shape, generator=gen) < 0.3] = -1
+    ids[7] = -1  # a row with no pairs at all
+    args = (mz[:50], intensity[:50], mz, intensity, ids.to(cuda), TOL, 4,
+            with_matches)
+    before = pw.pair_list_scores.launches
+    got = pw.pair_list_scores(*args)
+    torch.cuda.synchronize()
+    assert pw.pair_list_scores.launches == before + 1
+    _assert_same(got, pw.pair_list_scores_plain(*args))
+
+
+@pytest.mark.parametrize("min_matches", [0, 6])
+def test_exact_banded_topk_gpu_equals_cpu(cuda, rows, min_matches):
+    mz, intensity = _padded(rows, "cpu")
+    n = len(rows)
+    pad = 512 - n
+    mz = torch.nn.functional.pad(mz, (0, 0, 0, pad), value=pw.PAD_MZ)
+    intensity = torch.nn.functional.pad(intensity, (0, 0, 0, pad))
+    pmz = np.asarray([r["precursor_mz"] for r in rows])
+    rts = np.asarray([r["retention_time"] for r in rows])
+    args = (pmz, 20.0, "ppm", 16, TOL, 4, rts, 600.0, min_matches)
+    got = ex.exact_banded_topk(mz.to(cuda), intensity.to(cuda), *args,
+                               block_rows=128, pass_width=128)
+    want = ex.exact_banded_topk(mz, intensity, *args)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("linkage", ["complete", "average"])
+def test_ann_engine_gpu_equals_cpu(cuda, rows, tmp_path, monkeypatch,
+                                   linkage):
+    # Components over 4 spectra take the large routes: the pruned pair
+    # lists (complete) and K1 (average).
+    monkeypatch.setattr(ann_engine, "LINKAGE_GROUP_MAX", 4)
+    store = SpectrumStore(str(tmp_path / "spectra"))
+    writer = store.writer()
+    writer.add_many(rows)
+    writer.close()
+    args = (store.dataset(2), 0.2, 0, 20.0, "ppm", None, TOL, 2**15)
+    before = (ex.banded_panel_scores.launches, pw.pair_list_scores.launches,
+              pw.panel_scores.launches)
+    labels, medoids = ann_engine.generate_clusters(*args, linkage=linkage,
+                                                   device=cuda)
+    after = (ex.banded_panel_scores.launches, pw.pair_list_scores.launches,
+             pw.panel_scores.launches)
+    ref_labels, ref_medoids = ann_engine.generate_clusters(
+        *args, linkage=linkage, device="cpu")
+    np.testing.assert_array_equal(labels, ref_labels)
+    np.testing.assert_array_equal(medoids, ref_medoids)
+    assert after[0] > before[0]
+    assert after[1 if linkage == "complete" else 2] > before[
+        1 if linkage == "complete" else 2]
