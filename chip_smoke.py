@@ -9,11 +9,13 @@ the CUDA toolkit::
 It builds the port's CUDA kernels from ``falcon_tpu_torch/csrc`` and then:
 
 1. prints the card (``nvidia-smi``), the torch / CUDA versions and the
-   kernel build time;
+   build times of the kernels and of the native host library;
 2. holds each kernel against its plain PyTorch version on the same CUDA
-   tensors, at the main path's shapes and on a tie-heavy case, and times
-   both (CUDA events for kernels, a synchronised host clock for the plain
-   versions);
+   tensors, at the main path's shapes, on a tie-heavy case, on spectra
+   whose peaks are not sorted by m/z and at wide fragment tolerances, and
+   times both (CUDA events for kernels, a synchronised host clock for the
+   plain versions); it counts the edges (peak pairs within tolerance) of
+   the timed calls' inputs, from which it computes each kernel's bound;
 3. runs the port's CLI with its defaults (``--backend exact``) on a
    50,000-spectrum corpus shaped like ``bench.py``'s (hundreds of small
    precursor intervals: the grouped kernel, K4);
@@ -32,8 +34,8 @@ It builds the port's CUDA kernels from ``falcon_tpu_torch/csrc`` and then:
 Every phase raises on failure, so the script exits non-zero; it also exits
 non-zero, printing no result, without a CUDA GPU.  On success the last two
 lines of standard output are one JSON object with each kernel's launches,
-error and times, then ``{"ok": true, "device": {...}}``.  JAX is never
-imported.
+error, times and bound, then ``{"ok": true, "device": {...}}``.  Neither
+JAX nor the JAX package is ever imported.
 """
 
 import argparse
@@ -49,6 +51,7 @@ import numpy as np
 
 TOL = 0.05            # the CLI's default --fragment_tol
 ATOL = 1e-6           # kernel vs plain scores (same summation order)
+WIDE_TOLS = (0.5, 2.0)  # fragment tolerances at which columns have many edges
 PANEL_ROWS = 2048     # condensed_distances' default row panel
 K1_COLS = (4096, 16384)  # K1 parity shapes: PANEL_ROWS x each
 K4_SIZES = (2, 3, 5, 8, 13, 31, 64, 100, 137, 257, 513, 1024)
@@ -67,6 +70,18 @@ SOURCES = {K1: "falcon_tpu_torch/csrc/pairwise.cu",
            K2: "falcon_tpu_torch/csrc/exact_knn.cu",
            K4: "falcon_tpu_torch/csrc/pairwise.cu",
            PL: "falcon_tpu_torch/csrc/pairwise.cu"}
+# The bound of a kernel's call: the larger of its bytes (each input read
+# once, each output written once) over the HBM rate and its operations over
+# the float32 rate outside the tensor cores (H100 SXM data sheet, 700 W).
+# No PyTorch call computes locally-dominant matching, so no kernel has a
+# library yardstick.  The operations are what these inputs need: a merge
+# walk over the two m/z-sorted peak lists per pair (a subtraction and a
+# compare per step) and, per edge, its product, the > 0 test and the row
+# and column maxima; rounds after the first are not counted.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+SEARCH_OPS = 2 * (2 * 64 - 1)
+EDGE_OPS = 4
 REPLACES = {
     K1: "falcon_tpu/ops/pairwise.py:44",
     K2: "falcon_tpu/ops/exact_knn.py:243",
@@ -90,7 +105,7 @@ def card_line() -> str:
 
 def preprocess(spectra):
     """Quality-filter and normalise spectra with the CLI's defaults."""
-    from falcon_tpu.preprocess import process_spectrum
+    from falcon_tpu_torch.preprocess import process_spectrum
 
     rows = [process_spectrum(s, 5, 250, 101.0, 1500.0, 1.5, 0.01, 50, None)
             for s in spectra]
@@ -99,7 +114,7 @@ def preprocess(spectra):
 
 def padded(rows):
     """(n, 64) float32 m/z and intensity of preprocessed rows."""
-    from falcon_tpu.store.store import padded_peaks
+    from falcon_tpu_torch.store.store import padded_peaks
 
     offsets = np.zeros(len(rows) + 1, np.int64)
     offsets[1:] = np.cumsum([len(r["mz"]) for r in rows])
@@ -181,7 +196,7 @@ def chained_spectra(n_chains: int, chain_len: int, seed: int):
     one's 40 peaks and sits 2 ppm higher in precursor m/z: neighbours are
     within eps and tolerance, members far apart are not.  Returns
     (spectra, chain id per spectrum)."""
-    from falcon_tpu.ms_io.containers import Spectrum
+    from falcon_tpu_torch.ms_io.containers import Spectrum
 
     rng = np.random.default_rng(seed)
     spectra, truth = [], []
@@ -210,6 +225,60 @@ def wrappers():
             K4: (pw, "batched_block_scores"), PL: (pw, "pair_list_scores")}
 
 
+def edge_counts(mz_a, int_a, ii, mz_b, int_b, jj, tol, chunk=1 << 16):
+    """Edges of each pair (a[ii[t]], b[jj[t]]): the peak pairs within
+    ``tol`` whose intensity product is > 0, the entries the kernels'
+    ``match_sorted`` walks.  Plain torch, in chunks of pairs."""
+    import torch
+
+    from falcon_tpu_torch.ops.matching import f32_tolerance
+
+    tol = f32_tolerance(tol)
+    out = torch.empty(ii.shape[0], dtype=torch.int64, device=ii.device)
+    for t0 in range(0, ii.shape[0], chunk):
+        a, b = ii[t0:t0 + chunk], jj[t0:t0 + chunk]
+        within = (mz_a[a][:, :, None] - mz_b[b][:, None, :]).abs() <= tol
+        within &= (int_a[a][:, :, None] * int_b[b][:, None, :]) > 0
+        out[t0:t0 + chunk] = within.sum(dim=(1, 2))
+    return out
+
+
+def bound(n_pairs, n_edges, n_bytes):
+    """(bound ms, what sets it) of a call; see HBM_BYTES_PER_S."""
+    op_ms = (n_pairs * SEARCH_OPS + n_edges * EDGE_OPS) / F32_OPS_PER_S * 1e3
+    byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
+
+
+def log_edges(what, edges):
+    log(f"  edges per pair, {what}: mean {float(edges.double().mean()):.3f},"
+        f" max {int(edges.max())} ({edges.shape[0]} pairs)")
+
+
+def permuted(mz, intensity, seed):
+    """The same spectra with each one's 64 peaks (padding included) in a
+    random order, so no spectrum is sorted by m/z."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    perm = torch.argsort(torch.rand(mz.shape, generator=gen), dim=1)
+    perm = perm.to(mz.device)
+    return mz.gather(1, perm), intensity.gather(1, perm)
+
+
+def check_permutation(name, what, got, original):
+    """Scores of permuted spectra against those of the originals: the same
+    matching, summed over the columns in another order."""
+    import torch
+
+    err = float((got[0] - original[0]).abs().max())
+    if err > ATOL or not torch.equal(got[1], original[1]):
+        raise AssertionError(f"{name} {what}: permuted peaks change the "
+                             f"scores by {err:.3g} or the match counts")
+    log(f"  {name} {what}: permuted vs original peaks: max |score diff| "
+        f"{err:.3g}, match counts equal")
+
+
 def phase_kernels(dev, dense_rows, bench_rows, chain_rows, report):
     """Phase 2: each kernel against its plain version on the card."""
     import torch
@@ -218,6 +287,7 @@ def phase_kernels(dev, dense_rows, bench_rows, chain_rows, report):
 
     parity = Parity()
     times = {}
+    detail = {}
 
     def cuda(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -240,7 +310,7 @@ def phase_kernels(dev, dense_rows, bench_rows, chain_rows, report):
         want_upper = (torch.where(upper, want[0], 0.0),
                       torch.where(upper, want[1], 0))
         shape = f"{PANEL_ROWS}x{n_cols}"
-        times[(k1, shape, "plain")] = t_plain
+        detail[(k1, shape, "plain")] = t_plain
         log(f"  {k1} {shape}: plain version {t_plain:.1f} ms "
             f"(all pairs, with match counts)")
         for upper_only in (False, True):
@@ -256,8 +326,46 @@ def phase_kernels(dev, dense_rows, bench_rows, chain_rows, report):
                         f"with_matches={with_matches}")
                 parity.check(k1, what, got, ref)
                 ms = kernel_ms(run, reps=3)
-                times[(k1, shape, upper_only, with_matches)] = ms
+                detail[(k1, shape, upper_only, with_matches)] = ms
                 log(f"  {k1} {what}: kernel {ms:.2f} ms")
+        if n_cols == min(K1_COLS):
+            # Peaks in no order, and wide tolerances (many edges per
+            # column), on the same panel.
+            mz_p, int_p = permuted(mz_c, int_c, seed=n_cols)
+            p_args = (mz_p[r0:r0 + PANEL_ROWS], int_p[r0:r0 + PANEL_ROWS],
+                      mz_p, int_p, r0, TOL)
+            got = pw.panel_scores(*p_args)
+            parity.check(k1, f"{shape} unsorted peaks", got,
+                         pw.panel_scores_plain(*p_args))
+            check_permutation(k1, shape, got, want)
+            for tol in WIDE_TOLS:
+                w_args = (mz_r[:256], int_r[:256], mz_c, int_c, r0, tol)
+                parity.check(k1, f"256x{n_cols} fragment_tol={tol}",
+                             pw.panel_scores(*w_args),
+                             pw.panel_scores_plain(*w_args))
+    # The timed call: the full 2048 x 16384 panel with match counts; what
+    # its rounds cost, from the time with the round cap at 0 and 1.
+    shape = f"{PANEL_ROWS}x{max(K1_COLS)}"
+    for rounds in (0, 1):
+        detail[(k1, shape, "rounds", rounds)] = kernel_ms(
+            lambda: pw.panel_scores(*args, rounds=rounds), reps=3)
+    log(f"  {k1} {shape} by round cap: 0 rounds (edges only) "
+        f"{detail[(k1, shape, 'rounds', 0)]:.2f} ms, 1 round "
+        f"{detail[(k1, shape, 'rounds', 1)]:.2f} ms, 8 rounds "
+        f"{detail[(k1, shape, False, True)]:.2f} ms")
+    n_rows, n_cols = mz_r.shape[0], mz_c.shape[0]
+    ii = torch.arange(n_rows, device=dev).repeat_interleave(n_cols)
+    jj = torch.arange(n_cols, device=dev).repeat(n_rows)
+    edges = edge_counts(mz_r, int_r, ii, mz_c, int_c, jj, TOL)
+    log_edges(f"dense corpus, K1 panel {shape}", edges)
+    report["edges"] = {f"K1 dense {shape}": dict(
+        mean=float(edges.double().mean()), max=int(edges.max()))}
+    times[k1] = dict(
+        ms=detail[(k1, shape, False, True)],
+        plain_ms=detail[(k1, shape, "plain")],
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            ii.shape[0], int(edges.sum()),
+            (n_rows + n_cols) * 512 + ii.shape[0] * 8))))
 
     # K4: intervals of 2..1024 consecutive spectra of the bench corpus,
     # sorted by precursor m/z, in one launch.
@@ -271,7 +379,6 @@ def phase_kernels(dev, dense_rows, bench_rows, chain_rows, report):
     want, t_plain = plain_ms(lambda: pw.batched_block_scores_plain(
         mz_g, int_g, starts_t, TOL))
     shape = f"{len(sizes)} intervals, {n_pairs} pairs"
-    times[(k4, "plain")] = t_plain
     for with_matches in (True, False):
         def run():
             return pw.batched_block_scores(mz_g, int_g, starts_t, TOL,
@@ -279,28 +386,43 @@ def phase_kernels(dev, dense_rows, bench_rows, chain_rows, report):
         got = run()
         parity.check(k4, f"{shape} with_matches={with_matches}", got,
                      want if with_matches else (want[0], None))
-    times[(k4, "kernel")] = kernel_ms(
+    ms = kernel_ms(
         lambda: pw.batched_block_scores(mz_g, int_g, starts_t, TOL,
                                         with_matches=False), reps=5)
-    log(f"  {k4} {shape}: kernel {times[(k4, 'kernel')]:.2f} ms, plain "
-        f"version {t_plain:.1f} ms")
+    log(f"  {k4} {shape}: kernel {ms:.2f} ms, plain version "
+        f"{t_plain:.1f} ms")
+    iu = [torch.triu_indices(m, m, 1, device=dev) + int(a)
+          for a, m in zip(starts[:-1], sizes)]
+    ii = torch.cat([u[0] for u in iu])
+    jj = torch.cat([u[1] for u in iu])
+    edges = edge_counts(mz_g, int_g, ii, mz_g, int_g, jj, TOL)
+    log_edges(f"bench corpus, K4 {shape}", edges)
+    times[k4] = dict(ms=ms, plain_ms=t_plain, **dict(zip(
+        ("bound_ms", "bound_by"), bound(
+            n_pairs, int(edges.sum()),
+            int(starts[-1]) * 512 + 2 * 8 * len(starts) + n_pairs * 4))))
 
-    # Tie-heavy spectra through both kernels, with the round cap hit.
+    # Tie-heavy spectra (in no m/z order) through both kernels, with the
+    # round cap hit, at the CLI's tolerance and at wide ones.
     mz_t, int_t = (cuda(a) for a in tie_heavy(128, seed=5))
-    for rounds in (1, 8, 32):
-        args = (mz_t, int_t, mz_t, int_t, 0, TOL, rounds)
-        parity.check(k1, f"tie-heavy 256x256 rounds={rounds}",
-                     pw.panel_scores(*args),
-                     pw.panel_scores_plain(*args))
-        st = torch.tensor([0, 7, 8, 100, 256], device=dev)
-        parity.check(k4, f"tie-heavy 4 intervals rounds={rounds}",
-                     pw.batched_block_scores(mz_t, int_t, st, TOL, rounds),
-                     pw.batched_block_scores_plain(mz_t, int_t, st, TOL,
-                                                   rounds))
-    phase_banded(dev, parity, times, {"bench": bench_rows,
-                                      "dense": dense_rows}, chain_rows)
+    st = torch.tensor([0, 7, 8, 100, 256], device=dev)
+    for tol in (TOL,) + WIDE_TOLS:
+        for rounds in (1, 8, 32):
+            args = (mz_t, int_t, mz_t, int_t, 0, tol, rounds)
+            what = f"tie-heavy 256x256 fragment_tol={tol} rounds={rounds}"
+            parity.check(k1, what, pw.panel_scores(*args),
+                         pw.panel_scores_plain(*args))
+            if tol == TOL:
+                parity.check(
+                    k4, f"tie-heavy 4 intervals rounds={rounds}",
+                    pw.batched_block_scores(mz_t, int_t, st, TOL, rounds),
+                    pw.batched_block_scores_plain(mz_t, int_t, st, TOL,
+                                                  rounds))
+    phase_banded(dev, parity, times, detail, report,
+                 {"bench": bench_rows, "dense": dense_rows}, chain_rows)
     report["kernel_times_ms"] = {" | ".join(map(str, k)): v
-                                 for k, v in times.items()}
+                                 for k, v in detail.items()}
+    report["kernel_bounds"] = times
     return parity.err, times
 
 
@@ -334,10 +456,10 @@ def chain_pair_lists(rows, dev):
     intensity, ids (m, k))."""
     import torch
 
-    from falcon_tpu.preprocess import get_dim
     from falcon_tpu_torch.ops import pairwise as pw
     from falcon_tpu_torch.ops.knn import _pow2_at_least
     from falcon_tpu_torch.ops.vectorize import SpectrumHasher
+    from falcon_tpu_torch.preprocess import get_dim
 
     mz, intensity = (torch.from_numpy(a).to(dev) for a in padded(rows))
     _, mz_min, mz_max = get_dim(101.0, 1500.0, TOL)
@@ -351,7 +473,8 @@ def chain_pair_lists(rows, dev):
     return mz, intensity, ids
 
 
-def phase_banded(dev, parity, times, rows_by_name, chain_rows):
+def phase_banded(dev, parity, times, detail, report, rows_by_name,
+                 chain_rows):
     """Phase 2, continued: K2 and the pair-list launcher."""
     import torch
 
@@ -363,7 +486,7 @@ def phase_banded(dev, parity, times, rows_by_name, chain_rows):
         args = (mz_r, int_r, mz_p, int_p, starts, 0, window, TOL, 4)
         shape = f"{name} {mz_r.shape[0]}x{window}"
         want, t_plain = plain_ms(lambda: ex.banded_panel_scores_plain(*args))
-        times[(K2, name, "plain")] = t_plain
+        detail[(K2, name, "plain")] = t_plain
         for with_matches in (True, False):
             got = ex.banded_panel_scores(*args, with_matches=with_matches)
             torch.cuda.synchronize()
@@ -372,27 +495,67 @@ def phase_banded(dev, parity, times, rows_by_name, chain_rows):
         # The main path asks for match counts only with min_matches > 0.
         ms = kernel_ms(lambda: ex.banded_panel_scores(
             *args, with_matches=False), reps=5)
-        times[(K2, name, "kernel")] = ms
+        detail[(K2, name, "kernel")] = ms
         log(f"  {K2} {shape}: kernel {ms:.3f} ms, plain version "
             f"{t_plain:.1f} ms ({mz_r.shape[0] * window} pairs)")
+        n_rows = mz_r.shape[0]
+        ii = torch.arange(n_rows, device=dev).repeat_interleave(window)
+        jj = (starts.to(torch.int64)[:, None] * ex.COL_TILE
+              + torch.arange(window, device=dev)).reshape(-1)
+        edges = edge_counts(mz_r, int_r, ii, mz_p, int_p, jj, TOL)
+        log_edges(f"{name} corpus, K2 block {shape}", edges)
+        report["edges"][f"K2 {shape}"] = dict(
+            mean=float(edges.double().mean()), max=int(edges.max()))
+        if name == "dense":
+            # The pool columns the block reads, each once.
+            n_pool = int(jj.max()) - int(jj.min()) + 1
+            times[K2] = dict(ms=ms, plain_ms=t_plain, **dict(zip(
+                ("bound_ms", "bound_by"), bound(
+                    ii.shape[0], int(edges.sum()),
+                    (n_rows + n_pool) * 512 + n_rows * 4
+                    + ii.shape[0] * 4))))
+            # Peaks in no order, and wide tolerances, on the same block.
+            mz_pp, int_pp = permuted(mz_p, int_p, seed=window)
+            p_args = (mz_pp[:n_rows], int_pp[:n_rows], mz_pp, int_pp,
+                      starts, 0, window, TOL, 4)
+            got = ex.banded_panel_scores(*p_args)
+            parity.check(K2, f"{shape} unsorted peaks", got,
+                         ex.banded_panel_scores_plain(*p_args))
+            check_permutation(K2, shape, got, want)
+            for tol in WIDE_TOLS:
+                w_args = (mz_r[:512], int_r[:512], mz_p, int_p,
+                          starts[:512], 0, window, tol, 4)
+                parity.check(K2, f"512x{window} fragment_tol={tol}",
+                             ex.banded_panel_scores(*w_args),
+                             ex.banded_panel_scores_plain(*w_args))
 
     mz, intensity, ids = chain_pair_lists(chain_rows, dev)
     args = (mz, intensity, mz, intensity, ids, TOL, 4)
+    n_pairs = int((ids >= 0).sum())
     shape = (f"chain of {mz.shape[0]}, {ids.shape[1]} slots, "
-             f"{int((ids >= 0).sum())} pairs")
+             f"{n_pairs} pairs")
     want, t_plain = plain_ms(lambda: pw.pair_list_scores_plain(*args))
-    times[(PL, "plain")] = t_plain
     for with_matches in (True, False):
         got = pw.pair_list_scores(*args, with_matches=with_matches)
         torch.cuda.synchronize()
         parity.check(PL, f"{shape} with_matches={with_matches}", got,
                      want if with_matches else (want[0], None))
-    times[(PL, "kernel")] = kernel_ms(
+    ms = kernel_ms(
         lambda: pw.pair_list_scores(*args, with_matches=False), reps=5)
-    log(f"  {PL} {shape}: kernel {times[(PL, 'kernel')]:.3f} ms, plain "
-        f"version {t_plain:.1f} ms")
+    log(f"  {PL} {shape}: kernel {ms:.3f} ms, plain version "
+        f"{t_plain:.1f} ms")
+    keep = torch.nonzero(ids.reshape(-1) >= 0)[:, 0]
+    edges = edge_counts(mz, intensity, keep // ids.shape[1], mz, intensity,
+                        ids.reshape(-1)[keep], TOL)
+    log_edges(f"chained corpus, pair lists ({shape})", edges)
+    n_pool = int(torch.unique(ids[ids >= 0]).shape[0])
+    times[PL] = dict(ms=ms, plain_ms=t_plain, **dict(zip(
+        ("bound_ms", "bound_by"), bound(
+            n_pairs, int(edges.sum()),
+            (mz.shape[0] + n_pool) * 512 + ids.numel() * 12))))
 
-    # Tie-heavy spectra, with the round cap hit.
+    # Tie-heavy spectra (in no m/z order), with the round cap hit, at the
+    # CLI's tolerance and at wide ones.
     mz_t, int_t = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                    for a in tie_heavy(128, seed=6))
     starts = torch.tensor([0, 1] * 64, dtype=torch.int32, device=dev)
@@ -400,16 +563,20 @@ def phase_banded(dev, parity, times, rows_by_name, chain_rows):
     ids = torch.randint(0, 256, (128, 24), generator=gen)
     ids[torch.rand(ids.shape, generator=gen) < 0.25] = -1
     ids = ids.to(dev)
-    for rounds in (1, 4, 32):
-        args = (mz_t[:128], int_t[:128], mz_t, int_t, starts, 0, 128, TOL,
-                rounds)
-        parity.check(K2, f"tie-heavy 128x128 rounds={rounds}",
-                     ex.banded_panel_scores(*args),
-                     ex.banded_panel_scores_plain(*args))
-        args = (mz_t[:128], int_t[:128], mz_t, int_t, ids, TOL, rounds)
-        parity.check(PL, f"tie-heavy 128x24 rounds={rounds}",
-                     pw.pair_list_scores(*args),
-                     pw.pair_list_scores_plain(*args))
+    for tol in (TOL,) + WIDE_TOLS:
+        for rounds in (1, 8, 32):
+            args = (mz_t[:128], int_t[:128], mz_t, int_t, starts, 0, 128,
+                    tol, rounds)
+            parity.check(K2, f"tie-heavy 128x128 fragment_tol={tol} "
+                         f"rounds={rounds}",
+                         ex.banded_panel_scores(*args),
+                         ex.banded_panel_scores_plain(*args))
+            if tol == TOL:
+                args = (mz_t[:128], int_t[:128], mz_t, int_t, ids, TOL,
+                        rounds)
+                parity.check(PL, f"tie-heavy 128x24 rounds={rounds}",
+                             pw.pair_list_scores(*args),
+                             pw.pair_list_scores_plain(*args))
 
 
 def read_labels(csv_path: str):
@@ -423,8 +590,8 @@ def run_cli(name, spectra, truth, tmp, flags=()):
     """Write ``spectra`` as MGF and run the port's CLI on them with its
     defaults and ``flags``; returns (seconds, phase summary, purity,
     completeness, n_clustered)."""
-    from falcon_tpu.metrics import cluster_completeness, cluster_purity
-    from falcon_tpu.simulate import write_mgf
+    from falcon_tpu_torch.metrics import cluster_completeness, cluster_purity
+    from falcon_tpu_torch.simulate import write_mgf
     from falcon_tpu_torch import cli
     from falcon_tpu_torch.utils.profiling import profiler
 
@@ -452,7 +619,7 @@ def run_cli(name, spectra, truth, tmp, flags=()):
 
 
 def largest_interval(rows_by_charge):
-    from falcon_tpu.cluster.intervals import precursor_mz_splits
+    from falcon_tpu_torch.cluster.intervals import precursor_mz_splits
 
     best = 0
     for rows in rows_by_charge.values():
@@ -500,7 +667,7 @@ def phase_main_path(name, spectra, truth, tmp, report, required,
 def phase_whole_path(dev, rows, tmp, report):
     """Phase 5: one interval through the kernels and through the plain
     versions, both on the card."""
-    from falcon_tpu.store.store import SpectrumStore
+    from falcon_tpu_torch.store.store import SpectrumStore
     from falcon_tpu_torch.cluster import engine
 
     store = SpectrumStore(os.path.join(tmp, "whole_path"))
@@ -517,7 +684,7 @@ def phase_whole_path(dev, rows, tmp, report):
 def phase_whole_path_ann(dev, rows, tmp, report):
     """Phase 5, continued: the ann engine's exact index on one block,
     through the kernels and through the plain versions, on the card."""
-    from falcon_tpu.store.store import SpectrumStore
+    from falcon_tpu_torch.store.store import SpectrumStore
     from falcon_tpu_torch.cluster import ann_engine
 
     store = SpectrumStore(os.path.join(tmp, "whole_path_ann"))
@@ -580,8 +747,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU is visible", file=sys.stderr)
         return 1
-    from falcon_tpu.simulate import make_clustered_spectra
+    from falcon_tpu_torch import native
     from falcon_tpu_torch.ops import _build
+    from falcon_tpu_torch.simulate import make_clustered_spectra
 
     report = {}
     card = card_line()
@@ -592,6 +760,13 @@ def main() -> int:
     _build.library()
     log(f"  kernel build: {_build.build_seconds or 0.0:.1f} s "
         f"({os.path.relpath(_build.library_path())})")
+    # The native host library too, so that no main path's time holds its
+    # build; without it the port would run the SciPy fallback.
+    t0 = time.perf_counter()
+    if native.get_lib() is None:
+        raise RuntimeError("the port's native host library did not build")
+    log(f"  native host library: {time.perf_counter() - t0:.1f} s "
+        f"({os.path.relpath(native.library_path())})")
     # Registers, shared memory and spills of each kernel (-Xptxas -v).
     report.update(card=card, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=_build.build_seconds,
@@ -645,18 +820,13 @@ def main() -> int:
             "ann_chained_corpus", chains, chain_truth, tmp, report,
             [K2, PL], ANN, min_completeness=0.0))
 
-    shapes = {K1: (K1, f"{PANEL_ROWS}x{max(K1_COLS)}", False, True),
-              K2: (K2, "dense", "kernel"), K4: (K4, "kernel"),
-              PL: (PL, "kernel")}
-    plain_shapes = {K1: (K1, f"{PANEL_ROWS}x{max(K1_COLS)}", "plain"),
-                    K2: (K2, "dense", "plain"), K4: (K4, "plain"),
-                    PL: (PL, "plain")}
     kernels = [
         {"name": k, "route": "cuda", "source": SOURCES[k],
          "replaces": REPLACES[k],
          "launches": sum(run[k] for run in launches),
-         "max_abs_err": errs[k], "ms": times[shapes[k]],
-         "plain_ms": times[plain_shapes[k]]}
+         "max_abs_err": errs[k], "ms": times[k]["ms"],
+         "plain_ms": times[k]["plain_ms"], "bound_ms": times[k]["bound_ms"],
+         "bound_by": times[k]["bound_by"], "library_ms": None}
         for k in (K1, K2, K4, PL)
     ]
     report["kernels"] = kernels

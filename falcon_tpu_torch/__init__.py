@@ -3,16 +3,18 @@
 A second package beside the JAX reference ``falcon_tpu``, with the same CLI
 (``python -m falcon_tpu_torch``), library API and output bytes, running its
 hot path as CUDA kernels written for NVIDIA Hopper (``csrc/``).  It imports
-``torch`` and never ``jax``; the JAX-free host modules of ``falcon_tpu``
-(configuration, store, ingest, readers, preprocessing, native linkage,
-export) are shared, not copied.
+``torch`` and never ``jax``, and nothing of ``falcon_tpu``: the host modules
+it needs (configuration, store, ingest, readers, preprocessing, the native
+linkage library and its C++ sources, export) are its own copies, at the
+same relative paths, held against the originals by
+``tests/test_torch_host_copies.py``.
 
 Ported so far: the default exact backend (``cluster/engine.py``) and
 ``--backend ann --ann_index exact`` (``cluster/ann_engine.py``).  See
 ``README.md`` for what still raises.
 """
 
-from falcon_tpu import __version__  # noqa: F401
+__version__ = "0.1.0"
 
 
 def cluster_files(*args, **kwargs):

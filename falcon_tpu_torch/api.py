@@ -25,12 +25,80 @@ import io
 import os
 import shutil
 import tempfile
+from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Union
 
-from falcon_tpu.api import (_FLAG_OPTIONS, _MULTI_OPTIONS, NULL_CHARGE,
-                            ClusterResult, _option_names)
+import numpy as np
+
+from .ms_io.containers import Spectrum
+from .store.store import NULL_CHARGE
 
 __all__ = ["cluster", "ClusterResult", "NULL_CHARGE"]
+
+
+@dataclass
+class ClusterResult:
+    """Cluster assignments, one entry per kept (quality-passing) spectrum.
+
+    Rows are in charge-major store order (all spectra of one precursor
+    charge, then the next); use :meth:`to_rows` or numpy fancy indexing
+    to reorder.  ``precursor_charge`` uses the ``NULL_CHARGE`` sentinel
+    (int16 min) for spectra without a charge, matching the columnar
+    store; the CSV export renders those as an empty field.
+    """
+
+    filename: np.ndarray
+    spectrum_id: np.ndarray
+    precursor_charge: np.ndarray
+    precursor_mz: np.ndarray
+    retention_time: np.ndarray
+    cluster: np.ndarray
+    representatives: List[Spectrum] = field(default_factory=list)
+
+    def __len__(self) -> int:
+        return len(self.cluster)
+
+    @property
+    def n_clusters(self) -> int:
+        return len(np.unique(self.cluster))
+
+    def to_rows(self) -> List[dict]:
+        """Rows as plain dicts (missing charge becomes ``None``)."""
+        charges = [
+            None if c == NULL_CHARGE else int(c)
+            for c in self.precursor_charge
+        ]
+        return [
+            {
+                "filename": str(f),
+                "spectrum_id": str(s),
+                "precursor_charge": c,
+                "precursor_mz": float(m),
+                "retention_time": float(r),
+                "cluster": int(k),
+            }
+            for f, s, c, m, r, k in zip(
+                self.filename, self.spectrum_id, charges,
+                self.precursor_mz, self.retention_time, self.cluster,
+            )
+        ]
+
+
+# Options that are presence-only CLI flags (store_true).
+_FLAG_OPTIONS = frozenset({"overwrite", "export_representatives"})
+# Options taking multiple CLI values (passed as a tuple/list).
+_MULTI_OPTIONS = frozenset({"precursor_tol"})
+
+
+def _option_names() -> frozenset:
+    """The configurable option surface, derived from the CLI parser so
+    the API can never drift from it."""
+    from .config import config
+
+    skip = {"input_filenames", "output_filename", "help", "config"}
+    return frozenset(
+        a.dest for a in config._parser._actions if a.dest not in skip
+    )
 
 
 def cluster(
@@ -47,7 +115,7 @@ def cluster(
     Unknown names raise ``ValueError``.
     """
     from . import cli
-    from falcon_tpu.config import config
+    from .config import config
 
     if isinstance(inputs, (str, os.PathLike)):
         inputs = [inputs]

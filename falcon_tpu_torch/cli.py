@@ -1,7 +1,7 @@
 """Pipeline driver / CLI entry point of the PyTorch/CUDA port.
 
-Port of ``falcon_tpu/cli.py`` with the same parser (the shared
-``falcon_tpu.config.config``), logging, work-dir lifecycle, overwrite gate,
+Port of ``falcon_tpu/cli.py`` with the same parser (``config.py``, a copy
+of the JAX package's), logging, work-dir lifecycle, overwrite gate,
 ingest resume, per-charge clustering with globally disjoint labels, CSV and
 medoid-MGF export and run manifest, so that its CSV equals the JAX
 package's byte for byte apart from the ``# work_dir`` line.  Clustering
@@ -25,15 +25,10 @@ from typing import List, Union
 
 import numpy as np
 
-from falcon_tpu import __version__, seed
-# The JAX package's CLI module imports JAX only inside its run function;
-# its manifest writer and representative builder are shared so that both
-# packages write the same bytes.
-from falcon_tpu.cli import _rep_spectra, _write_manifest
-from falcon_tpu.config import config
-from falcon_tpu.store.store import SpectrumStore
-
+from . import __version__, seed
+from .config import config
 from .device import resolve_device
+from .store.store import SpectrumStore
 from .utils.profiling import profiler
 
 logger = logging.getLogger("falcon_tpu")
@@ -163,7 +158,7 @@ def _run(args: Union[str, List[str], None], cleanup: list,
             )
         return 1
 
-    from falcon_tpu.preprocess import get_dim
+    from .preprocess import get_dim
 
     _, mz_min, mz_max = get_dim(
         config.min_mz, config.max_mz, config.fragment_tol
@@ -187,8 +182,8 @@ def _run(args: Union[str, List[str], None], cleanup: list,
     if config.profile:
         profiler.start_trace(config.profile)
 
-    # Ingest-resume point: the shared store, so a work_dir ingested by
-    # either package resumes under the other.
+    # Ingest-resume point.  The store's format is the JAX package's, so a
+    # work_dir ingested by either package resumes under the other.
     charges = store.load_charges()
     if charges is None:
         # The charge cache is the commit record of a completed ingest; a
@@ -200,7 +195,7 @@ def _run(args: Union[str, List[str], None], cleanup: list,
                 store.root,
             )
             store.clear()
-        from falcon_tpu import ingest
+        from . import ingest
 
         with profiler.phase("ingest"):
             try:
@@ -331,7 +326,7 @@ def _run(args: Union[str, List[str], None], cleanup: list,
     )
     from concurrent.futures import ThreadPoolExecutor
 
-    from falcon_tpu.export import export_cluster_csv
+    from .export import export_cluster_csv
 
     # Outputs publish atomically: written to a same-directory .partial
     # path and renamed only once every export succeeded.  Futures, not
@@ -351,7 +346,7 @@ def _run(args: Union[str, List[str], None], cleanup: list,
             if config.export_representatives:
                 # mgf_io directly: the extension dispatch in ms_io would
                 # reject the ".partial" temp name.
-                from falcon_tpu.ms_io import mgf_io
+                from .ms_io import mgf_io
 
                 spectra = _rep_spectra(representatives)
                 logger.info(
@@ -401,3 +396,82 @@ def _generate_for_charge(dataset, mz_min: float, mz_max: float, device):
         linkage=config.linkage,
         device=device,
     )
+
+
+def _rep_spectra(representatives: List[dict]) -> List:
+    """Representative rows (medoid ``dataset.take`` rows or consensus
+    rows) as :class:`Spectrum` objects, shared by the MGF export and the
+    library API."""
+    from .ms_io.containers import Spectrum
+
+    return [
+        Spectrum(
+            r["identifier"], r["precursor_mz"],
+            r["precursor_charge"], r["mz"], r["intensity"],
+            r["retention_time"], r["filename"],
+        )
+        for r in representatives
+    ]
+
+
+def _write_manifest(f_out) -> None:
+    """'#'-prefixed run-manifest header (reference ``_write_cluster_info``,
+    ``falcon/falcon.py:483-524``; same keys, same order, same
+    formatting).  The cluster rows themselves stream after the header
+    (``falcon_tpu/export.py``)."""
+    f_out.write(f"# falcon-tpu version {__version__}\n")
+    f_out.write(f"# work_dir = {config.work_dir}\n")
+    f_out.write(f"# overwrite = {config.overwrite}\n")
+    f_out.write(
+        f"# export_representatives = {config.export_representatives}\n"
+    )
+    f_out.write(
+        f"# precursor_tol = {config.precursor_tol[0]:.2f} "
+        f"{config.precursor_tol[1]}\n"
+    )
+    f_out.write(f"# rt_tol = {config.rt_tol}\n")
+    f_out.write(f"# fragment_tol = {config.fragment_tol:.2f}\n")
+    f_out.write(f"# linkage = {config.linkage}\n")
+    f_out.write(
+        f"# distance_threshold = {config.distance_threshold:.3f}\n"
+    )
+    f_out.write(f"# min_matched_peaks = {config.min_matched_peaks}\n")
+    f_out.write(f"# batch_size = {config.batch_size}\n")
+    f_out.write(f"# min_peaks = {config.min_peaks}\n")
+    f_out.write(f"# min_mz_range = {config.min_mz_range:.2f}\n")
+    f_out.write(f"# min_mz = {config.min_mz:.2f}\n")
+    f_out.write(f"# max_mz = {config.max_mz:.2f}\n")
+    f_out.write(
+        f"# remove_precursor_tol = {config.remove_precursor_tol:.2f}\n"
+    )
+    f_out.write(f"# min_intensity = {config.min_intensity:.2f}\n")
+    f_out.write(f"# max_peaks_used = {config.max_peaks_used}\n")
+    f_out.write(f"# scaling = {config.scaling}\n")
+    # falcon-tpu additions (after the reference's 17 keys).  The
+    # manifest is a COMPLETE run record (like the reference's,
+    # falcon/falcon.py:492-522): every option that can change the
+    # output appears, so a run is reproducible from its CSV alone.
+    f_out.write(f"# backend = {config.backend}\n")
+    if config.export_representatives:
+        f_out.write(
+            f"# representative_method = "
+            f"{config.representative_method}\n"
+        )
+        if config.representative_method == "consensus":
+            f_out.write(
+                f"# consensus_min_fraction = "
+                f"{config.consensus_min_fraction}\n"
+            )
+    if config.backend == "ann":
+        f_out.write(f"# cluster_method = {config.cluster_method}\n")
+        f_out.write(f"# eps = {config.eps}\n")
+        f_out.write(f"# low_dim = {config.low_dim}\n")
+        f_out.write(f"# n_neighbors = {config.n_neighbors}\n")
+        f_out.write(f"# n_neighbors_ann = {config.n_neighbors_ann}\n")
+        f_out.write(f"# n_probe = {config.n_probe}\n")
+        f_out.write(f"# min_samples = {config.min_samples}\n")
+        f_out.write(f"# ann_index = {config.ann_index}\n")
+        f_out.write(f"# hash_seed = {config.hash_seed}\n")
+        f_out.write(f"# rerank = {config.rerank}\n")
+    f_out.write(f"# devices = {config.devices}\n")
+    f_out.write("#\n")

@@ -14,7 +14,7 @@ medoids:
 3. per component, as one exact-engine interval: condensed exact distances
    (K4 for components of up to ``LINKAGE_GROUP_MAX`` spectra; larger ones
    through the pruned pair lists under complete or single linkage, or K1),
-   then the shared native linkage, the cut at eps, the precursor / RT
+   then the native linkage, the cut at eps, the precursor / RT
    refinement and the medoids.
 
 The JAX exact-index path also hashes the block into vectors that this
@@ -30,15 +30,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from falcon_tpu import native
-from falcon_tpu.cluster.intervals import mass_diff, precursor_mz_splits
-from falcon_tpu.cluster.postprocess import (
-    cluster_group_slices,
-    cluster_medoids,
-    postprocess_cluster,
-)
-from falcon_tpu.store.store import ChargeDataset, padded_peaks
-
+from .. import native
 from ..device import resolve_device, synchronize
 from ..ops import pairwise
 from ..ops.density import dbscan
@@ -46,7 +38,14 @@ from ..ops.exact_knn import exact_banded_topk
 from ..ops.knn import _pow2_at_least
 from ..ops.vectorize import SpectrumHasher
 from ..ops.xfer import upload_padded_peaks
+from ..store.store import ChargeDataset, padded_peaks
 from ..utils.profiling import profiler
+from .intervals import mass_diff, precursor_mz_splits
+from .postprocess import (
+    cluster_group_slices,
+    cluster_medoids,
+    postprocess_cluster,
+)
 
 logger = logging.getLogger("falcon_tpu")
 

@@ -9,9 +9,9 @@ row panels through the panel kernel (K1) (``ops/pairwise.py``).  A producer
 thread owns all device work and overlaps it with the host's linkage of the
 previous interval, with the same backpressure as the JAX engine.
 
-The interval splits, native linkage and post-processing are the JAX
-package's own JAX-free modules, shared unchanged; ``_cluster_interval`` is
-a copy of the JAX engine's, whose module imports JAX.
+The interval splits, native linkage and post-processing are the port's
+copies of the JAX package's host modules; ``_cluster_interval`` is a copy
+of the JAX engine's.
 """
 
 import logging
@@ -24,19 +24,18 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from falcon_tpu import native
-from falcon_tpu.cluster.intervals import precursor_mz_splits
-from falcon_tpu.cluster.postprocess import (
+from .. import native
+from ..device import resolve_device
+from ..ops import pairwise
+from ..store.store import ChargeDataset, padded_peaks
+from ..utils.profiling import profiler
+from .intervals import precursor_mz_splits
+from .postprocess import (
     assign_global_cluster_labels,
     cluster_group_slices,
     cluster_medoids,
     postprocess_cluster,
 )
-from falcon_tpu.store.store import ChargeDataset, padded_peaks
-
-from ..device import resolve_device
-from ..ops import pairwise
-from ..utils.profiling import profiler
 
 logger = logging.getLogger("falcon_tpu")
 

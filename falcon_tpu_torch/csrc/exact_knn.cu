@@ -1,5 +1,5 @@
 // K2, falcon_banded_scores: the banded launcher of the pair-matching
-// routine (matching.cuh), with a plain C interface for ctypes
+// routine match_sorted (matching.cuh), with a plain C interface for ctypes
 // (falcon_tpu_torch/ops/_build.py).  It launches on the given stream, does
 // not synchronise, allocates nothing and returns cudaGetLastError() of its
 // launch.
@@ -10,13 +10,14 @@
 // map.  Here a block finds its own columns: row i of the block is scored
 // against pool spectra starts[i] * 128 + pass_offset + c, c < window.
 //
-// Bound: as K1, the compares and maxima of matching.cuh on the 64 x 64
-// tile, not bytes (a pair reads 1 KB and writes 8 bytes).  Design: K1's
-// grid, one row spectrum and K2_COLS consecutive window columns per block,
-// each of its warps scoring one pair at a time; consecutive columns of one
-// row share the row's spectrum in L1 and their own in L2, since the
-// windows of neighbouring rows overlap.  The score is summed in K1's fixed
-// order, so K2 and its plain version agree bit for bit.
+// Bound: as K1, operations, not bytes: a binary search per column peak
+// and the rounds' work per edge (matching.cuh, match_sorted), against 512
+// bytes read and 8 written per pair.  Design: K1's grid, one row spectrum,
+// sorted once per block, against K2_COLS consecutive window columns, 32
+// per warp, written with one coalesced store per warp; the windows of
+// neighbouring rows overlap, so neighbouring blocks read mostly the same
+// columns.  The score is summed in K1's fixed order, so K2 and its plain
+// version agree bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -24,8 +25,8 @@
 
 namespace falcon {
 
-constexpr int K2_WARPS = 2;   // 2 x 17 KB of shared memory per block
-constexpr int K2_COLS = 32;   // window columns per block
+constexpr int K2_WARPS = 4;
+constexpr int K2_COLS = 32 * K2_WARPS;  // window columns per block
 constexpr int COL_TILE = 128; // columns per start tile
 
 __global__ void __launch_bounds__(K2_WARPS * 32) banded_kernel(
@@ -34,26 +35,33 @@ __global__ void __launch_bounds__(K2_WARPS * 32) banded_kernel(
     const int* __restrict__ starts, long long pass_offset, int window,
     float tol, int rounds, float* __restrict__ scores,
     int* __restrict__ matches) {
-  __shared__ WarpScratch scratch[K2_WARPS];
+  __shared__ SortedRow row;
+  __shared__ EdgeScratch scratch[K2_WARPS];
   const int i = blockIdx.y;
   const int j0 = blockIdx.x * K2_COLS;
   const int j_end = min(j0 + K2_COLS, window);
+  sort_row(mz_rows + (size_t)i * P, int_rows + (size_t)i * P, row);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long col0 = (long long)starts[i] * COL_TILE + pass_offset;
-  const float* mz_i = mz_rows + (size_t)i * P;
-  const float* int_i = int_rows + (size_t)i * P;
-  for (int j = j0 + warp; j < j_end; j += K2_WARPS) {
-    const size_t c = (size_t)(col0 + j) * P;
+  const int jw = j0 + 32 * warp;  // the warp's first window column
+  float my_score = 0.f;
+  int my_match = 0;
+  for (int t = 0; t < 32 && jw + t < j_end; ++t) {
+    const size_t c = (size_t)(col0 + jw + t) * P;
     float score;
     int n_match;
-    match_pair(mz_i, int_i, mz_pool + c, int_pool + c, tol, rounds,
-               scratch[warp], score, n_match);
-    if (lane == 0) {
-      const size_t o = (size_t)i * window + j;
-      scores[o] = score;
-      if (matches != nullptr) matches[o] = n_match;
+    match_sorted(row, mz_pool + c, int_pool + c, tol, rounds, scratch[warp],
+                 score, n_match);
+    if (lane == t) {
+      my_score = score;
+      my_match = n_match;
     }
+  }
+  if (jw + lane < j_end) {
+    const size_t o = (size_t)i * window + jw + lane;
+    scores[o] = my_score;
+    if (matches != nullptr) matches[o] = my_match;
   }
 }
 

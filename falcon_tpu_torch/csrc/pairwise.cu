@@ -1,4 +1,4 @@
-// Three launchers of the pair-matching routine (matching.cuh), with a
+// Three launchers of the pair-matching routines (matching.cuh), with a
 // plain C interface for ctypes (falcon_tpu_torch/ops/_build.py).  Each
 // function launches on the given stream, does not synchronise, allocates
 // nothing and returns cudaGetLastError() of its launch.
@@ -7,10 +7,14 @@
 // falcon_tpu/ops/pairwise.py::_pair_panel_kernel (launched by
 // panel_scores_pallas): the score of every (row, column) spectrum pair of a
 // panel, or with upper_only only of the pairs above the global diagonal.
-// It is bound by the compares and maxima of matching.cuh, not by bytes: a
-// pair reads 1 KB and writes 8 bytes.  Design: a block takes one row
-// spectrum and K1_COLS consecutive columns, each of its warps scores one
-// pair at a time; blocks wholly at or below the diagonal return at once.
+// It is bound by operations, not bytes: a pair reads 512 bytes of its
+// column (the row is shared by the block) and writes 8, against a binary
+// search per column peak and the rounds' work per edge (matching.cuh,
+// match_sorted).  Design: a block takes one row spectrum, sorts it once
+// (sort_row), and scores it against K1_COLS consecutive columns, 32 per
+// warp, one pair at a time; lane t keeps the score of the warp's t-th
+// column, so the warp writes its 32 scores with one coalesced store.
+// Blocks wholly at or below the diagonal return at once.
 //
 // K4, falcon_grouped_scores, replaces falcon_tpu/ops/pairwise.py::
 // batched_block_scores (XLA, no Pallas): every upper-triangle pair of many
@@ -39,8 +43,8 @@
 
 namespace falcon {
 
-constexpr int K1_WARPS = 2;   // 2 x 17 KB of shared memory per block
-constexpr int K1_COLS = 32;   // columns per block
+constexpr int K1_WARPS = 4;
+constexpr int K1_COLS = 32 * K1_WARPS;  // columns per block, 32 per warp
 constexpr int K4_WARPS = 2;
 constexpr int K4_MAX_BLOCKS = 8192;
 constexpr int PL_WARPS = 2;
@@ -52,28 +56,36 @@ __global__ void __launch_bounds__(K1_WARPS * 32) panel_kernel(
     const float* __restrict__ mz_cols, const float* __restrict__ int_cols,
     int n_cols, long long row_offset, float tol, int rounds, int upper_only,
     float* __restrict__ scores, int* __restrict__ matches) {
-  __shared__ WarpScratch scratch[K1_WARPS];
+  __shared__ SortedRow row;
+  __shared__ EdgeScratch scratch[K1_WARPS];
   const int i = blockIdx.y;
   const long long gi = row_offset + i;
   const int j0 = blockIdx.x * K1_COLS;
   const int j_end = min(j0 + K1_COLS, n_cols);
   if (upper_only && (long long)(j_end - 1) <= gi) return;
+  sort_row(mz_rows + (size_t)i * P, int_rows + (size_t)i * P, row);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const float* mz_i = mz_rows + (size_t)i * P;
-  const float* int_i = int_rows + (size_t)i * P;
-  for (int j = j0 + warp; j < j_end; j += K1_WARPS) {
+  const int jw = j0 + 32 * warp;  // the warp's first column
+  float my_score = 0.f;
+  int my_match = 0;
+  for (int t = 0; t < 32 && jw + t < j_end; ++t) {
+    const int j = jw + t;
     if (upper_only && (long long)j <= gi) continue;
     float score;
     int n_match;
-    match_pair(mz_i, int_i, mz_cols + (size_t)j * P,
-               int_cols + (size_t)j * P, tol, rounds, scratch[warp], score,
-               n_match);
-    if (lane == 0) {
-      const size_t o = (size_t)i * n_cols + j;
-      scores[o] = score;
-      if (matches != nullptr) matches[o] = n_match;
+    match_sorted(row, mz_cols + (size_t)j * P, int_cols + (size_t)j * P,
+                 tol, rounds, scratch[warp], score, n_match);
+    if (lane == t) {
+      my_score = score;
+      my_match = n_match;
     }
+  }
+  const int j = jw + lane;
+  if (j < j_end && !(upper_only && (long long)j <= gi)) {
+    const size_t o = (size_t)i * n_cols + j;
+    scores[o] = my_score;
+    if (matches != nullptr) matches[o] = my_match;
   }
 }
 

@@ -12,13 +12,12 @@ with ``amin`` for in-edges (so the one-sided top-k lists act as an
 undirected graph), then two pointer jumps, until nothing changes or
 ``n_pad`` rounds have run.  The JAX package runs this as XLA; every step
 here is a plain torch op.  Only the compact per-row parts come to the
-host, where the shared ``labels_from_parts`` numbers the components.
+host, where ``labels_from_parts`` (a copy of the JAX package's NumPy
+function) numbers the components.
 """
 
 import numpy as np
 import torch
-
-from falcon_tpu.ops.density import labels_from_parts
 
 from .knn import NEG
 from .matching import f32_tolerance
@@ -73,3 +72,30 @@ def dbscan(sims: torch.Tensor, neigh: torch.Tensor, eps: float, n: int,
                          -1)
     return labels_from_parts(comp[:n].cpu().numpy(), core[:n].cpu().numpy(),
                              attach[:n].cpu().numpy(), n)
+
+
+def labels_from_parts(
+    comp: np.ndarray, core: np.ndarray, border_attach: np.ndarray, n: int
+) -> np.ndarray:
+    """Host renumbering of the device kernel's compact outputs.
+
+    Shared by the single-device path above and the multi-chip pipeline
+    (``parallel/sharded_pipeline.py``) so both produce identical labels
+    from identical (comp, core, border) parts.
+    """
+    # Renumber core components by first occurrence.
+    labels = np.full(n, -1, np.int64)
+    if core.any():
+        uniq, inverse = np.unique(comp[core], return_inverse=True)
+        # np.unique sorts by component id == min member row == first
+        # occurrence order (rows are scanned in order).
+        labels[core] = inverse
+    # Border attachment.
+    attach = border_attach >= 0
+    labels[attach] = labels[border_attach[attach]]
+    # Drop single-member components to noise.
+    uniq, counts = np.unique(labels[labels >= 0], return_counts=True)
+    singles = uniq[counts < 2]
+    if len(singles):
+        labels[np.isin(labels, singles)] = -1
+    return labels

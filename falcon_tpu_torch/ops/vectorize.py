@@ -2,8 +2,8 @@
 
 Port of ``falcon_tpu/ops/vectorize.py::SpectrumHasher``: each peak falls in
 bin ``floor((mz - min_bound) / bin_size)`` (float32, as on the TPU), every
-bin maps to one of ``low_dim`` dimensions through the shared MurmurHash3
-table (``falcon_tpu.ops.hashing``), and intensities that land on the same
+bin maps to one of ``low_dim`` dimensions through the MurmurHash3
+table (``ops/hashing.py``, a copy of the JAX package's), and intensities that land on the same
 dimension add up.  ``spread=True`` also adds each peak into its two
 neighbouring bins before hashing, which with unnormalised vectors makes
 ``spread_a . plain_b`` a strict upper bound on the exact matched-peak
@@ -20,7 +20,7 @@ The one consumer on the port's path, the pruned linkage bound
 import numpy as np
 import torch
 
-from falcon_tpu.ops.hashing import binning_dims, hash_bin_mapping
+from .hashing import binning_dims, hash_bin_mapping
 
 
 def round_up(x: int, m: int) -> int:

@@ -6,7 +6,7 @@ beyond the block all padding).  The JAX package uploads the ragged peaks
 and pads them on the device, and slices large uploads
 (``device_put_chunked``), both to save bytes on a TPU host link measured at
 tens of MB/s; a PCIe link to an H100 has no such limit, so the port pads on
-the host with the shared ``store.padded_peaks`` and copies from pinned
+the host with ``store.padded_peaks`` and copies from pinned
 memory.
 """
 
@@ -15,7 +15,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from falcon_tpu.store.store import padded_peaks
+from ..store.store import padded_peaks
 
 
 def upload_padded_peaks(

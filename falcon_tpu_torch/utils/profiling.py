@@ -1,17 +1,73 @@
 """Per-phase timing and optional device tracing for the port.
 
-The phase bookkeeping is the JAX package's ``PhaseProfiler`` unchanged;
-only the device trace differs: ``--profile DIR`` records a
+``PhaseProfiler`` is the JAX package's (``falcon_tpu/utils/profiling.py``)
+without its JAX trace hooks: the pipeline driver wraps each phase (ingest,
+per-charge clustering, export) in :meth:`PhaseProfiler.phase`, and the
+accumulated wall times are logged as a summary table at the end of the
+run.  The device trace is the port's own: ``--profile DIR`` records a
 ``torch.profiler`` trace (CPU and, where present, CUDA activity) and writes
 it to ``DIR/trace.json`` (Chrome / Perfetto format) when the run ends.
 """
 
+import contextlib
 import logging
 import os
-
-from falcon_tpu.utils.profiling import PhaseProfiler
+import threading
+import time
+from typing import Dict, Iterator, List, Optional, Tuple
 
 logger = logging.getLogger("falcon_tpu")
+
+
+class PhaseProfiler:
+    """Accumulates named phase wall times (thread-safe)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._phases: List[Tuple[str, float]] = []
+        self.trace_dir: Optional[str] = None
+        self._tracing = False
+
+    def add(self, name: str, elapsed: float) -> None:
+        with self._lock:
+            self._phases.append((name, elapsed))
+        logger.debug("phase %-28s %8.3f s", name, elapsed)
+
+    @contextlib.contextmanager
+    def phase(self, name: str) -> Iterator[None]:
+        start = time.time()
+        try:
+            yield
+        finally:
+            elapsed = time.time() - start
+            with self._lock:
+                self._phases.append((name, elapsed))
+            logger.debug("phase %-28s %8.3f s", name, elapsed)
+
+    def summary(self) -> Dict[str, float]:
+        """Aggregated seconds per phase name, in first-seen order."""
+        out: Dict[str, float] = {}
+        with self._lock:
+            for name, elapsed in self._phases:
+                out[name] = out.get(name, 0.0) + elapsed
+        return out
+
+    def log_summary(self) -> None:
+        summary = self.summary()
+        if not summary:
+            return
+        total = sum(summary.values())
+        logger.info("Phase timing summary:")
+        for name, elapsed in summary.items():
+            logger.info(
+                "  %-28s %8.3f s  (%4.1f%%)",
+                name, elapsed, 100.0 * elapsed / total if total else 0.0,
+            )
+        logger.info("  %-28s %8.3f s", "total (tracked)", total)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._phases.clear()
 
 
 class TorchPhaseProfiler(PhaseProfiler):

@@ -9,19 +9,22 @@ NVIDIA Hopper GPU and nvcc::
 The kernels and their plain versions add the selected weights in the same
 order, so scores must agree to 1e-6 and match counts exactly; the engine
 must give identical labels and medoids through the kernels on the GPU and
-through the plain versions on the CPU.
+through the plain versions on the CPU.  K1 and K2 walk the peak pairs
+within tolerance of a row sorted by m/z, so they are also held against
+their plain versions on peaks in no m/z order, on tie-heavy spectra and at
+wide tolerances, where a column has many such pairs.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from falcon_tpu.preprocess import process_spectrum
-from falcon_tpu.simulate import make_clustered_spectra
-from falcon_tpu.store.store import SpectrumStore, padded_peaks
 from falcon_tpu_torch.cluster import ann_engine, engine
 from falcon_tpu_torch.ops import exact_knn as ex
 from falcon_tpu_torch.ops import pairwise as pw
+from falcon_tpu_torch.preprocess import process_spectrum
+from falcon_tpu_torch.simulate import make_clustered_spectra
+from falcon_tpu_torch.store.store import SpectrumStore, padded_peaks
 
 pytestmark = pytest.mark.cuda
 
@@ -212,3 +215,74 @@ def test_ann_engine_gpu_equals_cpu(cuda, rows, tmp_path, monkeypatch,
     assert after[0] > before[0]
     assert after[1 if linkage == "complete" else 2] > before[
         1 if linkage == "complete" else 2]
+
+
+def _tie_heavy(n, seed):
+    """Spectra with peaks, in no m/z order, crowded into a few tolerance
+    windows, with quantised intensities; each present twice."""
+    rng = np.random.default_rng(seed)
+    mz = np.full((n, 64), pw.PAD_MZ, np.float32)
+    intensity = np.zeros((n, 64), np.float32)
+    for i in range(n):
+        k = int(rng.integers(4, 64))
+        mz[i, :k] = (rng.choice([200.0, 200.03, 350.0, 500.0], size=k)
+                     + rng.choice([0.0, 0.01, 0.02], size=k))
+        intensity[i, :k] = rng.choice([0.25, 0.5], size=k)
+    return (torch.from_numpy(np.repeat(mz, 2, axis=0)),
+            torch.from_numpy(np.repeat(intensity, 2, axis=0)))
+
+
+def _permuted(mz, intensity, seed):
+    """Each spectrum's 64 peaks, padding included, in a random order."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    perm = torch.argsort(torch.rand(mz.shape, generator=gen), dim=1)
+    perm = perm.to(mz.device)
+    return mz.gather(1, perm), intensity.gather(1, perm)
+
+
+@pytest.mark.parametrize("rounds", [1, 8, 32])
+@pytest.mark.parametrize("case", ["tie_heavy", "unsorted", "tol_0.5",
+                                  "tol_2.0"])
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_edge_walking_kernels_match_plain(cuda, rows, kernel, case, rounds):
+    if case == "tie_heavy":
+        mz, intensity = (a.to(cuda) for a in _tie_heavy(64, seed=rounds))
+    else:
+        mz, intensity = _padded(rows, cuda)
+    if case == "unsorted":
+        mz, intensity = _permuted(mz, intensity, seed=rounds)
+    tol = float(case[4:]) if case.startswith("tol_") else TOL
+    n = mz.shape[0] // 128 * 128
+    if kernel == "K1":
+        args = (mz[3:100], intensity[3:100], mz[:n], intensity[:n], 3, tol,
+                rounds)
+        got, want = pw.panel_scores(*args), pw.panel_scores_plain(*args)
+    else:
+        starts = torch.arange(97, device=cuda, dtype=torch.int32) % (
+            n // 128)
+        args = (mz[:97], intensity[:97], mz[:n].contiguous(),
+                intensity[:n].contiguous(), starts, 0, 128, tol, rounds)
+        got = ex.banded_panel_scores(*args)
+        want = ex.banded_panel_scores_plain(*args)
+    torch.cuda.synchronize()
+    _assert_same(got, want)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_edge_walking_kernels_ignore_peak_order(cuda, rows, kernel):
+    # The same spectra with their peaks in another order: the same
+    # matching, its weights summed over the columns in another order.
+    mz, intensity = _padded(rows, cuda)
+    pmz, pint = _permuted(mz, intensity, seed=5)
+    n = mz.shape[0] // 128 * 128
+    starts = torch.arange(80, device=cuda, dtype=torch.int32) % (n // 128)
+    out = []
+    for m, x in ((mz, intensity), (pmz, pint)):
+        if kernel == "K1":
+            out.append(pw.panel_scores(m[:80], x[:80], m[:n], x[:n], 0, TOL))
+        else:
+            out.append(ex.banded_panel_scores(
+                m[:80], x[:80], m[:n].contiguous(), x[:n].contiguous(),
+                starts, 0, 128, TOL, 8))
+    torch.cuda.synchronize()
+    _assert_same(out[1], out[0])
