@@ -4,18 +4,26 @@
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit::
 
-    python3 chip_smoke.py [--report PATH]
+    python3 chip_smoke.py [--report PATH] [--root CHECKOUT]
+
+``--root`` runs the same phases on the ``falcon_tpu_torch`` of another
+checkout (a parent commit unpacked with ``git archive``), so that runs of
+two commits, taken in turns on one card, time the same calls.
 
 It builds the port's CUDA kernels from ``falcon_tpu_torch/csrc`` and then:
 
 1. prints the card (``nvidia-smi``), the torch / CUDA versions and the
    build times of the kernels and of the native host library;
 2. holds each kernel against its plain PyTorch version on the same CUDA
-   tensors, at the main path's shapes, on a tie-heavy case, on spectra
-   whose peaks are not sorted by m/z and at wide fragment tolerances, and
-   times both (CUDA events for kernels, a synchronised host clock for the
-   plain versions); it counts the edges (peak pairs within tolerance) of
-   the timed calls' inputs, from which it computes each kernel's bound;
+   tensors, at the main path's shapes (K4: the bench corpus's intervals
+   as the exact engine launches them, and a synthetic set of 2..1,024),
+   on tie-heavy cases at round caps 1, 8 and 32, on spectra whose peaks
+   are not sorted by m/z and at wide fragment tolerances, and times both
+   (each wrapper's call between CUDA events, also at round caps 0 and 1,
+   K4's and the pair lists' kernels alone with ``torch.profiler``, a
+   synchronised host clock for the plain versions); it counts the edges (peak pairs
+   within tolerance) of the timed calls' inputs, from which it computes
+   each kernel's bound;
 3. runs the port's CLI with its defaults (``--backend exact``) on a
    50,000-spectrum corpus shaped like ``bench.py``'s (hundreds of small
    precursor intervals: the grouped kernel, K4);
@@ -125,8 +133,9 @@ def padded(rows):
 
 
 def kernel_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches (CUDA events),
-    after one warm-up launch."""
+    """Mean milliseconds of ``fn`` over ``reps`` calls, between two CUDA
+    events on the stream (host work that the calls wait for included),
+    after one warm-up call."""
     import torch
 
     fn()
@@ -139,6 +148,38 @@ def kernel_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_split(fn, reps: int = 5):
+    """Device milliseconds per call of each CUDA kernel that ``fn``
+    launches, by kernel name (torch.profiler), after one warm-up call;
+    empty if the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = getattr(e, "cuda_time_total", 0.0)
+        if t > 0:
+            out[e.key] = t / 1e3 / reps
+    return out
+
+
+def log_split(name, split):
+    if split:
+        log(f"  {name} device time by kernel (torch.profiler): " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in sorted(split.items())))
+    else:
+        log(f"  {name} device time by kernel: not measured (the profiler "
+            f"saw no device time)")
 
 
 def plain_ms(fn):
@@ -279,7 +320,8 @@ def check_permutation(name, what, got, original):
         f"{err:.3g}, match counts equal")
 
 
-def phase_kernels(dev, dense_rows, bench_rows, chain_rows, report):
+def phase_kernels(dev, dense_rows, bench_rows, bench_all, chain_rows,
+                  report):
     """Phase 2: each kernel against its plain version on the card."""
     import torch
 
@@ -367,63 +409,150 @@ def phase_kernels(dev, dense_rows, bench_rows, chain_rows, report):
             ii.shape[0], int(edges.sum()),
             (n_rows + n_cols) * 512 + ii.shape[0] * 8))))
 
-    # K4: intervals of 2..1024 consecutive spectra of the bench corpus,
-    # sorted by precursor m/z, in one launch.
-    k4 = K4
-    mz_b, int_b = padded(bench_rows)
-    sizes = list(K4_SIZES)
-    starts = np.concatenate([[0], np.cumsum(sizes)])
-    mz_g, int_g = cuda(mz_b[:starts[-1]]), cuda(int_b[:starts[-1]])
-    starts_t = torch.from_numpy(starts.astype(np.int64)).to(dev)
-    n_pairs = sum(m * (m - 1) // 2 for m in sizes)
-    want, t_plain = plain_ms(lambda: pw.batched_block_scores_plain(
-        mz_g, int_g, starts_t, TOL))
-    shape = f"{len(sizes)} intervals, {n_pairs} pairs"
-    for with_matches in (True, False):
-        def run():
-            return pw.batched_block_scores(mz_g, int_g, starts_t, TOL,
-                                           with_matches=with_matches)
-        got = run()
-        parity.check(k4, f"{shape} with_matches={with_matches}", got,
-                     want if with_matches else (want[0], None))
-    ms = kernel_ms(
-        lambda: pw.batched_block_scores(mz_g, int_g, starts_t, TOL,
-                                        with_matches=False), reps=5)
-    log(f"  {k4} {shape}: kernel {ms:.2f} ms, plain version "
-        f"{t_plain:.1f} ms")
-    iu = [torch.triu_indices(m, m, 1, device=dev) + int(a)
-          for a, m in zip(starts[:-1], sizes)]
-    ii = torch.cat([u[0] for u in iu])
-    jj = torch.cat([u[1] for u in iu])
-    edges = edge_counts(mz_g, int_g, ii, mz_g, int_g, jj, TOL)
-    log_edges(f"bench corpus, K4 {shape}", edges)
-    times[k4] = dict(ms=ms, plain_ms=t_plain, **dict(zip(
-        ("bound_ms", "bound_by"), bound(
-            n_pairs, int(edges.sum()),
-            int(starts[-1]) * 512 + 2 * 8 * len(starts) + n_pairs * 4))))
-
-    # Tie-heavy spectra (in no m/z order) through both kernels, with the
-    # round cap hit, at the CLI's tolerance and at wide ones.
+    # Tie-heavy spectra (in no m/z order) with the round cap hit, at the
+    # CLI's tolerance and at wide ones.
     mz_t, int_t = (cuda(a) for a in tie_heavy(128, seed=5))
-    st = torch.tensor([0, 7, 8, 100, 256], device=dev)
     for tol in (TOL,) + WIDE_TOLS:
         for rounds in (1, 8, 32):
             args = (mz_t, int_t, mz_t, int_t, 0, tol, rounds)
             what = f"tie-heavy 256x256 fragment_tol={tol} rounds={rounds}"
             parity.check(k1, what, pw.panel_scores(*args),
                          pw.panel_scores_plain(*args))
-            if tol == TOL:
-                parity.check(
-                    k4, f"tie-heavy 4 intervals rounds={rounds}",
-                    pw.batched_block_scores(mz_t, int_t, st, TOL, rounds),
-                    pw.batched_block_scores_plain(mz_t, int_t, st, TOL,
-                                                  rounds))
+    phase_grouped(dev, parity, times, detail, report, bench_all)
     phase_banded(dev, parity, times, detail, report,
                  {"bench": bench_rows, "dense": dense_rows}, chain_rows)
     report["kernel_times_ms"] = {" | ".join(map(str, k)): v
                                  for k, v in detail.items()}
     report["kernel_bounds"] = times
     return parity.err, times
+
+
+def grouped_launch(rows, dev):
+    """K4's launch on the main path: the precursor intervals of 2 to
+    ``GROUP_MAX`` spectra of the largest charge of ``rows``, split and
+    ordered as the exact engine splits them, in one call.  Returns (m/z,
+    intensity, starts) on ``dev``."""
+    import torch
+
+    from falcon_tpu_torch.cluster.engine import GROUP_MAX
+    from falcon_tpu_torch.cluster.intervals import precursor_mz_splits
+
+    by_charge = {}
+    for r in rows:
+        by_charge.setdefault(r["precursor_charge"], []).append(r)
+    charge_rows = max(by_charge.values(), key=len)
+    pmz = np.asarray([r["precursor_mz"] for r in charge_rows], np.float64)
+    order = np.argsort(pmz, kind="stable")
+    splits = precursor_mz_splits(pmz[order], 20.0, "ppm", 2**15)
+    sizes = np.diff(splits)
+    keep = [k for k in range(len(sizes)) if 2 <= sizes[k] <= GROUP_MAX]
+    picked = [charge_rows[i] for k in keep
+              for i in order[splits[k]:splits[k + 1]]]
+    mz, intensity = (torch.from_numpy(a).to(dev) for a in padded(picked))
+    starts = np.concatenate([[0], np.cumsum(sizes[keep])]).astype(np.int64)
+    return mz, intensity, torch.from_numpy(starts).to(dev)
+
+
+def condensed_pairs(starts):
+    """(i, j) of every condensed pair of the intervals ``starts``."""
+    import torch
+
+    bounds = starts.tolist()
+    iu = [torch.triu_indices(b - a, b - a, 1, device=starts.device) + a
+          for a, b in zip(bounds[:-1], bounds[1:]) if b - a >= 2]
+    return torch.cat([u[0] for u in iu]), torch.cat([u[1] for u in iu])
+
+
+def phase_grouped(dev, parity, times, detail, report, bench_rows):
+    """Phase 2, continued: K4 at the main path's launch and at a synthetic
+    one of 2..1024-spectrum intervals."""
+    import torch
+
+    from falcon_tpu_torch.ops import pairwise as pw
+    from falcon_tpu_torch.ops.matching import DEFAULT_ROUNDS
+
+    mz_m, int_m, starts_m = grouped_launch(bench_rows, dev)
+    # Intervals of 2..1024 consecutive spectra of the sorted bench corpus.
+    mz_b, int_b = padded(sorted(bench_rows[:6000],
+                                key=lambda r: r["precursor_mz"]))
+    starts_s = np.concatenate([[0], np.cumsum(K4_SIZES)]).astype(np.int64)
+    mz_s = torch.from_numpy(mz_b[:starts_s[-1]]).to(dev)
+    int_s = torch.from_numpy(int_b[:starts_s[-1]]).to(dev)
+    shapes = {
+        "main": (mz_m, int_m, starts_m),
+        "synthetic": (mz_s, int_s, torch.from_numpy(starts_s).to(dev)),
+    }
+    for name, (mz, intensity, starts) in shapes.items():
+        sizes = (starts[1:] - starts[:-1]).tolist()
+        n_pairs = sum(m * (m - 1) // 2 for m in sizes)
+        shape = (f"{name}: {len(sizes)} intervals of {min(sizes)}.."
+                 f"{max(sizes)} spectra, {n_pairs} pairs")
+        want, t_plain = plain_ms(lambda: pw.batched_block_scores_plain(
+            mz, intensity, starts, TOL))
+        for with_matches in (True, False):
+            got = pw.batched_block_scores(mz, intensity, starts, TOL,
+                                          with_matches=with_matches)
+            parity.check(K4, f"{shape} with_matches={with_matches}", got,
+                         want if with_matches else (want[0], None))
+        # The wrapper's call (input checks with their host syncs, the
+        # table of intervals, the sort pre-pass and the pair kernel) by
+        # round cap, and the device time of each kernel alone.
+        for rounds in (0, 1, DEFAULT_ROUNDS):
+            detail[(K4, name, "rounds", rounds)] = kernel_ms(
+                lambda: pw.batched_block_scores(mz, intensity, starts, TOL,
+                                                rounds, False), reps=5)
+        ms = detail[(K4, name, "rounds", DEFAULT_ROUNDS)]
+        split = device_split(lambda: pw.batched_block_scores(
+            mz, intensity, starts, TOL, with_matches=False))
+        detail[(K4, name, "split")] = split
+        log_split(f"{K4} {name}", split)
+        detail[(K4, name, "plain")] = t_plain
+        log(f"  {K4} {shape}: {ms:.3f} ms (round cap 0: "
+            f"{detail[(K4, name, 'rounds', 0)]:.3f} ms, 1: "
+            f"{detail[(K4, name, 'rounds', 1)]:.3f} ms), plain version "
+            f"{t_plain:.1f} ms")
+        ii, jj = condensed_pairs(starts)
+        edges = edge_counts(mz, intensity, ii, mz, intensity, jj, TOL)
+        log_edges(f"bench corpus, K4 {shape}", edges)
+        report["edges"][f"K4 {shape}"] = dict(
+            mean=float(edges.double().mean()), max=int(edges.max()))
+        bound_ms, bound_by = bound(
+            n_pairs, int(edges.sum()),
+            mz.shape[0] * 512 + 8 * starts.shape[0] + n_pairs * 4)
+        detail[(K4, name, "bound")] = (bound_ms, bound_by)
+        log(f"  {K4} {name}: bound {bound_ms:.5f} ms ({bound_by}), "
+            f"{100 * bound_ms / ms:.2f}% of the call's time")
+        if name == "main":
+            times[K4] = dict(ms=ms, plain_ms=t_plain, bound_ms=bound_ms,
+                             bound_by=bound_by)
+            # Peaks in no order on the whole launch, and wide tolerances
+            # on its first 60 intervals.
+            mz_p, int_p = permuted(mz, intensity, seed=4)
+            got = pw.batched_block_scores(mz_p, int_p, starts, TOL)
+            parity.check(K4, f"{shape} unsorted peaks", got,
+                         pw.batched_block_scores_plain(mz_p, int_p, starts,
+                                                       TOL))
+            check_permutation(K4, shape, got, want)
+            sub = starts[:61]
+            n_sub = int(sub[-1])
+            for tol in WIDE_TOLS:
+                w_args = (mz[:n_sub], intensity[:n_sub], sub, tol)
+                parity.check(K4, f"first 60 intervals fragment_tol={tol}",
+                             pw.batched_block_scores(*w_args),
+                             pw.batched_block_scores_plain(*w_args))
+
+    # Tie-heavy spectra (in no m/z order), with the round cap hit, at the
+    # CLI's tolerance and at wide ones; empty and single-spectrum
+    # intervals, and rows of more than 32 columns.
+    mz_t, int_t = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                   for a in tie_heavy(128, seed=5))
+    st = torch.tensor([0, 0, 7, 8, 100, 256], device=dev)
+    for tol in (TOL,) + WIDE_TOLS:
+        for rounds in (1, 8, 32):
+            args = (mz_t, int_t, st, tol, rounds)
+            parity.check(K4, f"tie-heavy 5 intervals fragment_tol={tol} "
+                         f"rounds={rounds}", pw.batched_block_scores(*args),
+                         pw.batched_block_scores_plain(*args))
 
 
 def band_block(rows, dev):
@@ -530,38 +659,67 @@ def phase_banded(dev, parity, times, detail, report, rows_by_name,
                              ex.banded_panel_scores_plain(*w_args))
 
     mz, intensity, ids = chain_pair_lists(chain_rows, dev)
-    args = (mz, intensity, mz, intensity, ids, TOL, 4)
+    args = (mz, intensity, mz, intensity, ids, TOL)
     n_pairs = int((ids >= 0).sum())
     shape = (f"chain of {mz.shape[0]}, {ids.shape[1]} slots, "
              f"{n_pairs} pairs")
-    want, t_plain = plain_ms(lambda: pw.pair_list_scores_plain(*args))
+    want, t_plain = plain_ms(lambda: pw.pair_list_scores_plain(*args, 4))
     for with_matches in (True, False):
-        got = pw.pair_list_scores(*args, with_matches=with_matches)
+        got = pw.pair_list_scores(*args, 4, with_matches=with_matches)
         torch.cuda.synchronize()
         parity.check(PL, f"{shape} with_matches={with_matches}", got,
                      want if with_matches else (want[0], None))
-    ms = kernel_ms(
-        lambda: pw.pair_list_scores(*args, with_matches=False), reps=5)
-    log(f"  {PL} {shape}: kernel {ms:.3f} ms, plain version "
+    # The wrapper's call by round cap (the pruned linkage runs 4 rounds; the
+    # id check syncs once with the host), and the kernel's device time.
+    for rounds in (0, 1, 4):
+        detail[(PL, "rounds", rounds)] = kernel_ms(
+            lambda: pw.pair_list_scores(*args, rounds, with_matches=False),
+            reps=5)
+    ms = detail[(PL, "rounds", 4)]
+    detail[(PL, "split")] = device_split(
+        lambda: pw.pair_list_scores(*args, 4, with_matches=False))
+    log_split(PL, detail[(PL, "split")])
+    detail[(PL, "plain")] = t_plain
+    log(f"  {PL} {shape}: {ms:.4f} ms (round cap 0: "
+        f"{detail[(PL, 'rounds', 0)]:.4f} ms, 1: "
+        f"{detail[(PL, 'rounds', 1)]:.4f} ms), plain version "
         f"{t_plain:.1f} ms")
     keep = torch.nonzero(ids.reshape(-1) >= 0)[:, 0]
     edges = edge_counts(mz, intensity, keep // ids.shape[1], mz, intensity,
                         ids.reshape(-1)[keep], TOL)
     log_edges(f"chained corpus, pair lists ({shape})", edges)
+    report["edges"][f"pair lists {shape}"] = dict(
+        mean=float(edges.double().mean()), max=int(edges.max()))
     n_pool = int(torch.unique(ids[ids >= 0]).shape[0])
     times[PL] = dict(ms=ms, plain_ms=t_plain, **dict(zip(
         ("bound_ms", "bound_by"), bound(
             n_pairs, int(edges.sum()),
             (mz.shape[0] + n_pool) * 512 + ids.numel() * 12))))
+    # Peaks in no order, and wide tolerances on the first 300 rows.
+    mz_p, int_p = permuted(mz, intensity, seed=3)
+    p_args = (mz_p, int_p, mz_p, int_p, ids, TOL, 4)
+    got = pw.pair_list_scores(*p_args)
+    parity.check(PL, f"{shape} unsorted peaks", got,
+                 pw.pair_list_scores_plain(*p_args))
+    check_permutation(PL, shape, got, want)
+    for tol in WIDE_TOLS:
+        w_args = (mz[:300], intensity[:300], mz, intensity, ids[:300], tol,
+                  4)
+        parity.check(PL, f"300x{ids.shape[1]} fragment_tol={tol}",
+                     pw.pair_list_scores(*w_args),
+                     pw.pair_list_scores_plain(*w_args))
 
     # Tie-heavy spectra (in no m/z order), with the round cap hit, at the
-    # CLI's tolerance and at wide ones.
+    # CLI's tolerance and at wide ones; rows with no valid slot and ids
+    # repeated within a row.
     mz_t, int_t = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                    for a in tie_heavy(128, seed=6))
     starts = torch.tensor([0, 1] * 64, dtype=torch.int32, device=dev)
     gen = torch.Generator().manual_seed(2)
-    ids = torch.randint(0, 256, (128, 24), generator=gen)
+    ids = torch.randint(0, 256, (128, 40), generator=gen)
     ids[torch.rand(ids.shape, generator=gen) < 0.25] = -1
+    ids[::16] = -1
+    ids[1::16, 20:] = ids[1::16, :20]
     ids = ids.to(dev)
     for tol in (TOL,) + WIDE_TOLS:
         for rounds in (1, 8, 32):
@@ -571,12 +729,10 @@ def phase_banded(dev, parity, times, detail, report, rows_by_name,
                          f"rounds={rounds}",
                          ex.banded_panel_scores(*args),
                          ex.banded_panel_scores_plain(*args))
-            if tol == TOL:
-                args = (mz_t[:128], int_t[:128], mz_t, int_t, ids, TOL,
-                        rounds)
-                parity.check(PL, f"tie-heavy 128x24 rounds={rounds}",
-                             pw.pair_list_scores(*args),
-                             pw.pair_list_scores_plain(*args))
+            args = (mz_t[:128], int_t[:128], mz_t, int_t, ids, tol, rounds)
+            parity.check(PL, f"tie-heavy 128x40 fragment_tol={tol} "
+                         f"rounds={rounds}", pw.pair_list_scores(*args),
+                         pw.pair_list_scores_plain(*args))
 
 
 def read_labels(csv_path: str):
@@ -740,23 +896,36 @@ def compare_kernels_with_plain(name, report, dev, required, run, n):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--report", help="also write the results as JSON")
+    parser.add_argument(
+        "--root", help="import falcon_tpu_torch from this checkout instead "
+        "of the one beside this script (another commit, timed by the same "
+        "phases)")
     args = parser.parse_args()
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
 
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU is visible", file=sys.stderr)
         return 1
+    import falcon_tpu_torch
     from falcon_tpu_torch import native
     from falcon_tpu_torch.ops import _build
     from falcon_tpu_torch.simulate import make_clustered_spectra
+
+    package = os.path.dirname(os.path.abspath(falcon_tpu_torch.__file__))
+    if args.root and os.path.dirname(package) != os.path.abspath(args.root):
+        raise RuntimeError(f"falcon_tpu_torch came from {package}, not "
+                           f"{args.root}")
 
     report = {}
     card = card_line()
     log("== phase 1: card, versions, build")
     log(card)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"device {torch.cuda.get_device_name(0)}")
+        f"device {torch.cuda.get_device_name(0)}, package "
+        f"{os.path.relpath(package)}")
     _build.library()
     log(f"  kernel build: {_build.build_seconds or 0.0:.1f} s "
         f"({os.path.relpath(_build.library_path())})")
@@ -768,7 +937,7 @@ def main() -> int:
     log(f"  native host library: {time.perf_counter() - t0:.1f} s "
         f"({os.path.relpath(native.library_path())})")
     # Registers, shared memory and spills of each kernel (-Xptxas -v).
-    report.update(card=card, torch=torch.__version__,
+    report.update(card=card, package=package, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=_build.build_seconds,
                   build_log=_build.build_log)
 
@@ -778,15 +947,15 @@ def main() -> int:
     for r in preprocess(dense_spectra):
         dense_by_charge.setdefault(r["precursor_charge"], []).append(r)
     charge2 = sorted(dense_by_charge[2], key=lambda r: r["precursor_mz"])
-    bench_rows = sorted(preprocess(bench_spectra[:6000]),
-                        key=lambda r: r["precursor_mz"])
+    bench_all = preprocess(bench_spectra)
+    bench_rows = sorted(bench_all[:6000], key=lambda r: r["precursor_mz"])
     chain_rows = preprocess(chained_spectra(
         1, CHAIN_CORPUS["chain_len"], seed=3)[0])
 
     log("== phase 2: kernels against their plain versions on the card")
     dev = torch.device("cuda")
-    errs, times = phase_kernels(dev, charge2, bench_rows, chain_rows,
-                                report)
+    errs, times = phase_kernels(dev, charge2, bench_rows, bench_all,
+                                chain_rows, report)
 
     launches = []
     with tempfile.TemporaryDirectory(prefix="falcon_chip_smoke_") as tmp:

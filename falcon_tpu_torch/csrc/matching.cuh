@@ -14,22 +14,23 @@
 // in each column; selected weights are added to the score and their rows
 // and columns removed.  The score is clipped to [0, 1] once, at the end.
 //
-// Two routines, one result.  Both sum the score in a fixed order (per
-// column, then a butterfly over the warp) with no atomics, so two runs give
-// the same bits, and the plain version (ops/matching.py::match_score) adds
-// in that order too.
+// The score is summed in a fixed order (per column, then a butterfly over
+// the warp) with no atomics, so two runs give the same bits, and the plain
+// version (ops/matching.py::match_score) adds in that order too.
 //
-// match_sorted (K1 and K2) works on the edges only: the (row, column) peak
-// pairs within tolerance whose weight is > 0.  With peaks spread over
-// ~1,400 m/z and a tolerance of 0.05, two spectra share a few edges, not
-// 4,096 tile entries, so it never builds the tile.  The block sorts its one
-// row spectrum by m/z once (sort_row); a lane owns columns `lane` and
-// `lane + 32` and finds each one's edges as a contiguous run of the sorted
-// row.  What bounds it then is the per-edge work of the rounds and one
-// binary search per column peak, not the tile.
+// The routines work on the edges only: the (row, column) peak pairs within
+// tolerance whose weight is > 0.  With peaks spread over ~1,400 m/z and a
+// tolerance of 0.05, two spectra share a few edges, not 4,096 weights, so
+// no routine builds the 64 x 64 weight tile.  The row spectrum is sorted by
+// m/z once (sort_row) and shared by every pair it takes part in; a lane
+// owns columns `lane` and `lane + 32` and finds each one's edges as a
+// contiguous run of the sorted row (find_runs); the rounds then walk those
+// runs (match_runs).  What bounds it is one binary search per column peak
+// and the per-edge work of the rounds.
 //
-// match_pair (K4 and the pair lists, not yet reworked) builds the 64 x 64
-// weight tile in shared memory and scans it.
+// match_sorted (K1, K2) runs both steps for every pair.  match_sparse (K4,
+// the pair lists) skips the rounds of a pair whose runs are all empty:
+// nearly every pair of a precursor interval has no edge at all.
 
 #pragma once
 
@@ -40,14 +41,7 @@
 namespace falcon {
 
 constexpr int P = 64;          // padded peaks per spectrum
-constexpr int LDW = P + 1;     // row stride of the weight tile
 constexpr unsigned FULL = 0xffffffffu;
-
-struct WarpScratch {
-  float w[P * LDW];  // the pair's weight tile, row p = peak p of spectrum a
-  float cmax[P];     // column maxima of the current round
-  int sel[P];        // per column: lowest row that chose it, P if none
-};
 
 __device__ __forceinline__ bool bit(uint64_t mask, int i) {
   return (mask >> i) & 1ull;
@@ -68,124 +62,8 @@ __device__ __forceinline__ void warp_total(const float (&acc)[2], int nmatch,
   matches_out = __reduce_add_sync(FULL, nmatch);
 }
 
-// Scores spectra a and b (P m/z and P intensities each, in device memory)
-// with the calling warp; every lane must call it.  The result is valid in
-// every lane.
-//
-// Bound by compares and maxima over the 64 x 64 tile, in shared memory, per
-// pair.  The f32 tile has a padded row stride (P + 1) so that both the row
-// walk (a lane per row) and the column walk (a lane per column) are free of
-// bank conflicts; each lane owns rows and columns `lane` and `lane + 32`;
-// removed rows and columns are kept as two 64-bit masks instead of being
-// zeroed; column maxima of the first round come for free while the tile is
-// built.
-__device__ __forceinline__ void match_pair(
-    const float* __restrict__ mz_a, const float* __restrict__ int_a,
-    const float* __restrict__ mz_b, const float* __restrict__ int_b,
-    float tol, int rounds, WarpScratch& s, float& score_out,
-    int& matches_out) {
-  const int lane = threadIdx.x & 31;
-  __syncwarp();  // the warp's previous pair is done reading the tile
-
-  float mza[2], ia[2], mzb[2], ib[2];
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    mza[k] = mz_a[lane + 32 * k];
-    ia[k] = int_a[lane + 32 * k];
-    mzb[k] = mz_b[lane + 32 * k];
-    ib[k] = int_b[lane + 32 * k];
-  }
-
-  // Build the tile by columns; keep the first round's column maxima.
-  float cm[2] = {0.f, 0.f};
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-#pragma unroll 8
-    for (int r = 0; r < 32; ++r) {
-      const int p = 32 * h + r;
-      const float m = __shfl_sync(FULL, mza[h], r);
-      const float x = __shfl_sync(FULL, ia[h], r);
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const float v = (fabsf(m - mzb[k]) <= tol) ? x * ib[k] : 0.f;
-        s.w[p * LDW + lane + 32 * k] = v;
-        cm[k] = fmaxf(cm[k], v);
-      }
-    }
-  }
-
-  float acc[2] = {0.f, 0.f};
-  int nmatch = 0;
-  uint64_t alive_r = ~0ull, alive_c = ~0ull;
-  for (int round = 0; round < rounds; ++round) {
-    if (round > 0) {
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int q = lane + 32 * k;
-        float c = 0.f;
-        if (bit(alive_c, q)) {
-          for (int p = 0; p < P; ++p) {
-            if (bit(alive_r, p)) c = fmaxf(c, s.w[p * LDW + q]);
-          }
-        }
-        cm[k] = c;
-      }
-    }
-    if (!__any_sync(FULL, cm[0] > 0.f || cm[1] > 0.f)) break;
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      s.cmax[lane + 32 * k] = cm[k];
-      s.sel[lane + 32 * k] = P;
-    }
-    __syncwarp();
-
-    // Rows: the first column that is the row maximum and its column's.
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const int p = lane + 32 * k;
-      if (!bit(alive_r, p)) continue;
-      float m = 0.f;
-      int idx = -1;
-      for (int q = 0; q < P; ++q) {
-        const float v = bit(alive_c, q) ? s.w[p * LDW + q] : 0.f;
-        if (v > m) {
-          m = v;
-          idx = (v == s.cmax[q]) ? q : -1;
-        } else if (v == m && idx < 0 && v == s.cmax[q]) {
-          idx = q;
-        }
-      }
-      if (m > 0.f && idx >= 0) atomicMin(&s.sel[idx], p);
-    }
-    __syncwarp();
-
-    // Columns: the lowest row that chose the column wins it.
-    unsigned rows_lo = 0u, rows_hi = 0u;
-    bool hit[2];
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const int p = s.sel[lane + 32 * k];
-      hit[k] = p < P;
-      if (hit[k]) {
-        acc[k] += s.w[p * LDW + lane + 32 * k];
-        ++nmatch;
-        if (p < 32) rows_lo |= 1u << p;
-        else rows_hi |= 1u << (p - 32);
-      }
-    }
-    rows_lo = __reduce_or_sync(FULL, rows_lo);
-    rows_hi = __reduce_or_sync(FULL, rows_hi);
-    const unsigned cols_lo = __ballot_sync(FULL, hit[0]);
-    const unsigned cols_hi = __ballot_sync(FULL, hit[1]);
-    alive_r &= ~((uint64_t(rows_hi) << 32) | rows_lo);
-    alive_c &= ~((uint64_t(cols_hi) << 32) | cols_lo);
-    __syncwarp();
-  }
-
-  warp_total(acc, nmatch, score_out, matches_out);
-}
-
-// One row spectrum sorted by m/z, shared by every warp of a block.
+// One row spectrum sorted by m/z: shared by every warp of a block (K1, K2,
+// the pair lists) or copied from the sort pre-pass for one warp (K4).
 struct SortedRow {
   float key[P];    // unsorted sort keys (sort_row's scratch)
   float mz[P];     // the keys in ascending order
@@ -193,10 +71,17 @@ struct SortedRow {
   int idx[P];      // its index in the row spectrum
 };
 
-// Per-warp state of match_sorted's rounds.
+// Per-warp state of the rounds.
 struct EdgeScratch {
   unsigned rowmax[P];  // per row: its maximum this round, as float bits
   int rowsel[P];       // per row: the lowest column it chose, P if none
+};
+
+// A lane's two column peaks (lane, lane + 32): their intensities and their
+// runs [lo, hi) of the sorted row.
+struct Runs {
+  float ib[2];
+  int lo[2], hi[2];
 };
 
 __device__ __forceinline__ bool is_finite(float x) {
@@ -231,21 +116,48 @@ __device__ __forceinline__ void sort_row(const float* __restrict__ mz,
   __syncthreads();
 }
 
-// Scores the sorted row against spectrum b (P m/z and P intensities in
-// device memory) with the calling warp; every lane must call it.  The
-// result is valid in every lane.
+// The runs of the calling lane's column peaks of spectrum b (P m/z and P
+// intensities, in global or shared memory) in the sorted row.
 //
-// Edges.  For a column peak c, d = fl(m - c) is monotone in m, so the row
-// peaks with |m - c| <= tol (the predicate of pair_weights, bit for bit)
-// are a contiguous run of the sorted row: lo = the count of peaks with
-// d < -tol, by binary search, then every following peak until d > tol.
-// Both tests are that predicate's halves, so run edges agree with the
-// plain version exactly.  An edge's weight is the same f32 product x * ib,
+// For a column peak c, d = fl(m - c) is monotone in m, so the row peaks
+// with |m - c| <= tol (the predicate of pair_weights, bit for bit) are a
+// contiguous run of the sorted row: lo = the count of peaks with d < -tol,
+// by binary search, then every following peak until d > tol.  Both tests
+// are that predicate's halves, so run edges agree with the plain version
+// exactly.  A column peak with intensity 0 (padding) or a non-finite m/z
+// has an empty run.
+__device__ __forceinline__ Runs find_runs(const SortedRow& row,
+                                          const float* __restrict__ mz_b,
+                                          const float* __restrict__ int_b,
+                                          float tol) {
+  const int lane = threadIdx.x & 31;
+  Runs e;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const float c = mz_b[lane + 32 * k];
+    e.ib[k] = int_b[lane + 32 * k];
+    int l = 0, h = 0;
+    if (e.ib[k] != 0.f && is_finite(c) && tol == tol) {  // NaN tol: none
+#pragma unroll
+      for (int step = P; step > 0; step >>= 1) {
+        if (l + step <= P && row.mz[l + step - 1] - c < -tol) l += step;
+      }
+      h = l;
+      while (h < P && !(row.mz[h] - c > tol)) ++h;
+    }
+    e.lo[k] = l;
+    e.hi[k] = h;
+  }
+  return e;
+}
+
+// Up to `rounds` matching rounds on the edges of the runs `e`, with the
+// calling warp; every lane must call it.  The result is valid in every lane.
+//
+// An edge's weight is the same f32 product x * ib as pair_weights',
 // recomputed where it is needed; only w > 0 is an edge (a weight <= 0 is
-// never selected and never raises a maximum above 0).  A column peak with
-// intensity 0 (padding) or a non-finite m/z has none.
-//
-// A round on the edges, in three passes over each lane's runs:
+// never selected and never raises a maximum above 0).  A round walks each
+// lane's runs three times:
 //   1. column maxima (lane-local) and row maxima (atomicMax on the float
 //      bits: weights are > 0, so integer order is float order and the
 //      result does not depend on the order of the atomics);
@@ -254,30 +166,11 @@ __device__ __forceinline__ void sort_row(const float* __restrict__ mz,
 //   3. each column takes the lowest row that chose it (lane-local), as
 //      _first_true along the column.  Every row that chose a column holds
 //      the column's maximum, so the selected weight is that maximum.
-__device__ __forceinline__ void match_sorted(
-    const SortedRow& row, const float* __restrict__ mz_b,
-    const float* __restrict__ int_b, float tol, int rounds, EdgeScratch& s,
-    float& score_out, int& matches_out) {
+__device__ __forceinline__ void match_runs(const SortedRow& row,
+                                           const Runs& e, int rounds,
+                                           EdgeScratch& s, float& score_out,
+                                           int& matches_out) {
   const int lane = threadIdx.x & 31;
-  float ib[2];
-  int lo[2], hi[2];
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const float c = mz_b[lane + 32 * k];
-    ib[k] = int_b[lane + 32 * k];
-    int l = 0, h = 0;
-    if (ib[k] != 0.f && is_finite(c) && tol == tol) {  // NaN tol: none
-#pragma unroll
-      for (int step = P; step > 0; step >>= 1) {
-        if (l + step <= P && row.mz[l + step - 1] - c < -tol) l += step;
-      }
-      h = l;
-      while (h < P && !(row.mz[h] - c > tol)) ++h;
-    }
-    lo[k] = l;
-    hi[k] = h;
-  }
-
   float acc[2] = {0.f, 0.f};
   int nmatch = 0;
   uint64_t alive_r = ~0ull, alive_c = ~0ull;
@@ -294,9 +187,9 @@ __device__ __forceinline__ void match_sorted(
     for (int k = 0; k < 2; ++k) {
       float c = 0.f;
       if (bit(alive_c, lane + 32 * k)) {
-        for (int t = lo[k]; t < hi[k]; ++t) {
+        for (int t = e.lo[k]; t < e.hi[k]; ++t) {
           const int p = row.idx[t];
-          const float w = row.inten[t] * ib[k];
+          const float w = row.inten[t] * e.ib[k];
           if (w > 0.f && bit(alive_r, p)) {
             c = fmaxf(c, w);
             atomicMax(&s.rowmax[p], __float_as_uint(w));
@@ -312,9 +205,9 @@ __device__ __forceinline__ void match_sorted(
     for (int k = 0; k < 2; ++k) {
       if (cm[k] > 0.f) {
         const unsigned cb = __float_as_uint(cm[k]);
-        for (int t = lo[k]; t < hi[k]; ++t) {
+        for (int t = e.lo[k]; t < e.hi[k]; ++t) {
           const int p = row.idx[t];
-          const unsigned wb = __float_as_uint(row.inten[t] * ib[k]);
+          const unsigned wb = __float_as_uint(row.inten[t] * e.ib[k]);
           if (wb == cb && bit(alive_r, p) && wb == s.rowmax[p]) {
             atomicMin(&s.rowsel[p], lane + 32 * k);
           }
@@ -329,7 +222,7 @@ __device__ __forceinline__ void match_sorted(
     for (int k = 0; k < 2; ++k) {
       int best = P;
       if (cm[k] > 0.f) {
-        for (int t = lo[k]; t < hi[k]; ++t) {
+        for (int t = e.lo[k]; t < e.hi[k]; ++t) {
           const int p = row.idx[t];
           if (s.rowsel[p] == lane + 32 * k) best = min(best, p);
         }
@@ -350,6 +243,33 @@ __device__ __forceinline__ void match_sorted(
     alive_c &= ~((uint64_t(cols_hi) << 32) | cols_lo);
   }
   warp_total(acc, nmatch, score_out, matches_out);
+}
+
+// Scores the sorted row against spectrum b with the calling warp: the runs,
+// then the rounds.  Every lane must call it; the result is valid in every
+// lane.
+__device__ __forceinline__ void match_sorted(
+    const SortedRow& row, const float* __restrict__ mz_b,
+    const float* __restrict__ int_b, float tol, int rounds, EdgeScratch& s,
+    float& score_out, int& matches_out) {
+  const Runs e = find_runs(row, mz_b, int_b, tol);
+  match_runs(row, e, rounds, s, score_out, matches_out);
+}
+
+// As match_sorted, but a pair whose runs are all empty scores 0 with 0
+// matches after one vote, as the rounds would give it: their first round
+// finds no weight > 0 and stops.
+__device__ __forceinline__ void match_sparse(
+    const SortedRow& row, const float* __restrict__ mz_b,
+    const float* __restrict__ int_b, float tol, int rounds, EdgeScratch& s,
+    float& score_out, int& matches_out) {
+  const Runs e = find_runs(row, mz_b, int_b, tol);
+  if (!__any_sync(FULL, e.hi[0] > e.lo[0] || e.hi[1] > e.lo[1])) {
+    score_out = 0.f;
+    matches_out = 0;
+    return;
+  }
+  match_runs(row, e, rounds, s, score_out, matches_out);
 }
 
 }  // namespace falcon

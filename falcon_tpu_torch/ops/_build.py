@@ -36,16 +36,17 @@ _SIGNATURES = {
     # tol, rounds, upper_only, scores, matches, stream
     "falcon_panel_scores": [_p, _p, _i, _p, _p, _i, _ll, _f, _i, _i, _p,
                             _p, _p],
-    # mz, intensity, starts, pair_starts, n_groups, n_pairs, tol, rounds,
-    # scores, matches, stream
-    "falcon_grouped_scores": [_p, _p, _p, _p, _i, _ll, _f, _i, _p, _p, _p],
+    # mz, intensity, n, sorted, starts, layout, n_groups, n_items, tol,
+    # rounds, scores, matches, stream
+    "falcon_grouped_scores": [_p, _p, _i, _p, _p, _p, _i, _ll, _f, _i, _p,
+                              _p, _p],
     # mz_rows, int_rows, n_rows, mz_pool, int_pool, starts, pass_offset,
     # window, tol, rounds, scores, matches, stream
     "falcon_banded_scores": [_p, _p, _i, _p, _p, _p, _ll, _i, _f, _i, _p,
                              _p, _p],
-    # mz_q, int_q, mz_pool, int_pool, ids, n_entries, k, tol, rounds,
-    # scores, matches, stream
-    "falcon_pair_list_scores": [_p, _p, _p, _p, _p, _ll, _i, _f, _i, _p,
+    # mz_q, int_q, n_q, mz_pool, int_pool, ids, k, tol, rounds, scores,
+    # matches, stream
+    "falcon_pair_list_scores": [_p, _p, _i, _p, _p, _p, _i, _f, _i, _p,
                                 _p, _p],
 }
 

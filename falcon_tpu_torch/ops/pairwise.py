@@ -17,12 +17,17 @@ Port of the scoring in ``falcon_tpu/ops/pairwise.py``:
   it the pairs of a large linkage component whose spread upper bound
   (``ub_pass_counts``, ``ub_pass_topk``) can reach ``1 - eps``.
 
-All three are the matching routine of ``csrc/matching.cuh`` at different
-launch shapes (``csrc/pairwise.cu``).  Each wrapper checks its inputs,
-launches its kernel for CUDA tensors and counts the launch in its
-``launches`` attribute; for CPU tensors it runs its plain version
-(``*_plain``, built on ``ops/matching.py``), which is also what the kernel is
-held against on the card.  Nothing falls back from one to the other.
+All three run one matching routine family (``csrc/matching.cuh``): a row
+spectrum sorted by m/z once, each column peak's run of row peaks within
+tolerance found by binary search, then the matching rounds on those peak
+pairs only (``csrc/pairwise.cu`` says how each launch shares its sorted
+rows).  Each wrapper checks its inputs, launches its kernel for CUDA
+tensors and counts the launch in its ``launches`` attribute; for CPU
+tensors it runs its plain version (``*_plain``, built on
+``ops/matching.py``), which is also what the kernel is held against on the
+card.  Nothing falls back from one to the other.  K4's table of intervals
+(``_grouped_layout``) is built here on the host, from the offsets of the
+intervals, and each warp of the kernel finds its work item from it.
 
 Spectra are padded ``(n, 64)`` float32 m/z and intensity arrays (padding
 m/z ``PAD_MZ``, intensity 0, as ``falcon_tpu.store.store.padded_peaks``
@@ -191,12 +196,32 @@ def _check_starts(name: str, starts: torch.Tensor, n: int,
         raise ValueError(f"{name}: starts must rise from 0 to {n}")
 
 
-def _pair_starts(starts: torch.Tensor) -> torch.Tensor:
-    """First condensed pair of each interval, plus the total at the end."""
-    sizes = starts[1:] - starts[:-1]
-    out = torch.zeros_like(starts)
-    out[1:] = torch.cumsum(sizes * (sizes - 1) // 2, 0)
-    return out
+ITEM_COLS = 32  # columns per K4 work item: one warp, one lane each
+MAX_INTERVAL = 1 << 16  # K4's largest interval (its item search is in int)
+SORTED_BYTES = 3 * 4 * KERNEL_PEAKS  # K4's sorted spectrum: m/z, int, index
+
+
+def _grouped_layout(bounds: np.ndarray) -> np.ndarray:
+    """K4's table of intervals, from their offsets ``bounds`` (host).
+
+    A work item is (row i, a run of up to ``ITEM_COLS`` consecutive
+    columns j > i of i's interval), and items are numbered in the
+    condensed order, so row r of an m-spectrum interval has
+    ceil((m - 1 - r) / ITEM_COLS) and the interval the sum of ceil(c /
+    ITEM_COLS) over c < m (the kernel's ``tail_items``).  Returns (2, G + 1)
+    int64: the first item of each interval, then its first condensed pair,
+    each row ending in its total.  Raises on an interval of more than
+    ``MAX_INTERVAL`` spectra.
+    """
+    sizes = np.diff(bounds)
+    if sizes.shape[0] and sizes.max() > MAX_INTERVAL:
+        raise ValueError(f"batched_block_scores: an interval of "
+                         f"{sizes.max()} spectra, more than {MAX_INTERVAL}")
+    a, b = np.divmod(np.maximum(sizes - 1, 0), ITEM_COLS)
+    layout = np.zeros((2, sizes.shape[0] + 1), np.int64)
+    np.cumsum(ITEM_COLS * a * (a + 1) // 2 + b * (a + 1), out=layout[0, 1:])
+    np.cumsum(sizes * (sizes - 1) // 2, out=layout[1, 1:])
+    return layout
 
 
 def batched_block_scores(
@@ -212,7 +237,9 @@ def batched_block_scores(
     ``mz``/``intensity``: (n, P), interval g being rows
     ``starts[g]:starts[g + 1]`` (``starts``: int64, from 0 to n).  Returns
     (scores f32, matches i32 or None), each holding the condensed pairs
-    (i < j, row-major) of interval 0, then interval 1, and so on.
+    (i < j, row-major) of interval 0, then interval 1, and so on.  On the
+    card: a pre-pass sorts each spectrum once, then one warp per work item
+    of :func:`_grouped_layout`.
     """
     device = _check_spectra("batched_block_scores", mz, intensity)
     if mz.shape != intensity.shape:
@@ -225,18 +252,22 @@ def batched_block_scores(
     if device.type == "cpu":
         return batched_block_scores_plain(mz, intensity, starts,
                                           fragment_tol, rounds, with_matches)
-    pair_starts = _pair_starts(starts)
-    n_pairs = int(pair_starts[-1])
+    layout = _grouped_layout(starts.cpu().numpy())
+    n_groups = layout.shape[1] - 1
+    n_items, n_pairs = int(layout[0, -1]), int(layout[1, -1])
     lib = _build.library()
-    scores = torch.zeros(n_pairs, dtype=torch.float32, device=device)
-    matches = (torch.zeros(n_pairs, dtype=torch.int32, device=device)
+    layout_d = torch.from_numpy(layout).to(device)
+    scores = torch.empty(n_pairs, dtype=torch.float32, device=device)
+    matches = (torch.empty(n_pairs, dtype=torch.int32, device=device)
                if with_matches else None)
+    sorted_peaks = torch.empty(mz.shape[0] * SORTED_BYTES, dtype=torch.uint8,
+                               device=device)
     with torch.cuda.device(device):
         err = lib.falcon_grouped_scores(
-            mz.data_ptr(), intensity.data_ptr(), starts.data_ptr(),
-            pair_starts.data_ptr(), starts.shape[0] - 1, n_pairs,
-            f32_tolerance(fragment_tol), int(rounds), scores.data_ptr(),
-            matches.data_ptr() if with_matches else None,
+            mz.data_ptr(), intensity.data_ptr(), mz.shape[0],
+            sorted_peaks.data_ptr(), starts.data_ptr(), layout_d.data_ptr(),
+            n_groups, n_items, f32_tolerance(fragment_tol), int(rounds),
+            scores.data_ptr(), matches.data_ptr() if with_matches else None,
             torch.cuda.current_stream(device).cuda_stream,
         )
     _check_launch("K4 grouped", err)
@@ -401,7 +432,8 @@ def pair_list_scores(
     ``mz_q``/``int_q``: (n_q, P) queries; ``ids``: (n_q, K) int64 rows of
     the (n_pool, P) pool, -1 = none.  Returns (scores f32, matches i32 or
     None), each (n_q, K); an entry with id -1 gets score ``NEG`` and 0
-    matches.
+    matches.  On the card one block per query row sorts it once and walks
+    only its valid slots; the pool rows must be 16-byte aligned (cp.async).
     """
     device = _check_spectra("pair_list_scores", mz_q, int_q, mz_pool,
                             int_pool)
@@ -414,14 +446,17 @@ def pair_list_scores(
     if device.type == "cpu":
         return pair_list_scores_plain(mz_q, int_q, mz_pool, int_pool, ids,
                                       fragment_tol, rounds, with_matches)
+    if mz_pool.data_ptr() % 16 or int_pool.data_ptr() % 16:
+        raise ValueError("pair_list_scores: the pool must be 16-byte "
+                         "aligned on CUDA")
     lib = _build.library()
     scores = torch.empty(ids.shape, dtype=torch.float32, device=device)
     matches = (torch.empty(ids.shape, dtype=torch.int32, device=device)
                if with_matches else None)
     with torch.cuda.device(device):
         err = lib.falcon_pair_list_scores(
-            mz_q.data_ptr(), int_q.data_ptr(), mz_pool.data_ptr(),
-            int_pool.data_ptr(), ids.data_ptr(), ids.numel(),
+            mz_q.data_ptr(), int_q.data_ptr(), mz_q.shape[0],
+            mz_pool.data_ptr(), int_pool.data_ptr(), ids.data_ptr(),
             ids.shape[1], f32_tolerance(fragment_tol), int(rounds),
             scores.data_ptr(), matches.data_ptr() if with_matches else None,
             torch.cuda.current_stream(device).cuda_stream,

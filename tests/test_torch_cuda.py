@@ -9,10 +9,10 @@ NVIDIA Hopper GPU and nvcc::
 The kernels and their plain versions add the selected weights in the same
 order, so scores must agree to 1e-6 and match counts exactly; the engine
 must give identical labels and medoids through the kernels on the GPU and
-through the plain versions on the CPU.  K1 and K2 walk the peak pairs
-within tolerance of a row sorted by m/z, so they are also held against
-their plain versions on peaks in no m/z order, on tie-heavy spectra and at
-wide tolerances, where a column has many such pairs.
+through the plain versions on the CPU.  Every kernel walks the peak pairs
+within tolerance of a row sorted by m/z, so each is also held against its
+plain version on peaks in no m/z order, on tie-heavy spectra and at wide
+tolerances, where a column has many such pairs.
 """
 
 import numpy as np
@@ -25,6 +25,7 @@ from falcon_tpu_torch.ops import pairwise as pw
 from falcon_tpu_torch.preprocess import process_spectrum
 from falcon_tpu_torch.simulate import make_clustered_spectra
 from falcon_tpu_torch.store.store import SpectrumStore, padded_peaks
+from torch_cases import permuted, tie_heavy
 
 pytestmark = pytest.mark.cuda
 
@@ -107,6 +108,14 @@ def test_kernels_reject_unsupported_inputs(cuda, rows):
         pw.panel_scores(wide, wide_int, wide, wide_int, 0, TOL)
     with pytest.raises(ValueError, match="tensors on"):
         pw.panel_scores(mz, intensity, mz.cpu(), intensity.cpu(), 0, TOL)
+    # A contiguous pool one float off a 16-byte boundary: cp.async cannot
+    # copy its rows.
+    flat = torch.zeros(mz.numel() + 1, device=cuda)
+    flat[1:] = mz.reshape(-1)
+    ids = torch.zeros((8, 4), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        pw.pair_list_scores(mz, intensity, flat[1:].view(mz.shape),
+                            intensity, ids, TOL, 4)
 
 
 @pytest.mark.parametrize("min_matches", [0, 6])
@@ -217,72 +226,75 @@ def test_ann_engine_gpu_equals_cpu(cuda, rows, tmp_path, monkeypatch,
         1 if linkage == "complete" else 2]
 
 
-def _tie_heavy(n, seed):
-    """Spectra with peaks, in no m/z order, crowded into a few tolerance
-    windows, with quantised intensities; each present twice."""
-    rng = np.random.default_rng(seed)
-    mz = np.full((n, 64), pw.PAD_MZ, np.float32)
-    intensity = np.zeros((n, 64), np.float32)
-    for i in range(n):
-        k = int(rng.integers(4, 64))
-        mz[i, :k] = (rng.choice([200.0, 200.03, 350.0, 500.0], size=k)
-                     + rng.choice([0.0, 0.01, 0.02], size=k))
-        intensity[i, :k] = rng.choice([0.25, 0.5], size=k)
-    return (torch.from_numpy(np.repeat(mz, 2, axis=0)),
-            torch.from_numpy(np.repeat(intensity, 2, axis=0)))
-
-
 def _permuted(mz, intensity, seed):
-    """Each spectrum's 64 peaks, padding included, in a random order."""
-    gen = torch.Generator(device="cpu").manual_seed(seed)
-    perm = torch.argsort(torch.rand(mz.shape, generator=gen), dim=1)
-    perm = perm.to(mz.device)
-    return mz.gather(1, perm), intensity.gather(1, perm)
+    """``torch_cases.permuted`` of CUDA tensors, on their device."""
+    return tuple(torch.from_numpy(a).to(mz.device) for a in permuted(
+        mz.cpu().numpy(), intensity.cpu().numpy(), seed))
+
+
+def _edge_walk(kernel, mz, intensity, tol, rounds):
+    """(kernel, plain version) results of ``kernel`` on the first spectra
+    of ``mz`` (a multiple of 128 rows), at a launch shape of its own."""
+    n = mz.shape[0]
+    dev = mz.device
+    if kernel == "K1":
+        args = (mz[3:100], intensity[3:100], mz, intensity, 3, tol, rounds)
+        return pw.panel_scores(*args), pw.panel_scores_plain(*args)
+    if kernel == "K2":
+        starts = torch.arange(97, device=dev, dtype=torch.int32) % (
+            n // 128)
+        args = (mz[:97], intensity[:97], mz, intensity, starts, 0, 128, tol,
+                rounds)
+        return (ex.banded_panel_scores(*args),
+                ex.banded_panel_scores_plain(*args))
+    if kernel == "K4":
+        # Empty, single and two-spectrum intervals, and rows of more than
+        # 32 columns.
+        sizes = [0, 1, 2, 37, 1, 64]
+        sizes.append(n - sum(sizes))
+        starts = torch.tensor(np.concatenate([[0], np.cumsum(sizes)]),
+                              device=dev)
+        args = (mz, intensity, starts, tol, rounds)
+        return (pw.batched_block_scores(*args),
+                pw.batched_block_scores_plain(*args))
+    gen = torch.Generator(device="cpu").manual_seed(rounds)
+    ids = torch.randint(0, n, (90, 70), generator=gen)
+    ids[torch.rand(ids.shape, generator=gen) < 0.4] = -1
+    ids[5] = -1  # a row with no pairs at all
+    ids[6, 35:] = ids[6, :35]  # ids that repeat within a row
+    args = (mz[:90], intensity[:90], mz, intensity, ids.to(dev), tol,
+            rounds)
+    return pw.pair_list_scores(*args), pw.pair_list_scores_plain(*args)
 
 
 @pytest.mark.parametrize("rounds", [1, 8, 32])
 @pytest.mark.parametrize("case", ["tie_heavy", "unsorted", "tol_0.5",
                                   "tol_2.0"])
-@pytest.mark.parametrize("kernel", ["K1", "K2"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K4", "pair_lists"])
 def test_edge_walking_kernels_match_plain(cuda, rows, kernel, case, rounds):
     if case == "tie_heavy":
-        mz, intensity = (a.to(cuda) for a in _tie_heavy(64, seed=rounds))
+        mz, intensity = (torch.from_numpy(a).to(cuda)
+                          for a in tie_heavy(64, seed=rounds))
     else:
         mz, intensity = _padded(rows, cuda)
     if case == "unsorted":
         mz, intensity = _permuted(mz, intensity, seed=rounds)
     tol = float(case[4:]) if case.startswith("tol_") else TOL
     n = mz.shape[0] // 128 * 128
-    if kernel == "K1":
-        args = (mz[3:100], intensity[3:100], mz[:n], intensity[:n], 3, tol,
-                rounds)
-        got, want = pw.panel_scores(*args), pw.panel_scores_plain(*args)
-    else:
-        starts = torch.arange(97, device=cuda, dtype=torch.int32) % (
-            n // 128)
-        args = (mz[:97], intensity[:97], mz[:n].contiguous(),
-                intensity[:n].contiguous(), starts, 0, 128, tol, rounds)
-        got = ex.banded_panel_scores(*args)
-        want = ex.banded_panel_scores_plain(*args)
+    got, want = _edge_walk(kernel, mz[:n].contiguous(),
+                           intensity[:n].contiguous(), tol, rounds)
     torch.cuda.synchronize()
     _assert_same(got, want)
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K2"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K4", "pair_lists"])
 def test_edge_walking_kernels_ignore_peak_order(cuda, rows, kernel):
     # The same spectra with their peaks in another order: the same
     # matching, its weights summed over the columns in another order.
     mz, intensity = _padded(rows, cuda)
     pmz, pint = _permuted(mz, intensity, seed=5)
     n = mz.shape[0] // 128 * 128
-    starts = torch.arange(80, device=cuda, dtype=torch.int32) % (n // 128)
-    out = []
-    for m, x in ((mz, intensity), (pmz, pint)):
-        if kernel == "K1":
-            out.append(pw.panel_scores(m[:80], x[:80], m[:n], x[:n], 0, TOL))
-        else:
-            out.append(ex.banded_panel_scores(
-                m[:80], x[:80], m[:n].contiguous(), x[:n].contiguous(),
-                starts, 0, 128, TOL, 8))
+    out = [_edge_walk(kernel, m[:n].contiguous(), x[:n].contiguous(), TOL,
+                      8)[0] for m, x in ((mz, intensity), (pmz, pint))]
     torch.cuda.synchronize()
     _assert_same(out[1], out[0])

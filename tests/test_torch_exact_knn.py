@@ -26,6 +26,7 @@ from falcon_tpu.store.store import padded_peaks
 from falcon_tpu_torch.ops import exact_knn as tx
 from falcon_tpu_torch.ops import knn as tknn
 from falcon_tpu_torch.ops import pairwise as tp
+from torch_cases import permuted, tie_heavy
 
 TOL = 0.05
 ATOL = 1e-6
@@ -191,26 +192,47 @@ def test_topk_order_matches_lax_top_k():
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
 
 
-def test_pair_list_scores_vs_jax_rerank(block):
+# The pair lists' cases: the sorted block, tie-heavy spectra, peaks in no
+# m/z order, wide fragment tolerances, rows with no valid slot, and ids
+# that repeat within a row.
+PAIR_LIST_CASES = ["plain", "tie_heavy", "permuted", "tol_0.5", "tol_2.0",
+                   "missing_rows", "duplicate_ids"]
+
+
+@pytest.mark.parametrize("case", PAIR_LIST_CASES)
+def test_pair_list_scores_vs_jax_rerank(block, case):
     # Each of 64 query rows against 24 pool ids, a third of them -1.
     mz_pad, int_pad, _, _ = block
     rng = np.random.default_rng(1)
+    if case == "tie_heavy":
+        mz_pad, int_pad = tie_heavy(N_PAD // 2, seed=2)
+    elif case == "permuted":
+        mz_pad, int_pad = permuted(mz_pad, int_pad, seed=2)
+    tol = float(case[4:]) if case.startswith("tol_") else TOL
     q0 = 30
     ids = rng.integers(0, 150, (64, 24))
     ids[rng.random(ids.shape) < 0.3] = -1
+    if case == "missing_rows":
+        ids[::3] = -1
+        ids[1::3, :20] = -1
+    elif case == "duplicate_ids":
+        ids[:, 12:] = ids[:, :12]
     scores, matches = tp.pair_list_scores(
         torch.from_numpy(mz_pad[q0:q0 + 64]),
         torch.from_numpy(int_pad[q0:q0 + 64]), torch.from_numpy(mz_pad),
-        torch.from_numpy(int_pad), torch.from_numpy(ids), TOL, 4)
+        torch.from_numpy(int_pad), torch.from_numpy(ids), tol, 4)
     ref_s, ref_i, ref_m = rerank_scan_body(
         jnp.asarray(mz_pad[q0:q0 + 64]), jnp.asarray(int_pad[q0:q0 + 64]),
         jnp.asarray(mz_pad), jnp.asarray(int_pad),
-        jnp.asarray(ids, jnp.int32), TOL, 24, 4, 64, 8)
+        jnp.asarray(ids, jnp.int32), tol, 24, 4, 64, 8)
     ref_s, ref_i, ref_m = (np.asarray(x) for x in (ref_s, ref_i, ref_m))
     scores, matches = scores.numpy(), matches.numpy()
     assert ((ids < 0) == (scores == tknn.NEG)).all()
     assert (matches[ids < 0] == 0).all()
+    assert (matches > 0).any()
     for r in range(64):
+        # The rerank's top-k returns each slot once; a repeated id has the
+        # same score and count in every slot that holds it.
         got = {int(c): (s, m) for c, s, m in zip(ids[r], scores[r],
                                                  matches[r]) if c >= 0}
         want = {int(c): (s, m) for c, s, m in zip(ref_i[r], ref_s[r],
@@ -219,6 +241,9 @@ def test_pair_list_scores_vs_jax_rerank(block):
         for c in got:
             assert abs(got[c][0] - want[c][0]) <= ATOL
             assert got[c][1] == want[c][1]
+        for t, c in enumerate(ids[r]):
+            if c >= 0:
+                assert (scores[r, t], matches[r, t]) == got[int(c)]
 
 
 def test_cpu_tensors_take_the_plain_versions(block):

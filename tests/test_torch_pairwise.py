@@ -18,6 +18,7 @@ from falcon_tpu.preprocess import process_spectrum
 from falcon_tpu.simulate import make_clustered_spectra
 from falcon_tpu.store.store import padded_peaks
 from falcon_tpu_torch.ops import pairwise as tp
+from torch_cases import permuted, tie_heavy
 
 TOL = 0.05
 ATOL = 1e-6
@@ -139,11 +140,26 @@ def test_grouped_condensed_distances_vs_jax(min_matches):
         np.testing.assert_allclose(ours[k], ref[k], atol=ATOL, rtol=0)
 
 
-def test_batched_block_scores_vs_jax():
+# K4's cases: spectra as the store keeps them, tie-heavy ones, peaks in no
+# m/z order, and wide fragment tolerances (many peak pairs per column).
+GROUPED_CASES = ["plain", "tie_heavy", "permuted", "tol_0.5", "tol_2.0"]
+
+
+@pytest.mark.parametrize("case", GROUPED_CASES)
+def test_batched_block_scores_vs_jax(case):
     # The port takes ragged intervals; the JAX op takes them padded to one
     # size.  Both must give the same upper-triangle scores and counts.
     sizes = [7, 16, 2, 11]
     peaks = _intervals(sizes, seed=9)
+    if case == "tie_heavy":
+        mz, intensity = tie_heavy(sum(sizes) // 2, seed=4)
+        bounds = np.cumsum([0] + sizes)
+        peaks = [(mz[a:b], intensity[a:b])
+                 for a, b in zip(bounds[:-1], bounds[1:])]
+    elif case == "permuted":
+        peaks = [permuted(mz, intensity, seed=g)
+                 for g, (mz, intensity) in enumerate(peaks)]
+    tol = float(case[4:]) if case.startswith("tol_") else TOL
     m_pad = 16
     mz_g = np.full((len(sizes), m_pad, 64), jp.PAD_MZ, np.float32)
     int_g = np.zeros((len(sizes), m_pad, 64), np.float32)
@@ -151,13 +167,13 @@ def test_batched_block_scores_vs_jax():
         mz_g[g, :len(mz)] = mz
         int_g[g, :len(mz)] = intensity
     ref_s, ref_m = jp.batched_block_scores(jnp.asarray(mz_g),
-                                           jnp.asarray(int_g), TOL)
+                                           jnp.asarray(int_g), tol)
     ref_s, ref_m = np.asarray(ref_s), np.asarray(ref_m)
 
     starts = torch.tensor(np.concatenate([[0], np.cumsum(sizes)]))
     ours_s, ours_m = tp.batched_block_scores(
         _t(np.concatenate([p[0] for p in peaks])),
-        _t(np.concatenate([p[1] for p in peaks])), starts, TOL,
+        _t(np.concatenate([p[1] for p in peaks])), starts, tol,
     )
     want_s = np.concatenate([ref_s[g][np.triu_indices(m, 1)]
                              for g, m in enumerate(sizes)])
@@ -165,6 +181,54 @@ def test_batched_block_scores_vs_jax():
                              for g, m in enumerate(sizes)])
     np.testing.assert_allclose(ours_s.numpy(), want_s, atol=ATOL, rtol=0)
     np.testing.assert_array_equal(ours_m.numpy(), want_m)
+    assert (want_m > 0).any()
+
+
+@pytest.mark.parametrize("sizes", [
+    [], [0], [1], [2], [0, 1, 2, 0], [33], [3, 70, 1, 32, 65, 2],
+], ids=str)
+def test_grouped_items_cover_every_pair_once(sizes):
+    # K4's work items, each found from _grouped_layout as a warp of
+    # grouped_kernel (csrc/pairwise.cu) finds its own: the last interval
+    # whose first item is <= t, then the last row whose first item is <= t.
+    # They cover each condensed pair of each interval, at its place in the
+    # concatenated condensed order, exactly once, with at most 32 columns
+    # an item, all in the row's interval and to its right.
+    w = tp.ITEM_COLS
+    bounds = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    layout = tp._grouped_layout(bounds)
+    assert layout.dtype == np.int64 and layout.shape == (2, len(sizes) + 1)
+    want = [(a + i, a + j) for a, b in zip(bounds[:-1], bounds[1:])
+            for i, j in zip(*np.triu_indices(b - a, 1))]
+    assert layout[1, -1] == len(want)
+
+    def tail(k):  # items of an interval's last k rows, counted row by row
+        return sum(-(-c // w) for c in range(k))
+
+    assert list(layout[0]) == [0] + list(np.cumsum(
+        [tail(b - a) for a, b in zip(bounds[:-1], bounds[1:])], dtype=int))
+    got = [None] * len(want)
+    for t in range(int(layout[0, -1])):
+        g = int(np.searchsorted(layout[0], t, side="right")) - 1
+        first, m = int(bounds[g]), int(bounds[g + 1] - bounds[g])
+        u = t - int(layout[0, g])
+        r = max(r for r in range(m) if tail(m) - tail(m - r) <= u)
+        chunk = u - (tail(m) - tail(m - r))
+        i, j0 = first + r, first + r + 1 + w * chunk
+        j_end = min(j0 + w, first + m)
+        o = int(layout[1, g]) + r * (m - 1) - r * (r - 1) // 2 + w * chunk
+        assert i < j0 < j_end <= first + m
+        for c in range(j_end - j0):
+            assert got[o + c] is None
+            got[o + c] = (i, j0 + c)
+    assert got == want
+
+
+def test_grouped_layout_refuses_oversized_intervals():
+    bounds = np.array([0, 5, 5 + tp.MAX_INTERVAL + 1], np.int64)
+    with pytest.raises(ValueError, match="more than"):
+        tp._grouped_layout(bounds)
+    assert tp._grouped_layout(bounds[:2])[1, -1] == 10
 
 
 def test_cpu_tensors_take_the_plain_version(padded_dataset):
