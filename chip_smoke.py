@@ -37,7 +37,19 @@ It builds the port's CUDA kernels from ``falcon_tpu_torch/csrc`` and then:
    bench-shaped corpus, the dense corpus and a corpus of long chains of
    similar spectra (large sparse eps-components: the pruned pair lists),
    so the banded kernel (K2) takes every band and the pair-list launcher
-   the chains.
+   the chains;
+7. runs the CLI with ``--backend ann`` and its defaults (the upper-bound
+   scan over hashed vectors, then the exact rerank) on the same three
+   corpora, prints the pair-F1 of its bench-corpus labels against phase
+   6's, and runs the bench corpus a second time, which must give the same
+   CSV bytes.
+
+Phase 2 also holds the vectorize kernel against its plain version at the
+bench corpus's charge-2 block (bit for bit, and two launches against each
+other), times it beside the ``index_add_`` it replaces, and times the
+default path's scan (product and top-k apart) and rerank (pair-list kernel
+and sort apart) at that block; phase 5 also runs the default index
+through the kernels and through the plain versions.
 
 Every phase raises on failure, so the script exits non-zero; it also exits
 non-zero, printing no result, without a CUDA GPU.  On success the last two
@@ -71,13 +83,17 @@ DENSE_CORPUS = dict(n_clusters=3000, cluster_size=10, n_noise=10000,
 # replaced, precursor 2 ppm higher): eps-components of 1,500 spectra.
 CHAIN_CORPUS = dict(n_chains=3, chain_len=1500, seed=11)
 ANN = ["--backend", "ann", "--ann_index", "exact"]
+ANN_DEFAULT = ["--backend", "ann"]
+EPS = 0.1  # the CLI's default --eps
 K2_BLOCK_ROWS = 4096  # exact_banded_topk's row block
-K1, K2, K4, PL = ("K1 panel_scores", "K2 banded_panel_scores",
-                  "K4 batched_block_scores", "pair_list_scores")
+K1, K2, K4, PL, VEC = ("K1 panel_scores", "K2 banded_panel_scores",
+                       "K4 batched_block_scores", "pair_list_scores",
+                       "vectorize")
 SOURCES = {K1: "falcon_tpu_torch/csrc/pairwise.cu",
            K2: "falcon_tpu_torch/csrc/exact_knn.cu",
            K4: "falcon_tpu_torch/csrc/pairwise.cu",
-           PL: "falcon_tpu_torch/csrc/pairwise.cu"}
+           PL: "falcon_tpu_torch/csrc/pairwise.cu",
+           VEC: "falcon_tpu_torch/csrc/vectorize.cu"}
 # The bound of a kernel's call: the larger of its bytes (each input read
 # once, each output written once) over the HBM rate and its operations over
 # the float32 rate outside the tensor cores (H100 SXM data sheet, 700 W).
@@ -88,6 +104,7 @@ SOURCES = {K1: "falcon_tpu_torch/csrc/pairwise.cu",
 # and column maxima; rounds after the first are not counted.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12  # dense tensor-core rate, the scan's bf16 product
 SEARCH_OPS = 2 * (2 * 64 - 1)
 EDGE_OPS = 4
 REPLACES = {
@@ -95,6 +112,7 @@ REPLACES = {
     K2: "falcon_tpu/ops/exact_knn.py:243",
     K4: "falcon_tpu/ops/pairwise.py:218",
     PL: "falcon_tpu/ops/rerank.py:32",
+    VEC: "falcon_tpu/ops/vectorize.py:86",
 }
 
 
@@ -258,12 +276,14 @@ def chained_spectra(n_chains: int, chain_len: int, seed: int):
 
 
 def wrappers():
-    """The four kernel wrappers, by name: (module, attribute)."""
+    """The five kernel wrappers, by name: (module, attribute)."""
     from falcon_tpu_torch.ops import exact_knn as ex
     from falcon_tpu_torch.ops import pairwise as pw
+    from falcon_tpu_torch.ops import vectorize as vz
 
     return {K1: (pw, "panel_scores"), K2: (ex, "banded_panel_scores"),
-            K4: (pw, "batched_block_scores"), PL: (pw, "pair_list_scores")}
+            K4: (pw, "batched_block_scores"), PL: (pw, "pair_list_scores"),
+            VEC: (vz, "vectorize")}
 
 
 def edge_counts(mz_a, int_a, ii, mz_b, int_b, jj, tol, chunk=1 << 16):
@@ -421,6 +441,7 @@ def phase_kernels(dev, dense_rows, bench_rows, bench_all, chain_rows,
     phase_grouped(dev, parity, times, detail, report, bench_all)
     phase_banded(dev, parity, times, detail, report,
                  {"bench": bench_rows, "dense": dense_rows}, chain_rows)
+    phase_default_index(dev, parity, times, detail, report, bench_all)
     report["kernel_times_ms"] = {" | ".join(map(str, k)): v
                                  for k, v in detail.items()}
     report["kernel_bounds"] = times
@@ -735,6 +756,209 @@ def phase_banded(dev, parity, times, detail, report, rows_by_name,
                          pw.pair_list_scores_plain(*args))
 
 
+def bench_block(bench_all, dev):
+    """The bench corpus's charge-2 block as the default ann path holds it:
+    (m/z, intensity) padded to the power-of-two row count on ``dev``, and
+    the sorted precursor m/z."""
+    import torch
+
+    from falcon_tpu_torch.ops.knn import _pow2_at_least
+
+    rows = sorted((r for r in bench_all if r["precursor_charge"] == 2),
+                  key=lambda r: r["precursor_mz"])
+    n_pad = _pow2_at_least(len(rows), 512)
+    mz = np.full((n_pad, 64), -1e6, np.float32)
+    intensity = np.zeros((n_pad, 64), np.float32)
+    mz[:len(rows)], intensity[:len(rows)] = padded(rows)
+    return (torch.from_numpy(mz).to(dev), torch.from_numpy(intensity).to(dev),
+            np.asarray([r["precursor_mz"] for r in rows]))
+
+
+def index_add_inputs(mz, intensity, mapping, min_bound, bin_size, n_bins,
+                     dim, spread):
+    """(flat output index, weight) of every (shift, spectrum, peak) hit, the
+    arguments of the one ``index_add_`` the vectorize kernel replaces."""
+    import torch
+
+    n = mz.shape[0]
+    size = torch.tensor(bin_size, dtype=torch.float32, device=mz.device)
+    bins = torch.floor((mz - np.float32(min_bound)) / size).to(torch.int64)
+    base = (torch.arange(n, device=mz.device) * dim)[:, None]
+    idx, w = [], []
+    for shift in ((-1, 0, 1) if spread else (0,)):
+        b = bins + shift
+        hit = (b >= 0) & (b < n_bins) & (intensity > 0)
+        idx.append((base + mapping[b.clamp(0, n_bins - 1)]).reshape(-1))
+        w.append(torch.where(hit, intensity, 0.0).reshape(-1))
+    return torch.cat(idx), torch.cat(w)
+
+
+def phase_default_index(dev, parity, times, detail, report, bench_all):
+    """Phase 2, continued: the vectorize kernel, the upper-bound scan (K5:
+    a PyTorch product and a stable sort) and the exact rerank (K3: the
+    pair-list kernel and a stable sort) at the bench corpus's charge-2
+    block, as the default ann path runs them."""
+    import torch
+
+    from falcon_tpu_torch.cluster import ann_engine
+    from falcon_tpu_torch.ops import knn, rerank
+    from falcon_tpu_torch.ops import pairwise as pw
+    from falcon_tpu_torch.ops import vectorize as vz
+    from falcon_tpu_torch.preprocess import get_dim
+
+    mz, intensity, pmz = bench_block(bench_all, dev)
+    n, n_pad = len(pmz), mz.shape[0]
+    _, mz_min, mz_max = get_dim(101.0, 1500.0, TOL)
+    hasher = vz.SpectrumHasher(mz_min, mz_max, TOL)
+    base = (mz, intensity, hasher._mapping(dev), hasher.min_bound,
+            hasher.bin_size, hasher.n_bins, hasher.dim_padded)
+    mz_p, int_p = permuted(mz, intensity, seed=8)
+    err = 0.0
+    for spread in (False, True):
+        for norm in (False, True):
+            args = base + (norm, spread)
+            shape = (f"{n} spectra padded to {n_pad}, spread={spread}, "
+                     f"norm={norm}")
+            got = vz.vectorize(*args)
+            again = vz.vectorize(*args)
+            want, t_plain = plain_ms(lambda: vz.vectorize_plain(*args))
+            p_args = (mz_p, int_p) + args[2:]
+            if not (torch.equal(got, want) and torch.equal(got, again)
+                    and torch.equal(vz.vectorize(*p_args),
+                                    vz.vectorize_plain(*p_args))):
+                raise AssertionError(f"{VEC} {shape}: not bit-identical to "
+                                     "its plain version or to itself")
+            ms = kernel_ms(lambda: vz.vectorize(*args), reps=20)
+            idx, w = index_add_inputs(*base[:6], hasher.dim_padded, spread)
+            flat = torch.zeros(n_pad * hasher.dim_padded, device=dev)
+            library = kernel_ms(lambda: flat.zero_().index_add_(0, idx, w),
+                                reps=20)
+            if not norm:
+                err = max(err, float(
+                    (flat.view(n_pad, -1) - got).abs().max()))
+            detail[(VEC, spread, norm)] = dict(ms=ms, plain_ms=t_plain,
+                                               library_ms=library)
+            log(f"  {VEC} {shape}: kernel {ms:.4f} ms, bit-identical to the "
+                f"plain version (and on permuted peaks) and across two "
+                f"launches; plain version {t_plain:.2f} ms; index_add_ "
+                f"{library:.4f} ms")
+    parity.err[VEC] = 0.0
+    log(f"  {VEC}: index_add_ (atomic) against the kernel, no norm: max "
+        f"|diff| {err:.3g}")
+    # Bytes: the peaks and the table read once, the vectors written once;
+    # the operations (a bin and a compare per peak and shift, a product
+    # and a sum per dimension) are far below them.
+    n_bytes = (n_pad * 64 * 8 + hasher.n_bins * 8
+               + n_pad * hasher.dim_padded * 4)
+    n_ops = n_pad * (3 * 64 * 6 + hasher.dim_padded * 3)
+    vec_bound = max((n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                    (n_ops / F32_OPS_PER_S * 1e3, "operations"))
+    main = detail[(VEC, True, False)]  # the scan's queries
+    times[VEC] = dict(ms=main["ms"], plain_ms=main["plain_ms"],
+                      library_ms=main["library_ms"], bound_ms=vec_bound[0],
+                      bound_by=vec_bound[1])
+    log(f"  {VEC}: bound {vec_bound[0]:.5f} ms ({vec_bound[1]}, "
+        f"{n_bytes / 1e6:.1f} MB), {100 * vec_bound[0] / main['ms']:.1f}% "
+        f"of the spread call's time")
+
+    # K5: the scan as the engine runs it (its width widened for the
+    # bench corpus's bands), whole, then its products and its top-k alone.
+    plain = vz.vectorize(*base, False, False)
+    spread = vz.vectorize(*base, False, True)
+    k_scan = ann_engine.scan_width(pmz, 20.0, "ppm", 64, 128)
+
+    def scan():
+        return knn.knn_banded(plain, pmz, 20.0, "ppm", k_scan,
+                              q_vectors=spread, scan_bf16=True)
+
+    sims, neigh = scan()
+    scan_ms = kernel_ms(scan, reps=3)
+    starts, block_rows, window, _ = knn.block_geometry(
+        *knn.band_bounds(pmz, 20.0, False), n, 1024)
+    n_blocks = -(-n // block_rows)
+    q16, c16 = spread.bfloat16().float(), plain.bfloat16().float()
+
+    def products():
+        for b in range(n_blocks):
+            q16[b * block_rows:(b + 1) * block_rows] @ c16[
+                int(starts[b]):int(starts[b]) + window].t()
+
+    product_ms = kernel_ms(products, reps=3)
+    tile = torch.rand((block_rows, window), device=dev)
+
+    def sorts():
+        for _ in range(n_blocks):
+            knn.stable_topk(tile, k_scan)
+
+    sort_ms = kernel_ms(sorts, reps=3)
+    split = device_split(scan, reps=2)
+    device_ms = sum(split.values())
+    top = sorted(split.items(), key=lambda kv: -kv[1])[:8]
+    log(f"  K5 scan device time by kernel (torch.profiler), "
+        f"{device_ms:.3f} ms in all: " + "; ".join(
+            f"{k[:70]} {v:.3f} ms" for k, v in top))
+    flops = 2.0 * n_blocks * block_rows * window * hasher.dim_padded
+    scan_bytes = 2 * n_pad * hasher.dim_padded * 4 + n_pad * k_scan * 12
+    scan_bound = max((flops / BF16_OPS_PER_S * 1e3, "operations"),
+                     (scan_bytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+    report["K5 scan"] = dict(
+        ms=scan_ms, product_ms=product_ms, sort_ms=sort_ms,
+        device_ms=device_ms, device_split=split, k=k_scan,
+        blocks=n_blocks, block_rows=block_rows, window=window, gflop=flops
+        / 1e9, bound_ms=scan_bound[0], bound_by=scan_bound[1],
+        f32_route_bound_ms=flops / F32_OPS_PER_S * 1e3)
+    log(f"  K5 scan (PyTorch: product + stable sort), k={k_scan}, "
+        f"{n_blocks} blocks of {block_rows}x{window}: {scan_ms:.3f} ms; "
+        f"products alone (float32 of bf16-rounded operands, TF32 off) "
+        f"{product_ms:.3f} ms, top-k sorts alone {sort_ms:.3f} ms; "
+        f"{flops / 1e9:.1f} GFLOP, bound {scan_bound[0]:.4f} ms "
+        f"({scan_bound[1]}; the products take "
+        f"{flops / BF16_OPS_PER_S * 1e3:.4f} ms at the bf16 rate, "
+        f"{flops / F32_OPS_PER_S * 1e3:.3f} ms at the float32 rate)")
+
+    # K3: compaction as the engine does it, then the rerank.
+    ids = ann_engine.compact_candidates(sims, neigh, EPS)
+    k_compact = ids.shape[1]
+    got = rerank.rerank_exact(mz, intensity, ids, TOL, 64)
+    want = rerank.rerank_scan_body(mz, intensity, mz, intensity, ids, TOL,
+                                   64)
+    torch.cuda.synchronize()
+    n_pairs = int((ids >= 0).sum())
+    shape = f"{n_pad}x{k_compact} lists, {n_pairs} pairs"
+    parity.check(PL, f"rerank {shape}", (got[0], got[2]), (want[0], want[2]))
+    if not torch.equal(got[1], want[1]):
+        raise AssertionError(f"rerank {shape}: ids differ from the plain "
+                             "version's")
+    rerank_ms = kernel_ms(lambda: rerank.rerank_exact(
+        mz, intensity, ids, TOL, 64), reps=5)
+    scores, _ = pw.pair_list_scores(mz, intensity, mz, intensity, ids, TOL, 4)
+    pl_ms = kernel_ms(lambda: pw.pair_list_scores(
+        mz, intensity, mz, intensity, ids, TOL, 4), reps=5)
+    topk_ms = kernel_ms(lambda: knn.stable_topk(scores, min(64, k_compact)),
+                        reps=5)
+    # Bound: the pair lists' (queries and listed pool rows read once, ids
+    # read, the kept scores, ids and counts written) and their edges.
+    keep = torch.nonzero(ids.reshape(-1) >= 0)[:, 0]
+    edges = edge_counts(mz, intensity, keep // k_compact, mz, intensity,
+                        ids.reshape(-1)[keep], TOL)
+    log_edges(f"bench corpus, rerank ({shape})", edges)
+    k_out = min(64, k_compact)
+    rerank_bound = bound(
+        n_pairs, int(edges.sum()),
+        (n_pad + int(torch.unique(ids[ids >= 0]).shape[0])) * 512
+        + ids.numel() * 8 + n_pad * k_out * 16)
+    report["K3 rerank"] = dict(ms=rerank_ms, pair_lists_ms=pl_ms,
+                               sort_ms=topk_ms, pairs=n_pairs,
+                               k_compact=k_compact,
+                               edges_per_pair=float(edges.double().mean()),
+                               bound_ms=rerank_bound[0],
+                               bound_by=rerank_bound[1])
+    log(f"  K3 rerank (pair-list kernel + stable sort), {shape}: "
+        f"{rerank_ms:.3f} ms; pair lists with counts {pl_ms:.3f} ms, top-k "
+        f"sort {topk_ms:.3f} ms; bound {rerank_bound[0]:.5f} ms "
+        f"({rerank_bound[1]})")
+
+
 def read_labels(csv_path: str):
     """spectrum_id -> cluster label from the CLI's CSV."""
     with open(csv_path, newline="") as f:
@@ -745,7 +969,7 @@ def read_labels(csv_path: str):
 def run_cli(name, spectra, truth, tmp, flags=()):
     """Write ``spectra`` as MGF and run the port's CLI on them with its
     defaults and ``flags``; returns (seconds, phase summary, purity,
-    completeness, n_clustered)."""
+    completeness, labels by spectrum id)."""
     from falcon_tpu_torch.metrics import cluster_completeness, cluster_purity
     from falcon_tpu_torch.simulate import write_mgf
     from falcon_tpu_torch import cli
@@ -771,7 +995,7 @@ def run_cli(name, spectra, truth, tmp, flags=()):
     lab = np.array([labels[i] for i in ids])
     tru = np.array([truth_by_id[i] for i in ids])
     return (seconds, summary, cluster_purity(lab, tru),
-            cluster_completeness(lab, tru), len(lab))
+            cluster_completeness(lab, tru), labels)
 
 
 def largest_interval(rows_by_charge):
@@ -787,14 +1011,17 @@ def largest_interval(rows_by_charge):
 
 def phase_main_path(name, spectra, truth, tmp, report, required,
                     flags=(), min_completeness=0.9):
-    """Phases 3, 4 and 6: the CLI with ``flags``; returns the launch
+    """Phases 3, 4, 6 and 7: the CLI with ``flags``; returns the launch
     counts of the run and raises if a kernel in ``required`` was never
-    launched."""
+    launched.  The run's labels by spectrum id go to
+    ``report["labels"][name]`` (left out of the JSON report)."""
     kernels = wrappers()
     for module, attr in kernels.values():
         getattr(module, attr).launches = 0
-    seconds, summary, purity, completeness, n = run_cli(
+    seconds, summary, purity, completeness, labels = run_cli(
         name, spectra, truth, tmp, flags)
+    n = len(labels)
+    report.setdefault("labels", {})[name] = labels
     launches = {k: getattr(module, attr).launches
                 for k, (module, attr) in kernels.items()}
     log(f"  {n} spectra clustered in {seconds:.2f} s "
@@ -851,8 +1078,59 @@ def phase_whole_path_ann(dev, rows, tmp, report):
     compare_kernels_with_plain(
         "whole path, ann exact index", report, dev, [K2, K4, PL],
         lambda: ann_engine.generate_clusters(
-            dataset, 0.1, 0, 20.0, "ppm", None, TOL, 2**15, device=dev),
+            dataset, 0.1, 0, 20.0, "ppm", None, TOL, 2**15,
+            ann_index="exact", device=dev),
         len(rows))
+
+
+def phase_whole_path_default(dev, rows, tmp, report):
+    """Phase 5, continued: the default ann index (vectors, bound scan,
+    rerank) on one block, through the kernels and through the plain
+    versions, on the card."""
+    from falcon_tpu_torch.store.store import SpectrumStore
+    from falcon_tpu_torch.cluster import ann_engine
+
+    store = SpectrumStore(os.path.join(tmp, "whole_path_ann_default"))
+    writer = store.writer()
+    writer.add_many(rows)
+    writer.close()
+    dataset = store.dataset(2)
+    compare_kernels_with_plain(
+        "whole path, ann default index", report, dev, [VEC, PL, K4],
+        lambda: ann_engine.generate_clusters(
+            dataset, EPS, 0, 20.0, "ppm", None, TOL, 2**15, device=dev),
+        len(rows))
+
+
+def phase_default_ann(name, spectra, truth, tmp, report, required,
+                      min_completeness=0.9):
+    """Phase 7: the CLI with ``--backend ann`` and its defaults."""
+    return phase_main_path(name, spectra, truth, tmp, report, required,
+                           ANN_DEFAULT + ["--overwrite"], min_completeness)
+
+
+def check_repeatable(name, spectra, truth, tmp):
+    """Phase 7, continued: the CLI run ``name`` again with the same flags,
+    work_dir and output; raise unless its CSV has the same bytes."""
+    path = os.path.join(tmp, f"{name}_out.csv")
+    with open(path, "rb") as f:
+        first = f.read()
+    run_cli(name, spectra, truth, tmp, ANN_DEFAULT + ["--overwrite"])
+    with open(path, "rb") as f:
+        second = f.read()
+    if first != second:
+        raise AssertionError(f"{name}: a second run wrote other CSV bytes")
+    log(f"  {name}: a second run wrote the same {len(first)} CSV bytes")
+
+
+def pair_f1(report, name_a, name_b):
+    """Pair-F1 of two CLI runs' labels of the same spectra."""
+    from falcon_tpu_torch.metrics import pairwise_agreement
+
+    a, b = report["labels"][name_a], report["labels"][name_b]
+    ids = sorted(a)
+    return pairwise_agreement(np.array([a[i] for i in ids]),
+                              np.array([b[i] for i in ids]))
 
 
 def compare_kernels_with_plain(name, report, dev, required, run, n):
@@ -972,6 +1250,7 @@ def main() -> int:
         phase_whole_path(dev, charge2[:3000], tmp, report)
         small = [r for r in bench_rows if r["precursor_charge"] == 2][:1500]
         phase_whole_path_ann(dev, small + chain_rows, tmp, report)
+        phase_whole_path_default(dev, small + chain_rows, tmp, report)
         log("== phase 6: main path, --backend ann --ann_index exact")
         log("  bench-shaped corpus")
         launches.append(phase_main_path(
@@ -988,6 +1267,28 @@ def main() -> int:
         launches.append(phase_main_path(
             "ann_chained_corpus", chains, chain_truth, tmp, report,
             [K2, PL], ANN, min_completeness=0.0))
+        log("== phase 7: main path, --backend ann with its defaults")
+        log("  bench-shaped corpus")
+        launches.append(phase_default_ann(
+            "default_ann_bench_corpus", bench_spectra, bench_truth, tmp,
+            report, [VEC, PL, K4]))
+        agreement = pair_f1(report, "default_ann_bench_corpus",
+                            "ann_bench_corpus")
+        report["default_vs_ann_exact_bench"] = agreement
+        log(f"  pair agreement with phase 6's ann-exact labels: F1 "
+            f"{agreement['f1']:.6f} (precision {agreement['precision']:.6f},"
+            f" recall {agreement['recall']:.6f})")
+        check_repeatable("default_ann_bench_corpus", bench_spectra,
+                         bench_truth, tmp)
+        log("  dense corpus")
+        launches.append(phase_default_ann(
+            "default_ann_dense_corpus", dense_spectra, dense_truth, tmp,
+            report, [VEC, PL, K4]))
+        log("  chained corpus")
+        launches.append(phase_default_ann(
+            "default_ann_chained_corpus", chains, chain_truth, tmp, report,
+            [VEC, PL], min_completeness=0.0))
+    report.pop("labels")
 
     kernels = [
         {"name": k, "route": "cuda", "source": SOURCES[k],
@@ -995,8 +1296,9 @@ def main() -> int:
          "launches": sum(run[k] for run in launches),
          "max_abs_err": errs[k], "ms": times[k]["ms"],
          "plain_ms": times[k]["plain_ms"], "bound_ms": times[k]["bound_ms"],
-         "bound_by": times[k]["bound_by"], "library_ms": None}
-        for k in (K1, K2, K4, PL)
+         "bound_by": times[k]["bound_by"],
+         "library_ms": times[k].get("library_ms")}
+        for k in (K1, K2, K4, PL, VEC)
     ]
     report["kernels"] = kernels
     if args.report:

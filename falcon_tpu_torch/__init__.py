@@ -9,9 +9,10 @@ linkage library and its C++ sources, export) are its own copies, at the
 same relative paths, held against the originals by
 ``tests/test_torch_host_copies.py``.
 
-Ported so far: the default exact backend (``cluster/engine.py``) and
-``--backend ann --ann_index exact`` (``cluster/ann_engine.py``).  See
-``README.md`` for what still raises.
+Ported so far: the default exact backend (``cluster/engine.py``), and
+``--backend ann`` with its default index (the hashed upper-bound scan and
+the exact rerank) or ``--ann_index exact`` (``cluster/ann_engine.py``).
+See ``README.md`` for what still raises.
 """
 
 __version__ = "0.1.0"

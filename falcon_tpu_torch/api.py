@@ -8,7 +8,7 @@ The same surface as ``falcon_tpu.api``::
     result.cluster            # np.int64 label per spectrum
     result.spectrum_id        # identifiers aligned with the labels
     ann = falcon_tpu_torch.cluster_files(
-        ["peaks/*.mgf"], backend="ann", ann_index="exact", eps=0.10)
+        ["peaks/*.mgf"], backend="ann", eps=0.10)
 
 Options take the CLI option names as keyword arguments and reach the CLI
 unchanged (``ann_index``, ``eps``, ``n_neighbors`` and the other ann

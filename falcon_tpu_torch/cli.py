@@ -7,13 +7,13 @@ medoid-MGF export and run manifest, so that its CSV equals the JAX
 package's byte for byte apart from the ``# work_dir`` line.  Clustering
 runs on the device named by ``FALCON_TPU_TORCH_DEVICE`` (default
 ``cuda``): the exact backend's engine (``cluster/engine.py``), or with
-``--backend ann --ann_index exact`` the ann engine (``cluster/
-ann_engine.py``), whose charges run two at a time when each fits one
-device block, as in the JAX package.
+``--backend ann`` the ann engine (``cluster/ann_engine.py``; ``--ann_index
+auto``, ``brute`` or ``exact``), whose charges run two at a time when each
+fits one device block, as in the JAX package.
 
-Not ported yet, and refused with exit code 1: ``--backend ann`` with
-``--ann_index auto|brute|ivf`` or ``--cluster_method dbscan``, and
-``--representative_method consensus``.
+Not ported yet, and refused with exit code 1: ``--ann_index ivf``,
+``--rerank off`` with ``--ann_index auto|brute``, ``--cluster_method
+dbscan`` and ``--representative_method consensus``.
 """
 
 import logging
@@ -56,10 +56,16 @@ def main(args: Union[str, List[str], None] = None,
 
 def _not_ported() -> Union[str, None]:
     """Why the parsed configuration cannot run on the port, or None."""
-    if config.backend == "ann" and config.ann_index != "exact":
-        return (f"--backend ann with --ann_index {config.ann_index} is not "
-                "yet ported to falcon_tpu_torch; use --ann_index exact, "
-                "--backend exact, or the JAX package (python -m falcon_tpu)")
+    if config.backend == "ann" and config.ann_index == "ivf":
+        return ("--backend ann with --ann_index ivf is not yet ported to "
+                "falcon_tpu_torch; use --ann_index auto, brute or exact, or "
+                "the JAX package (python -m falcon_tpu)")
+    if (config.backend == "ann" and config.ann_index != "exact"
+            and config.rerank != "exact"):
+        return (f"--rerank {config.rerank} with --ann_index "
+                f"{config.ann_index} is not yet ported to falcon_tpu_torch; "
+                "use --rerank exact, --ann_index exact, or the JAX package "
+                "(python -m falcon_tpu)")
     if config.backend == "ann" and config.cluster_method != "linkage":
         return (f"--cluster_method {config.cluster_method} is not yet "
                 "ported to falcon_tpu_torch; use linkage, or the JAX "
@@ -386,12 +392,14 @@ def _generate_for_charge(dataset, mz_min: float, mz_max: float, device):
         batch_size=config.batch_size,
         low_dim=config.low_dim,
         n_neighbors=config.n_neighbors,
+        n_neighbors_ann=config.n_neighbors_ann,
         hash_seed=config.hash_seed,
         min_mz=mz_min,
         max_mz=mz_max,
         max_peaks=config.max_peaks_used,
         devices=config.devices,
         ann_index=config.ann_index,
+        rerank=config.rerank,
         cluster_method=config.cluster_method,
         linkage=config.linkage,
         device=device,

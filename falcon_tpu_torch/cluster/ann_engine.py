@@ -1,26 +1,59 @@
-"""Per-charge clustering with the ann backend's exact index, on PyTorch.
+"""Per-charge clustering with the ann backend, on PyTorch.
 
-Port of ``falcon_tpu/cluster/ann_engine.py`` for ``--backend ann
---ann_index exact`` with ``--cluster_method linkage``, the same labels and
-medoids:
+Port of ``falcon_tpu/cluster/ann_engine.py`` for ``--backend ann`` with
+``--cluster_method linkage``, the same labels and medoids:
 
 1. sort the bucket by precursor m/z and split it into device blocks of at
    most ``device_block_cap()`` spectra on tolerance gaps (logging every
    forced cut), clustered one after the other and merged in block order;
-2. per block: pad and upload the peaks (``ops/xfer.py``), take each row's
-   exact top-k neighbours in the precursor band (``ops/exact_knn.py``,
-   kernel K2), and find the eps-connected components (``ops/density.py``
-   with ``min_samples = 1``);
+2. per block: pad and upload the peaks (``ops/xfer.py``) and find each
+   row's neighbours in its precursor band, with scores that are exact
+   peak-matching cosines:
+
+   - ``--ann_index exact``: the exact top-k over the whole band
+     (``ops/exact_knn.py``, kernel K2);
+   - ``--ann_index auto`` or ``brute`` with ``--rerank exact`` (the
+     default): hash plain and tolerance-spread vectors
+     (``ops/vectorize.py``), scan the band for the largest upper bounds
+     ``spread_i . plain_j`` in bfloat16 (``ops/knn.py``), keep the
+     candidates whose bound can reach ``1 - eps`` and score them exactly
+     (``ops/rerank.py``, the pair-list kernel);
+
+   then the eps-connected components (``ops/density.py`` with
+   ``min_samples = 1``);
 3. per component, as one exact-engine interval: condensed exact distances
    (K4 for components of up to ``LINKAGE_GROUP_MAX`` spectra; larger ones
    through the pruned pair lists under complete or single linkage, or K1),
    then the native linkage, the cut at eps, the precursor / RT
    refinement and the medoids.
 
-The JAX exact-index path also hashes the block into vectors that this
-index never reads; the port does not.  Other indexes (``auto``,
-``brute``, ``ivf``) and ``--cluster_method dbscan`` are not ported yet and
-raise ``NotImplementedError``.
+**One wide scan instead of the JAX package's retrieval passes.** The JAX
+package scans for ``k_ann`` candidates per row with ``approx_max_k`` and a
+count that certifies every candidate at or above the compaction threshold
+was retrieved; when that fails it scans with exact top-k, in
+boundary-continued passes of ``k_ann`` each when the bands outgrow one
+pass (``widen_passes``), reranks each pass's survivors and merges them
+into the running top ``k_final``.  The port scans once with exact top-k at
+the JAX package's total coverage, ``k_ann * widen_passes`` (at most
+``n - 1``), and reranks once.  The labels are the same:
+
+- every survivor of the compaction has a bound at or above the threshold;
+  the certified lists and the exact top-k lists both hold all of them
+  whenever they fit, at the same positions (the lists agree on their
+  first ``k_ann`` entries, and survivors precede the rest of the sorted
+  list apart from RT holes, which both lists punch at the same places);
+- a stable top-k over [running top-k_final, next pass] equals one stable
+  top-k over the whole concatenation, so the merged passes equal one wide
+  rerank;
+- the JAX package stops early only when no row's next pass can hold a
+  survivor, which skips passes whose survivors are empty.
+
+``tests/test_torch_ann.py`` holds this against the JAX package in both of
+its modes (certified, and forced exact multi-pass).  The exact index does
+not hash: the JAX package's chain hashes every block into vectors that
+index never reads.  ``--ann_index ivf``, ``--rerank off`` with a hashed
+index and ``--cluster_method dbscan`` are not ported yet and raise
+``NotImplementedError``.
 """
 
 import logging
@@ -35,7 +68,9 @@ from ..device import resolve_device, synchronize
 from ..ops import pairwise
 from ..ops.density import dbscan
 from ..ops.exact_knn import exact_banded_topk
-from ..ops.knn import _pow2_at_least
+from ..ops.knn import _pow2_at_least, knn_banded
+from ..ops.matching import f32_tolerance
+from ..ops.rerank import rerank_exact
 from ..ops.vectorize import SpectrumHasher
 from ..ops.xfer import upload_padded_peaks
 from ..store.store import ChargeDataset, padded_peaks
@@ -53,6 +88,10 @@ logger = logging.getLogger("falcon_tpu")
 # to the pruned pair lists or K1.  The JAX package reads the same default
 # from FALCON_TPU_LINKAGE_GROUP_MAX.
 LINKAGE_GROUP_MAX = 1024
+# Most candidates per row the upper-bound scan may retrieve (the JAX
+# package's FALCON_TPU_MAX_NEIGHBORS default): dense bands widen
+# n_neighbors_ann up to it, and a band beyond it is logged.
+MAX_NEIGHBORS = 1024
 
 
 def device_block_cap() -> int:
@@ -106,12 +145,14 @@ def generate_clusters(
     batch_size: int,
     low_dim: int = 400,
     n_neighbors: int = 64,
+    n_neighbors_ann: int = 128,
     hash_seed: int = 0,
     min_mz: float = 101.0,
     max_mz: float = 1500.0,
     max_peaks: int = 50,
     devices: Optional[int] = None,
-    ann_index: str = "exact",
+    ann_index: str = "auto",
+    rerank: str = "exact",
     cluster_method: str = "linkage",
     linkage: str = "complete",
     device=None,
@@ -121,12 +162,17 @@ def generate_clusters(
     The contract of ``falcon_tpu.cluster.ann_engine.generate_clusters``:
     every spectrum labelled, noise as singletons, one medoid per cluster
     plus each noise point.  ``low_dim`` and ``hash_seed`` shape the
-    vectors of the pruned linkage bound; ``device``: see
-    ``falcon_tpu_torch.device.resolve_device``.
+    hashed vectors (the scan's and the pruned linkage bound's);
+    ``n_neighbors_ann`` is the scan's retrieval width before widening;
+    ``device``: see ``falcon_tpu_torch.device.resolve_device``.
     """
-    if ann_index != "exact":
+    if ann_index not in ("auto", "brute", "exact"):
         raise NotImplementedError(
             f"--ann_index {ann_index} is not yet ported to falcon_tpu_torch")
+    if ann_index != "exact" and rerank != "exact":
+        raise NotImplementedError(
+            f"--rerank {rerank} with --ann_index {ann_index} is not yet "
+            "ported to falcon_tpu_torch")
     if cluster_method != "linkage":
         raise NotImplementedError(
             f"--cluster_method {cluster_method} is not yet ported to "
@@ -138,7 +184,7 @@ def generate_clusters(
             raise NotImplementedError(
                 "multi-device ann clustering is not ported yet")
         logger.warning("Requested %d devices but only %d visible; using "
-                       "the single-device exact index", devices, visible)
+                       "one device", devices, visible)
 
     meta = dataset.read_metadata(columns=("precursor_mz", "retention_time"))
     offsets, mz_flat, int_flat = dataset.read_peaks()
@@ -149,8 +195,9 @@ def generate_clusters(
     mz_sorted = precursor_mzs[order]
     rt_sorted = rts[order]
     logger.info(
-        "Cluster %d spectra with the ANN engine's exact index (eps=%.3f, "
-        "n_neighbors=%d)", n, eps, n_neighbors)
+        "Cluster %d spectra with the ANN engine (%s index, eps=%.3f, "
+        "low_dim=%d, n_neighbors=%d)", n, ann_index, eps, low_dim,
+        n_neighbors)
     if n == 1:
         return np.zeros(1, np.int32), np.zeros(1, np.int64)
 
@@ -172,7 +219,8 @@ def generate_clusters(
             offsets, mz_flat, int_flat, order[b0:b1], mz_sorted[b0:b1],
             rt_sorted[b0:b1], hasher, pad_to, eps, min_matches,
             precursor_tol_mass, precursor_tol_mode, rt_tol, fragment_tol,
-            n_neighbors, linkage, batch_size, dev)
+            n_neighbors, n_neighbors_ann, ann_index == "exact", linkage,
+            batch_size, dev)
         mask = final_b >= 0
         final_b = final_b.astype(np.int32)
         final_b[mask] += current
@@ -197,7 +245,7 @@ def generate_clusters(
 def _cluster_range(offsets, mz_flat, int_flat, order, mz_sorted, rt_sorted,
                    hasher, pad_to, eps, min_matches, precursor_tol_mass,
                    precursor_tol_mode, rt_tol, fragment_tol, n_neighbors,
-                   linkage, batch_size, dev):
+                   n_neighbors_ann, exact_index, linkage, batch_size, dev):
     """Cluster one device block (a sorted precursor-m/z range).
 
     Returns (labels in sorted-range order, -1 = noise, numbered from 0;
@@ -210,13 +258,19 @@ def _cluster_range(offsets, mz_flat, int_flat, order, mz_sorted, rt_sorted,
         mz_pad, int_pad = upload_padded_peaks(
             offsets, mz_flat, int_flat, order, pad_to,
             _pow2_at_least(n, 512), dev)
-    with profiler.phase("ann: knn"):
-        sims, neigh = exact_banded_topk(
-            mz_pad, int_pad, mz_sorted, precursor_tol_mass,
-            precursor_tol_mode, k_final, fragment_tol,
-            rts=rt_sorted if rt_tol is not None else None, rt_tol=rt_tol,
-            min_matches=min_matches)
-        synchronize(dev)
+    if exact_index:
+        with profiler.phase("ann: knn"):
+            sims, neigh = exact_banded_topk(
+                mz_pad, int_pad, mz_sorted, precursor_tol_mass,
+                precursor_tol_mode, k_final, fragment_tol,
+                rts=rt_sorted if rt_tol is not None else None,
+                rt_tol=rt_tol, min_matches=min_matches)
+            synchronize(dev)
+    else:
+        sims, neigh = _prefilter_rerank(
+            mz_pad, int_pad, mz_sorted, rt_sorted, hasher, eps, min_matches,
+            precursor_tol_mass, precursor_tol_mode, rt_tol, fragment_tol,
+            k_final, n_neighbors_ann, dev)
     del mz_pad, int_pad
     with profiler.phase("ann: dbscan"):
         comp = dbscan(sims, neigh, eps, n, 1)
@@ -225,6 +279,102 @@ def _cluster_range(offsets, mz_flat, int_flat, order, mz_sorted, rt_sorted,
         comp, order, mz_sorted, rt_sorted, n, offsets, mz_flat, int_flat,
         pad_to, linkage, eps, min_matches, fragment_tol, precursor_tol_mass,
         precursor_tol_mode, rt_tol, batch_size, hasher, dev)
+
+
+def scan_width(mz_sorted: np.ndarray, tol_mass: float, tol_mode: str,
+               k_final: int, n_neighbors_ann: int) -> int:
+    """Candidates per row of the upper-bound scan: the JAX package's
+    ``k_ann`` (``n_neighbors_ann``, widened in powers of two for dense
+    bands up to its per-pass cap) times its boundary-continued passes,
+    with its log lines, at most ``n - 1``."""
+    n = len(mz_sorted)
+    k_ann = min(max(n_neighbors_ann, k_final), max(n - 1, 1))
+    if tol_mode == "Da":
+        lo_vals, hi_vals = mz_sorted - tol_mass, mz_sorted + tol_mass
+    else:
+        lo_vals = mz_sorted / (1 + tol_mass / 1e6)
+        hi_vals = mz_sorted / (1 - tol_mass / 1e6)
+    spans = (np.searchsorted(mz_sorted, hi_vals, side="right")
+             - np.searchsorted(mz_sorted, lo_vals, side="left"))
+    span_max = int(spans.max(initial=1)) - 1  # candidates excl. self
+    if span_max <= k_ann:
+        return k_ann
+    # The JAX package caps one pass's (rows, k) lists at 2^28 bytes, a
+    # TPU fault limit, and covers the rest of the budget in more passes;
+    # the port scans their total at once.
+    per_pass = max(min(MAX_NEIGHBORS,
+                       2**28 // (8 * _pow2_at_least(n, 512))), k_ann)
+    new_k = k_ann
+    while new_k < min(span_max, per_pass, max(n - 1, 1)):
+        new_k *= 2
+    new_k = min(new_k, max(n - 1, 1))
+    if new_k > k_ann:
+        logger.info(
+            "Dense precursor bands (max %d candidates, %.1f%% of rows "
+            "exceed n_neighbors_ann=%d): widening the retrieval width to %d "
+            "(per-pass budget %d)", span_max,
+            100.0 * float((spans - 1 > k_ann).mean()), k_ann, new_k,
+            per_pass)
+        k_ann = new_k
+    passes = 1
+    if span_max > k_ann:
+        passes = max(1, -(-min(MAX_NEIGHBORS, span_max, max(n - 1, 1))
+                          // k_ann))
+    if span_max > k_ann * passes:
+        logger.warning(
+            "%.1f%% of rows have more in-band candidates (max %d) than the "
+            "neighbor budget %d; retrieval may truncate true neighbors in "
+            "those bands (raise --n_neighbors_ann)",
+            100.0 * float((spans - 1 > k_ann * passes).mean()), span_max,
+            k_ann * passes)
+    return min(k_ann * passes, max(n - 1, 1))
+
+
+def compact_candidates(bounds: torch.Tensor, neigh: torch.Tensor,
+                       eps: float) -> torch.Tensor:
+    """The scan's lists cut to the candidates the rerank must score: ids
+    whose bound can reach ``1 - eps`` (the bf16 scan reads a bound at most
+    1% low, so the threshold is ``(1 - eps) * 0.99 - 1e-3``, compared in
+    float32), the rest -1, in a power-of-two width of at least 16.  The RT
+    filter leaves holes in the bound-sorted lists, so the width comes from
+    the last surviving column, not the survivor count.  One host sync."""
+    keep = bounds >= f32_tolerance((1.0 - eps) * 0.99 - 1e-3)
+    cols = torch.arange(1, keep.shape[1] + 1, device=keep.device)
+    width = _pow2_at_least(int(torch.where(keep, cols, 0).max()), 16)
+    return torch.where(keep, neigh, -1)[:, :width].contiguous()
+
+
+def _prefilter_rerank(mz_pad, int_pad, mz_sorted, rt_sorted, hasher, eps,
+                      min_matches, precursor_tol_mass, precursor_tol_mode,
+                      rt_tol, fragment_tol, k_final, n_neighbors_ann, dev):
+    """The default index: (exact scores, ids) of each row's top
+    ``k_final`` among the candidates whose spread upper bound can reach
+    ``1 - eps``, padded lists as the exact index returns them."""
+    k_scan = scan_width(mz_sorted, precursor_tol_mass, precursor_tol_mode,
+                        k_final, n_neighbors_ann)
+    with profiler.phase("ann: vectorize"):
+        plain = hasher.vectorize(mz_pad, int_pad, norm=False)
+        spread = hasher.vectorize(mz_pad, int_pad, norm=False, spread=True)
+        synchronize(dev)
+    with profiler.phase("ann: knn"):
+        # spread_i . plain_j with unnormalised vectors bounds the exact
+        # matched score from above (ops/vectorize.py); the bf16 scan reads
+        # it at most 1% low (ops/knn.py), which the threshold allows for.
+        sims, neigh = knn_banded(
+            plain, mz_sorted, precursor_tol_mass, precursor_tol_mode,
+            k_scan, rts=rt_sorted, rt_tol=rt_tol, q_vectors=spread,
+            scan_bf16=True)
+        del plain, spread
+        synchronize(dev)
+    with profiler.phase("ann: rerank"):
+        sims, neigh, n_match = rerank_exact(
+            mz_pad, int_pad, compact_candidates(sims, neigh, eps),
+            fragment_tol, k_final)
+        if min_matches > 0:
+            sims = torch.where((neigh >= 0) & (n_match < min_matches), 0.0,
+                               sims)
+        synchronize(dev)
+    return sims, neigh
 
 
 def _linkage_refine_and_medoids(

@@ -48,6 +48,9 @@ _SIGNATURES = {
     # matches, stream
     "falcon_pair_list_scores": [_p, _p, _i, _p, _p, _p, _i, _f, _i, _p,
                                 _p, _p],
+    # mz, intensity, n, mapping, n_bins, min_bound, bin_size, dim, spread,
+    # norm, out, stream
+    "falcon_vectorize": [_p, _p, _i, _p, _i, _f, _f, _i, _i, _i, _p, _p],
 }
 
 

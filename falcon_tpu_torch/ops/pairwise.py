@@ -43,7 +43,7 @@ import torch
 from ..device import resolve_device, synchronize
 from ..utils.profiling import profiler
 from . import _build
-from .knn import NEG, _pow2_at_least, stable_topk
+from .knn import NEG, _pow2_at_least, refuse_tf32, stable_topk
 from .matching import DEFAULT_ROUNDS, f32_tolerance, indexed_pair_scores
 
 PAD_MZ = -1e6  # padding m/z: outside every tolerance window
@@ -185,15 +185,19 @@ def panel_scores_plain(
 
 
 def _check_starts(name: str, starts: torch.Tensor, n: int,
-                  device: torch.device) -> None:
+                  device: torch.device) -> np.ndarray:
+    """Raise unless ``starts`` is a contiguous 1-D int64 tensor on
+    ``device`` rising from 0 to ``n``; returns its host copy, the one copy
+    (and host sync) the check makes."""
     if (starts.dtype != torch.int64 or starts.ndim != 1
             or starts.device != device or starts.shape[0] < 2
             or not starts.is_contiguous()):
         raise ValueError(f"{name}: starts must be a contiguous 1-D int64 "
                          f"tensor of >= 2 offsets on {device}")
-    if (int(starts[0]) != 0 or int(starts[-1]) != n
-            or bool((starts[1:] < starts[:-1]).any())):
+    host = starts.cpu().numpy()
+    if host[0] != 0 or host[-1] != n or (host[1:] < host[:-1]).any():
         raise ValueError(f"{name}: starts must rise from 0 to {n}")
+    return host
 
 
 ITEM_COLS = 32  # columns per K4 work item: one warp, one lane each
@@ -248,15 +252,19 @@ def batched_block_scores(
     if rounds < 0:
         raise ValueError(f"batched_block_scores: rounds must be >= 0, got "
                          f"{rounds}")
-    _check_starts("batched_block_scores", starts, mz.shape[0], device)
+    starts_host = _check_starts("batched_block_scores", starts, mz.shape[0],
+                                device)
     if device.type == "cpu":
         return batched_block_scores_plain(mz, intensity, starts,
                                           fragment_tol, rounds, with_matches)
-    layout = _grouped_layout(starts.cpu().numpy())
+    layout = _grouped_layout(starts_host)
     n_groups = layout.shape[1] - 1
     n_items, n_pairs = int(layout[0, -1]), int(layout[1, -1])
     lib = _build.library()
-    layout_d = torch.from_numpy(layout).to(device)
+    # Pinned, so the copy is queued behind the stream's work instead of
+    # waiting for it.
+    layout_d = torch.from_numpy(layout).pin_memory().to(device,
+                                                        non_blocking=True)
     scores = torch.empty(n_pairs, dtype=torch.float32, device=device)
     matches = (torch.empty(n_pairs, dtype=torch.int32, device=device)
                if with_matches else None)
@@ -500,11 +508,7 @@ def _bound_panels(spread: torch.Tensor, plain: torch.Tensor, thr: float,
     """(first row, bound, passing mask) per row panel of the (m, m)
     bound matrix ``spread @ plain.T``; a pair passes when it lies above
     the diagonal and its bound reaches ``thr`` (compared in float32)."""
-    if spread.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError(
-            "the spread upper bound needs full float32 matmuls; TF32 is on "
-            "(torch.backends.cuda.matmul.allow_tf32 / "
-            "torch.set_float32_matmul_precision)")
+    refuse_tf32("the spread upper bound", spread.device)
     m = spread.shape[0]
     cols = torch.arange(m, device=spread.device)
     plain_t = plain.t()

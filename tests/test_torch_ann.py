@@ -1,13 +1,16 @@
-"""The port's ann backend with the exact index against the JAX package's on
-the CPU: the hasher, DBSCAN, the pruned linkage distances and the ann
-engine end to end.
+"""The port's ann backend against the JAX package's on the CPU: the
+hasher, DBSCAN, the pruned linkage distances and the ann engine end to
+end, with the exact index and with the default index (the upper-bound
+scan and the exact rerank).
 
 Vectors agree to 1e-6, DBSCAN labels exactly, pruned distances to 1e-6
 with the same entries clamped to 1.0, and the engines' labels and medoids
 exactly, through every route: small components (K4), large ones under
-complete linkage (the pruned pair lists) and average linkage (K1), and
-more than one column pass per band.  Inputs are made from seeds with
-numpy.
+complete linkage (the pruned pair lists) and average linkage (K1), more
+than one column pass per band, dense bands that widen the scan, the JAX
+package's boundary-continued scan passes against the port's one wide
+pass, RT holes in the candidate lists and device blocks.  Inputs are made
+from seeds with numpy.
 """
 
 import jax.numpy as jnp
@@ -23,7 +26,7 @@ from falcon_tpu.preprocess import process_spectrum
 from falcon_tpu.simulate import make_clustered_spectra
 from falcon_tpu.store.store import SpectrumStore, padded_peaks
 from falcon_tpu_torch.cluster import ann_engine
-from falcon_tpu_torch.ops import density, exact_knn, pairwise
+from falcon_tpu_torch.ops import density, exact_knn, pairwise, vectorize
 from falcon_tpu_torch.ops.vectorize import SpectrumHasher
 
 TOL = 0.05
@@ -75,6 +78,45 @@ def test_vectorize_matches_jax(rows, spread, norm):
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=ATOL,
                                rtol=0)
     assert (ours[:, 400:] == 0).all()
+
+
+@pytest.mark.parametrize("norm", [False, True])
+@pytest.mark.parametrize("spread", [False, True])
+def test_vectorize_sums_in_shift_then_peak_order(rows, spread, norm):
+    # The kernel's order, which the plain version keeps on any device: each
+    # dimension adds its hits for shift -1, 0, +1, each in peak order, in
+    # float32; the norm's squares go through the halving tree.  Peaks in no
+    # m/z order and peaks outside the binning range included.
+    from torch_cases import permuted
+
+    mz, intensity = permuted(*_padded(rows[:40]), seed=2)
+    mz[:, 0] = 50.0  # below min_mz: no bin
+    hasher = SpectrumHasher(101.0, 1500.0, TOL, 400, 3)
+    got = vectorize.vectorize_plain(
+        torch.from_numpy(mz), torch.from_numpy(intensity),
+        torch.from_numpy(hasher.mapping.astype(np.int64)), hasher.min_bound,
+        hasher.bin_size, hasher.n_bins, hasher.dim_padded, norm, spread)
+    want = np.zeros((len(mz), hasher.dim_padded), np.float32)
+    bins = np.floor((mz - np.float32(hasher.min_bound))
+                    / np.float32(hasher.bin_size)).astype(np.int64)
+    for i in range(len(mz)):
+        for shift in ((-1, 0, 1) if spread else (0,)):
+            for p in range(mz.shape[1]):
+                b = bins[i, p] + shift
+                if intensity[i, p] > 0 and 0 <= b < hasher.n_bins:
+                    d = hasher.mapping[b]
+                    want[i, d] = np.float32(want[i, d] + intensity[i, p])
+    if norm:
+        sq = want * want
+        while sq.shape[1] > 1:
+            half = sq.shape[1] // 2
+            sq = sq[:, :half] + sq[:, half:]
+        want = want / np.maximum(np.sqrt(sq), np.float32(1e-12))
+    np.testing.assert_array_equal(got.numpy(), want)
+    wrapped = hasher.vectorize(torch.from_numpy(mz),
+                               torch.from_numpy(intensity), norm=norm,
+                               spread=spread)
+    assert torch.equal(wrapped, got) and vectorize.vectorize.launches == 0
 
 
 @pytest.mark.parametrize("min_samples", [1, 3])
@@ -199,7 +241,7 @@ def test_ann_engine_matches_jax(dataset, case, monkeypatch):
 
 
 def test_unported_engine_options_raise(dataset):
-    for kw in (dict(ann_index="auto"), dict(ann_index="ivf"),
+    for kw in (dict(ann_index="auto", rerank="off"), dict(ann_index="ivf"),
                dict(cluster_method="dbscan")):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             _generate(ann_engine, dataset, **kw)
@@ -234,3 +276,104 @@ def test_device_blocks_split_on_gaps_and_log_forced_cuts(dataset,
     assert len(labels) == dataset.count_rows()
     assert len(medoids) == len(np.unique(labels))
     assert len(np.unique(labels)) < len(labels)
+
+
+@pytest.mark.parametrize("case", [
+    "complete", "single", "average_large", "rt_min_matches",
+    "widened", "jax_multipass", "device_blocks"])
+def test_default_ann_engine_matches_jax(dataset, case, monkeypatch, caplog):
+    kw = dict(ann_index="auto")
+    if case == "single":
+        kw.update(linkage="single")
+    elif case == "average_large":
+        kw.update(linkage="average")
+    elif case == "rt_min_matches":
+        kw.update(linkage="single", rt_tol=600.0, min_matches=3)
+    elif case == "widened":
+        # A 2000 ppm band holds every spectrum: the scan widens past
+        # n_neighbors_ann = 128 to n - 1.
+        kw.update(precursor_tol_mass=2000.0, eps=0.2)
+    elif case == "jax_multipass":
+        # The JAX package scans 4 candidates at a time in boundary-
+        # continued passes (tests/test_widen.py's switches) and merges
+        # their reranks into the top 4; the port scans the same coverage
+        # at once and reranks it once.
+        kw.update(n_neighbors=4, n_neighbors_ann=4, eps=0.3,
+                  min_matches=2, precursor_tol_mass=2000.0)
+        monkeypatch.setenv("FALCON_TPU_KNN_CERTIFIED", "0")
+        monkeypatch.setenv("FALCON_TPU_MAX_NEIGHBORS", "1024")
+        monkeypatch.setenv("FALCON_TPU_WIDEN_PASS_CAP", "4")
+    elif case == "device_blocks":
+        monkeypatch.setenv("FALCON_TPU_DEVICE_BLOCK_CAP", "64")
+    if case.endswith("_large"):
+        monkeypatch.setattr(ann_engine, "LINKAGE_GROUP_MAX", 4)
+        monkeypatch.setenv("FALCON_TPU_LINKAGE_GROUP_MAX", "4")
+    jax_scans = []
+    scan = jax_engine.knn_banded
+    monkeypatch.setattr(jax_engine, "knn_banded",
+                        lambda *a, **k: jax_scans.append(1) or scan(*a, **k))
+    with caplog.at_level("INFO", logger="falcon_tpu"):
+        labels, medoids = _generate(ann_engine, dataset, **kw)
+    ref_labels, ref_medoids = _generate(jax_engine, dataset, **kw)
+    np.testing.assert_array_equal(labels, ref_labels)
+    np.testing.assert_array_equal(medoids, ref_medoids)
+    assert len(np.unique(labels)) < len(labels)
+    if case == "jax_multipass":
+        assert len(jax_scans) > 1
+    if case == "widened":
+        assert "widening the retrieval width" in caplog.text
+    if case == "device_blocks":
+        assert "device blocks (cap 64)" in caplog.text
+
+
+def test_default_ann_engine_keeps_survivors_behind_rt_holes(tmp_path):
+    # tests/test_ann.py's RT-holes regression: q's only true neighbour s1
+    # sits behind 20 RT-violating candidates with higher bounds; sizing the
+    # kept width from the survivor count would cut s1 before the rerank.
+    rng = np.random.default_rng(0)
+    common_mz = np.sort(rng.uniform(300.0, 1200.0, 20)).astype(np.float32)
+
+    def mk(c, unique_lo, rt, ident):
+        mz = np.concatenate([common_mz,
+                             np.float32([unique_lo, unique_lo + 7.0])])
+        inten = np.concatenate([
+            np.full(20, np.sqrt(c / 20), np.float32),
+            np.full(2, np.sqrt((1 - c) / 2), np.float32)])
+        order = np.argsort(mz)
+        return dict(identifier=ident, precursor_mz=500.0,
+                    precursor_charge=2, retention_time=float(rt),
+                    mz=mz[order], intensity=inten[order],
+                    filename="synthetic.mgf")
+
+    rows = [mk(0.999, 130.0, 0.0, "q"), mk(0.78, 140.0, 5.0, "s1")]
+    rows += [mk(0.80, 160.0 + 9.0 * i, 5000.0, f"decoy{i}")
+             for i in range(20)]
+    store = SpectrumStore(str(tmp_path / "spectra"))
+    writer = store.writer()
+    writer.add_many(rows)
+    writer.close()
+    kw = dict(eps=0.13, rt_tol=10.0, low_dim=1600, ann_index="auto")
+    labels, medoids = _generate(ann_engine, store.dataset(2), **kw)
+    ref_labels, ref_medoids = _generate(jax_engine, store.dataset(2), **kw)
+    np.testing.assert_array_equal(labels, ref_labels)
+    np.testing.assert_array_equal(medoids, ref_medoids)
+    assert labels[0] == labels[1] and not (labels[2:] == labels[0]).any()
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_default_ann_engine_tiny_buckets(rows, n, tmp_path):
+    # k_final = min(n_neighbors, n - 1): one neighbour for two spectra,
+    # and a bucket of one spectrum never reaches the scan.  Rows of one
+    # cluster, so the pair is within tolerance and eps.
+    order = np.argsort([r["precursor_mz"] for r in rows], kind="stable")
+    picked = [rows[i] for i in order[:n]]
+    store = SpectrumStore(str(tmp_path / "spectra"))
+    writer = store.writer()
+    writer.add_many(picked)
+    writer.close()
+    kw = dict(ann_index="auto", eps=0.9, precursor_tol_mass=2000.0)
+    labels, medoids = _generate(ann_engine, store.dataset(2), **kw)
+    ref_labels, ref_medoids = _generate(jax_engine, store.dataset(2), **kw)
+    np.testing.assert_array_equal(labels, ref_labels)
+    np.testing.assert_array_equal(medoids, ref_medoids)
+    assert len(labels) == n

@@ -1,8 +1,9 @@
 """The port's CLI (``python -m falcon_tpu_torch``) against the JAX
 package's on the CPU: the same corpus gives the same CSV bytes (apart from
-the ``# work_dir`` line) and the same medoid MGF, with the exact backend
-and with ``--backend ann --ann_index exact``; a work_dir ingested by one
-package resumes under the other, and the port never imports JAX.
+the ``# work_dir`` line) and the same medoid MGF, with the exact backend,
+with ``--backend ann`` (the default index, and ``brute``) and with
+``--backend ann --ann_index exact``; a work_dir ingested by one package
+resumes under the other, and the port never imports JAX.
 """
 
 import os
@@ -97,6 +98,32 @@ def test_ann_exact_csv_and_mgf_identical_to_jax(mgf_inputs, monkeypatch,
         str(tmp_path / "jax.mgf"))
 
 
+@pytest.mark.parametrize("extra,group_max", [
+    ([], None),
+    (["--linkage", "single", "--min_matched_peaks", "3", "--rt_tol", "30"],
+     None),
+    (["--linkage", "average"], 4),
+    (["--ann_index", "brute", "--eps", "0.2"], 4),
+], ids=["complete", "single_min_matches_rt", "average_large",
+        "brute_complete_large_pruned"])
+def test_default_ann_csv_and_mgf_identical_to_jax(mgf_inputs, monkeypatch,
+                                                  extra, group_max):
+    # --backend ann with its defaults: --ann_index auto, --rerank exact.
+    if group_max is not None:
+        monkeypatch.setenv("FALCON_TPU_LINKAGE_GROUP_MAX", str(group_max))
+        monkeypatch.setattr(ann_engine, "LINKAGE_GROUP_MAX", group_max)
+    tmp_path, files = mgf_inputs
+    flags = ["--export_representatives", "--backend", "ann"] + extra
+    assert jax_cli.main(files + [str(tmp_path / "jax"), "--work_dir",
+                                 str(tmp_path / "w_jax")] + flags) == 0
+    assert cli.main(files + [str(tmp_path / "torch"), "--work_dir",
+                             str(tmp_path / "w_torch")] + flags) == 0
+    assert (_csv_without_work_dir(str(tmp_path / "torch.csv"))
+            == _csv_without_work_dir(str(tmp_path / "jax.csv")))
+    assert _read(str(tmp_path / "torch.mgf")) == _read(
+        str(tmp_path / "jax.mgf"))
+
+
 def test_ann_exact_two_passes_csv_and_mgf_identical_to_jax(tmp_path,
                                                          monkeypatch):
     # ~160 charge-2 spectra in 1 m/z: a 500 ppm band spans 256 columns,
@@ -159,7 +186,7 @@ def test_api_matches_jax_api(mgf_inputs):
     assert ([s.identifier for s in result.representatives]
             == [s.identifier for s in ref.representatives])
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        api.cluster(files, backend="ann")
+        api.cluster(files, backend="ann", rerank="off")
 
 
 def test_api_passes_ann_options_through(mgf_inputs):
@@ -187,7 +214,8 @@ def test_profile_writes_a_torch_trace(mgf_inputs):
     assert (trace_dir / "trace.json").stat().st_size > 0
 
 
-@pytest.mark.parametrize("flags", [[], ANN], ids=["exact", "ann_exact"])
+@pytest.mark.parametrize("flags", [[], ANN, ["--backend", "ann"]],
+                         ids=["exact", "ann_exact", "ann"])
 def test_no_jax_is_imported(mgf_inputs, flags):
     tmp_path, files = mgf_inputs
     script = (
@@ -229,11 +257,14 @@ def test_cuda_without_gpu_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--backend", "ann"],
+    ["--backend", "ann", "--rerank", "off"],
     ["--export_representatives", "--representative_method", "consensus"],
     ANN + ["--cluster_method", "dbscan"],
     ["--backend", "ann", "--ann_index", "ivf"],
-], ids=["ann", "consensus", "ann_dbscan", "ann_ivf"])
+    ["--backend", "ann", "--ann_index", "brute", "--rerank", "off"],
+    ["--backend", "ann", "--cluster_method", "dbscan"],
+], ids=["ann", "consensus", "ann_dbscan", "ann_ivf", "ann_brute_rerank_off",
+        "ann_auto_dbscan"])
 def test_unported_options_exit_1(mgf_inputs, flags, caplog):
     tmp_path, files = mgf_inputs
     out = str(tmp_path / "out")

@@ -9,10 +9,13 @@ NVIDIA Hopper GPU and nvcc::
 The kernels and their plain versions add the selected weights in the same
 order, so scores must agree to 1e-6 and match counts exactly; the engine
 must give identical labels and medoids through the kernels on the GPU and
-through the plain versions on the CPU.  Every kernel walks the peak pairs
-within tolerance of a row sorted by m/z, so each is also held against its
-plain version on peaks in no m/z order, on tie-heavy spectra and at wide
-tolerances, where a column has many such pairs.
+through the plain versions on the CPU.  Every matching kernel walks the
+peak pairs within tolerance of a row sorted by m/z, so each is also held
+against its plain version on peaks in no m/z order, on tie-heavy spectra
+and at wide tolerances, where a column has many such pairs.  The vectorize
+kernel sums in its plain version's order, so the two agree bit for bit,
+and so do two launches; the scan and the rerank built on the kernels agree
+with their CPU versions.
 """
 
 import numpy as np
@@ -21,7 +24,9 @@ import torch
 
 from falcon_tpu_torch.cluster import ann_engine, engine
 from falcon_tpu_torch.ops import exact_knn as ex
+from falcon_tpu_torch.ops import knn, rerank
 from falcon_tpu_torch.ops import pairwise as pw
+from falcon_tpu_torch.ops import vectorize as vz
 from falcon_tpu_torch.preprocess import process_spectrum
 from falcon_tpu_torch.simulate import make_clustered_spectra
 from falcon_tpu_torch.store.store import SpectrumStore, padded_peaks
@@ -213,12 +218,12 @@ def test_ann_engine_gpu_equals_cpu(cuda, rows, tmp_path, monkeypatch,
     args = (store.dataset(2), 0.2, 0, 20.0, "ppm", None, TOL, 2**15)
     before = (ex.banded_panel_scores.launches, pw.pair_list_scores.launches,
               pw.panel_scores.launches)
-    labels, medoids = ann_engine.generate_clusters(*args, linkage=linkage,
-                                                   device=cuda)
+    labels, medoids = ann_engine.generate_clusters(
+        *args, ann_index="exact", linkage=linkage, device=cuda)
     after = (ex.banded_panel_scores.launches, pw.pair_list_scores.launches,
              pw.panel_scores.launches)
     ref_labels, ref_medoids = ann_engine.generate_clusters(
-        *args, linkage=linkage, device="cpu")
+        *args, ann_index="exact", linkage=linkage, device="cpu")
     np.testing.assert_array_equal(labels, ref_labels)
     np.testing.assert_array_equal(medoids, ref_medoids)
     assert after[0] > before[0]
@@ -298,3 +303,117 @@ def test_edge_walking_kernels_ignore_peak_order(cuda, rows, kernel):
                       8)[0] for m, x in ((mz, intensity), (pmz, pint))]
     torch.cuda.synchronize()
     _assert_same(out[1], out[0])
+
+
+def _hasher_args(mz, intensity, low_dim=400):
+    hasher = vz.SpectrumHasher(101.0, 1500.0, TOL, low_dim, 3)
+    return (mz, intensity, hasher._mapping(mz.device), hasher.min_bound,
+            hasher.bin_size, hasher.n_bins, hasher.dim_padded)
+
+
+@pytest.mark.parametrize("norm", [False, True])
+@pytest.mark.parametrize("spread", [False, True])
+@pytest.mark.parametrize("case", ["sorted", "permuted_out_of_range",
+                                  "low_dim_1600"])
+def test_vectorize_kernel_bit_identical_to_plain(cuda, rows, spread, norm,
+                                                 case):
+    mz, intensity = _padded(rows, cuda)
+    low_dim = 1600 if case == "low_dim_1600" else 400
+    if case == "permuted_out_of_range":
+        mz, intensity = _permuted(mz, intensity, seed=7)
+        # Real peaks below and above the binning range: no bin.
+        mz[:, :2] = torch.tensor([50.0, 2500.0], device=cuda)
+        intensity[:, :2] = 0.5
+    args = _hasher_args(mz, intensity, low_dim) + (norm, spread)
+    before = vz.vectorize.launches
+    got = vz.vectorize(*args)
+    again = vz.vectorize(*args)
+    torch.cuda.synchronize()
+    assert vz.vectorize.launches == before + 2
+    assert got.shape == (mz.shape[0], args[6])
+    assert (got[:, low_dim:] == 0).all()
+    assert torch.equal(got, again)
+    assert torch.equal(got, vz.vectorize_plain(*args))
+    cpu_args = tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
+    assert torch.equal(got.cpu(), vz.vectorize_plain(*cpu_args))
+
+
+def test_vectorize_rejects_unsupported_inputs(cuda, rows):
+    mz, intensity = _padded(rows[:8], cuda)
+    args = _hasher_args(mz, intensity)
+    with pytest.raises(TypeError, match="float32"):
+        vz.vectorize(mz.double(), intensity.double(), *args[2:])
+    with pytest.raises(ValueError, match="mapping"):
+        vz.vectorize(mz, intensity, args[2].cpu(), *args[3:])
+    wide = torch.nn.functional.pad(mz, (0, 64), value=pw.PAD_MZ)
+    wide_int = torch.nn.functional.pad(intensity, (0, 64))
+    with pytest.raises(ValueError, match="64 peaks"):
+        vz.vectorize(wide, wide_int, *args[2:])
+
+
+def _spectra_block(rows, device):
+    """(peaks padded to 512 rows, precursor m/z, RTs) of ``rows``."""
+    mz, intensity = _padded(rows, "cpu")
+    pad = 512 - len(rows)
+    mz = torch.nn.functional.pad(mz, (0, 0, 0, pad), value=pw.PAD_MZ)
+    intensity = torch.nn.functional.pad(intensity, (0, 0, 0, pad))
+    return (mz.to(device), intensity.to(device),
+            np.asarray([r["precursor_mz"] for r in rows]),
+            np.asarray([r["retention_time"] for r in rows]))
+
+
+def test_knn_banded_gpu_equals_cpu(cuda, rows):
+    mz, intensity, pmz, rts = _spectra_block(rows, cuda)
+    plain = vz.vectorize(*_hasher_args(mz, intensity), False, False)
+    spread = vz.vectorize(*_hasher_args(mz, intensity), False, True)
+    kw = dict(rts=rts, rt_tol=900.0, scan_bf16=True, block_rows=128)
+    got = knn.knn_banded(plain, pmz, 20.0, "ppm", 64, q_vectors=spread,
+                         **kw)
+    want = knn.knn_banded(plain.cpu(), pmz, 20.0, "ppm", 64,
+                          q_vectors=spread.cpu(), **kw)
+    scores, ids = (t.cpu().numpy() for t in got)
+    assert float(np.abs(scores - want[0].numpy()).max()) <= ATOL
+    gap = np.full(scores.shape, np.inf)
+    step = np.abs(np.diff(scores, axis=1))
+    gap[:, 1:] = np.minimum(gap[:, 1:], step)
+    gap[:, :-1] = np.minimum(gap[:, :-1], step)
+    distinct = gap > ATOL
+    np.testing.assert_array_equal(ids[distinct], want[1].numpy()[distinct])
+    assert (ids >= 0).sum() == (want[1] >= 0).sum() > len(rows)
+
+
+def test_rerank_exact_gpu_equals_plain(cuda, rows):
+    mz, intensity, pmz, _ = _spectra_block(rows, cuda)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    n = len(rows)
+    ids = (torch.arange(n)[:, None]
+           + torch.randint(-30, 31, (n, 45), generator=gen))
+    ids[(ids < 0) | (ids >= n) | (torch.rand(ids.shape, generator=gen)
+                                   < 0.3)] = -1
+    neigh = torch.full((512, 45), -1, dtype=torch.int64)
+    neigh[:n] = ids
+    before = pw.pair_list_scores.launches
+    got = rerank.rerank_exact(mz, intensity, neigh.to(cuda), TOL, 16)
+    torch.cuda.synchronize()
+    assert pw.pair_list_scores.launches == before + 1
+    plain = rerank.rerank_scan_body(mz, intensity, mz, intensity,
+                                    neigh.to(cuda), TOL, 16)
+    cpu = rerank.rerank_exact(mz.cpu(), intensity.cpu(), neigh, TOL, 16)
+    for a, b, c in zip(got, plain, cpu):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+
+
+def test_default_ann_engine_gpu_equals_cpu(cuda, rows, tmp_path):
+    store = SpectrumStore(str(tmp_path / "spectra"))
+    writer = store.writer()
+    writer.add_many(rows)
+    writer.close()
+    args = (store.dataset(2), 0.2, 0, 20.0, "ppm", None, TOL, 2**15)
+    before = (vz.vectorize.launches, pw.pair_list_scores.launches)
+    labels, medoids = ann_engine.generate_clusters(*args, device=cuda)
+    assert vz.vectorize.launches == before[0] + 2
+    assert pw.pair_list_scores.launches > before[1]
+    ref_labels, ref_medoids = ann_engine.generate_clusters(*args,
+                                                           device="cpu")
+    np.testing.assert_array_equal(labels, ref_labels)
+    np.testing.assert_array_equal(medoids, ref_medoids)

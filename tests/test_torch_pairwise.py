@@ -267,3 +267,30 @@ def test_wrappers_reject_bad_inputs(padded_dataset, bad):
             tp.batched_block_scores(mz, intensity, starts, TOL)
         else:
             tp.panel_scores(mz, intensity, mz, intensity, 0, TOL)
+
+
+@pytest.mark.parametrize("starts,match", [
+    ([0, 5, 4, 8], "rise from 0"),     # not rising
+    ([1, 4, 8], "rise from 0"),        # not from 0
+    ([0, 4, 7], "rise from 0 to 8"),   # not to n
+    ([0, 4, 9], "rise from 0 to 8"),   # past n
+    ([0.0, 4.0, 8.0], "int64"),        # wrong dtype
+    ([8], ">= 2 offsets"),             # too short
+    ([[0, 4, 8]], "1-D"),              # wrong rank
+])
+def test_grouped_scores_check_starts_on_one_host_copy(padded_dataset, starts,
+                                                      match, monkeypatch):
+    # The checks read one host copy of ``starts`` (one sync on the card)
+    # and refuse every malformed table the device-side checks refused.
+    mz, intensity = (_t(a[:8]) for a in padded_dataset)
+    bad = torch.tensor(starts)
+    copies = []
+    real_cpu = torch.Tensor.cpu
+    monkeypatch.setattr(torch.Tensor, "cpu",
+                        lambda t: copies.append(1) or real_cpu(t))
+    with pytest.raises(ValueError, match=match):
+        tp.batched_block_scores(mz, intensity, bad, TOL)
+    assert len(copies) <= 1
+    good = tp._check_starts("K4", torch.tensor([0, 3, 3, 8]), 8,
+                            torch.device("cpu"))
+    np.testing.assert_array_equal(good, [0, 3, 3, 8])

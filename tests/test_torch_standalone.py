@@ -31,8 +31,8 @@ def _forbidden(module: str) -> bool:
 
 
 @pytest.mark.parametrize("flags", [[], ["--backend", "ann", "--ann_index",
-                                        "exact"]],
-                         ids=["exact", "ann_exact"])
+                                        "exact"], ["--backend", "ann"]],
+                         ids=["exact", "ann_exact", "ann"])
 def test_port_runs_without_jax_or_the_jax_package(tmp_path, flags):
     spectra, _ = make_clustered_spectra(n_clusters=6, cluster_size=4,
                                         n_noise=8, seed=3)
