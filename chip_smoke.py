@@ -42,14 +42,25 @@ It builds the port's CUDA kernels from ``falcon_tpu_torch/csrc`` and then:
    scan over hashed vectors, then the exact rerank) on the same three
    corpora, prints the pair-F1 of its bench-corpus labels against phase
    6's, and runs the bench corpus a second time, which must give the same
-   CSV bytes.
+   CSV bytes;
+8. runs the CLI in dbscan mode (``--cluster_method dbscan``) on the same
+   three corpora, under ``--rerank off`` (linkage and dbscan) and with
+   consensus representatives on the bench corpus, prints the pair-F1 of
+   dbscan mode against ``--backend exact --linkage single`` (recorded, not
+   asserted), and runs dbscan mode and the consensus export a second time,
+   which must give the same CSV and MGF bytes.
 
-Phase 2 also holds the vectorize kernel against its plain version at the
-bench corpus's charge-2 block (bit for bit, and two launches against each
-other), times it beside the ``index_add_`` it replaces, and times the
-default path's scan (product and top-k apart) and rerank (pair-list kernel
-and sort apart) at that block; phase 5 also runs the default index
-through the kernels and through the plain versions.
+Phase 2 also holds the vectorize kernel (one output, and the fused plain +
+spread call) against its plain version at the bench corpus's charge-2 block
+(bit for bit, and two launches against each other), times it beside the
+``index_add_`` it replaces, times the default path's scan (product and
+top-k apart) and rerank (pair-list kernel and sort apart) at that block,
+and holds the medoid-score kernels (on that block's lists and unit
+vectors) and the consensus kernel (on its consensus input) against their
+plain versions bit for bit, timed beside a PyTorch computation of the same
+function on ``index_add_``; phase 5 also runs the default index, dbscan
+mode, ``--rerank off`` and the consensus spectra through the kernels and
+through the plain versions.
 
 Every phase raises on failure, so the script exits non-zero; it also exits
 non-zero, printing no result, without a CUDA GPU.  On success the last two
@@ -89,11 +100,17 @@ K2_BLOCK_ROWS = 4096  # exact_banded_topk's row block
 K1, K2, K4, PL, VEC = ("K1 panel_scores", "K2 banded_panel_scores",
                        "K4 batched_block_scores", "pair_list_scores",
                        "vectorize")
+B1, B2, B3 = ("B.1 sparse_medoid_scores", "B.2 hashed_medoid_scores",
+              "B.3 consensus aggregate")
+KERNELS = (K1, K2, K4, PL, VEC, B1, B2, B3)
 SOURCES = {K1: "falcon_tpu_torch/csrc/pairwise.cu",
            K2: "falcon_tpu_torch/csrc/exact_knn.cu",
            K4: "falcon_tpu_torch/csrc/pairwise.cu",
            PL: "falcon_tpu_torch/csrc/pairwise.cu",
-           VEC: "falcon_tpu_torch/csrc/vectorize.cu"}
+           VEC: "falcon_tpu_torch/csrc/vectorize.cu",
+           B1: "falcon_tpu_torch/csrc/medoids.cu",
+           B2: "falcon_tpu_torch/csrc/medoids.cu",
+           B3: "falcon_tpu_torch/csrc/consensus.cu"}
 # The bound of a kernel's call: the larger of its bytes (each input read
 # once, each output written once) over the HBM rate and its operations over
 # the float32 rate outside the tensor cores (H100 SXM data sheet, 700 W).
@@ -113,7 +130,14 @@ REPLACES = {
     K4: "falcon_tpu/ops/pairwise.py:218",
     PL: "falcon_tpu/ops/rerank.py:32",
     VEC: "falcon_tpu/ops/vectorize.py:86",
+    B1: "falcon_tpu/cluster/ann_engine.py:180",
+    B2: "falcon_tpu/cluster/ann_engine.py:138",
+    B3: "falcon_tpu/ops/consensus.py:34",
 }
+DBSCAN = ANN_DEFAULT + ["--cluster_method", "dbscan"]
+RERANK_OFF = ANN_DEFAULT + ["--rerank", "off"]
+CONSENSUS = ["--export_representatives", "--representative_method",
+             "consensus"]
 
 
 def log(msg: str) -> None:
@@ -276,14 +300,26 @@ def chained_spectra(n_chains: int, chain_len: int, seed: int):
 
 
 def wrappers():
-    """The five kernel wrappers, by name: (module, attribute)."""
+    """The kernels' wrappers, by kernel: [(module, attribute)]; each
+    attribute has a plain version named ``<attribute>_plain``."""
+    from falcon_tpu_torch.ops import consensus as cs
     from falcon_tpu_torch.ops import exact_knn as ex
+    from falcon_tpu_torch.ops import medoids as md
     from falcon_tpu_torch.ops import pairwise as pw
     from falcon_tpu_torch.ops import vectorize as vz
 
-    return {K1: (pw, "panel_scores"), K2: (ex, "banded_panel_scores"),
-            K4: (pw, "batched_block_scores"), PL: (pw, "pair_list_scores"),
-            VEC: (vz, "vectorize")}
+    return {K1: [(pw, "panel_scores")], K2: [(ex, "banded_panel_scores")],
+            K4: [(pw, "batched_block_scores")],
+            PL: [(pw, "pair_list_scores")],
+            VEC: [(vz, "vectorize"), (vz, "vectorize_pair")],
+            B1: [(md, "sparse_medoid_scores")],
+            B2: [(md, "hashed_medoid_scores")], B3: [(cs, "aggregate")]}
+
+
+def launch_counts():
+    """Launches so far, by kernel."""
+    return {k: sum(getattr(m, a).launches for m, a in attrs)
+            for k, attrs in wrappers().items()}
 
 
 def edge_counts(mz_a, int_a, ii, mz_b, int_b, jj, tol, chunk=1 << 16):
@@ -442,6 +478,7 @@ def phase_kernels(dev, dense_rows, bench_rows, bench_all, chain_rows,
     phase_banded(dev, parity, times, detail, report,
                  {"bench": bench_rows, "dense": dense_rows}, chain_rows)
     phase_default_index(dev, parity, times, detail, report, bench_all)
+    phase_dbscan_kernels(dev, parity, times, report, bench_all)
     report["kernel_times_ms"] = {" | ".join(map(str, k)): v
                                  for k, v in detail.items()}
     report["kernel_bounds"] = times
@@ -780,9 +817,11 @@ def index_add_inputs(mz, intensity, mapping, min_bound, bin_size, n_bins,
     arguments of the one ``index_add_`` the vectorize kernel replaces."""
     import torch
 
+    from falcon_tpu_torch.ops.vectorize import inverse_bin
+
     n = mz.shape[0]
-    size = torch.tensor(bin_size, dtype=torch.float32, device=mz.device)
-    bins = torch.floor((mz - np.float32(min_bound)) / size).to(torch.int64)
+    scale = torch.tensor(inverse_bin(bin_size), device=mz.device)
+    bins = torch.floor((mz - np.float32(min_bound)) * scale).to(torch.int64)
     base = (torch.arange(n, device=mz.device) * dim)[:, None]
     idx, w = [], []
     for shift in ((-1, 0, 1) if spread else (0,)):
@@ -860,6 +899,40 @@ def phase_default_index(dev, parity, times, detail, report, bench_all):
     log(f"  {VEC}: bound {vec_bound[0]:.5f} ms ({vec_bound[1]}, "
         f"{n_bytes / 1e6:.1f} MB), {100 * vec_bound[0] / main['ms']:.1f}% "
         f"of the spread call's time")
+    # The fused call of the default path: plain and spread from one read.
+    got = vz.vectorize_pair(*base)
+    again = vz.vectorize_pair(*base)
+    want, t_plain = plain_ms(lambda: vz.vectorize_pair_plain(*base))
+    p_args = (mz_p, int_p) + base[2:]
+    singles = (vz.vectorize(*base, False, False),
+               vz.vectorize(*base, False, True))
+    same = all(torch.equal(g, a) and torch.equal(g, w) and torch.equal(g, o)
+               for g, a, w, o in zip(got, again, want, singles))
+    same &= all(torch.equal(g, w) for g, w in zip(
+        vz.vectorize_pair(*p_args), vz.vectorize_pair_plain(*p_args)))
+    if not same:
+        raise AssertionError(f"{VEC} fused plain + spread: not bit-identical "
+                             "to its plain version, to itself or to the "
+                             "single calls")
+    pair_ms = kernel_ms(lambda: vz.vectorize_pair(*base), reps=20)
+    for what, fn in (("spread", lambda: vz.vectorize(*base, False, True)),
+                     ("fused", lambda: vz.vectorize_pair(*base))):
+        detail[(VEC, what, "split")] = device_split(fn, reps=20)
+        log_split(f"{VEC} {what}", detail[(VEC, what, "split")])
+    pair_bytes = n_bytes + n_pad * hasher.dim_padded * 4
+    pair_bound = pair_bytes / HBM_BYTES_PER_S * 1e3
+    pair_library = (detail[(VEC, False, False)]["library_ms"]
+                    + detail[(VEC, True, False)]["library_ms"])
+    report["vectorize_pair"] = dict(ms=pair_ms, plain_ms=t_plain,
+                                    library_ms=pair_library,
+                                    bound_ms=pair_bound, bound_by="bytes")
+    log(f"  {VEC} fused plain + spread ({n} spectra padded to {n_pad}): "
+        f"kernel {pair_ms:.4f} ms, bit-identical to the plain version (and "
+        f"on permuted peaks), across two launches and to the two single "
+        f"calls; plain version {t_plain:.2f} ms; two index_add_ "
+        f"{pair_library:.4f} ms; bound {pair_bound:.5f} ms (bytes, "
+        f"{pair_bytes / 1e6:.1f} MB), {100 * pair_bound / pair_ms:.1f}% of "
+        f"its time")
 
     # K5: the scan as the engine runs it (its width widened for the
     # bench corpus's bands), whole, then its products and its top-k alone.
@@ -959,6 +1032,193 @@ def phase_default_index(dev, parity, times, detail, report, bench_all):
         f"({rerank_bound[1]})")
 
 
+def sparse_medoid_library(sims, neigh, seg, spill):
+    """The sparse medoid scores as PyTorch computes them with index_add_
+    (the JAX body's masks, then the two scatter-adds); atomic on CUDA."""
+    import torch
+
+    n_pad, k = sims.shape
+    rows = torch.arange(n_pad, device=sims.device)
+    safe = neigh.clamp(0, n_pad - 1)
+    seg = seg.long()
+    valid = (neigh >= 0) & (seg[:, None] != spill) & (seg[safe]
+                                                      == seg[:, None])
+    mutual = (neigh[safe] == rows[:, None, None]).any(-1)
+    counted = valid & ((rows[:, None] < safe) | ~mutual)
+    w = torch.where(counted, sims.clamp_min(0.0), 0.0)
+    out = torch.zeros(n_pad + 1, device=sims.device)
+    out.index_add_(0, rows, w.sum(1))
+    out.index_add_(0, torch.where(counted, safe, n_pad).reshape(-1),
+                   w.reshape(-1))
+    return out[:n_pad]
+
+
+def hashed_medoid_library(vectors, seg, spill):
+    """The hashed medoid scores with index_add_ and a row dot."""
+    import torch
+
+    seg = seg.long()
+    v = vectors[:seg.shape[0]]
+    sums = torch.zeros((spill + 1, v.shape[1]), device=v.device)
+    sums.index_add_(0, seg, v)
+    return (v * sums[seg]).sum(1)
+
+
+def aggregate_library(key, member, mz, intensity):
+    """The consensus table with the same sort, then index_add_ and
+    scatter_reduce_ per key."""
+    import torch
+
+    order = torch.sort((key.long() << 32) | member.long(), stable=True)[1]
+    key, member, mz, intensity = (a[order] for a in (key, member, mz,
+                                                     intensity))
+    first = torch.ones_like(key, dtype=torch.bool)
+    first[1:] = key[1:] != key[:-1]
+    new_member = first.clone()
+    new_member[1:] |= member[1:] != member[:-1]
+    seg = torch.cumsum(first.long(), 0) - 1
+    n_keys = int(seg[-1]) + 1
+    int_sum = torch.zeros(n_keys, device=key.device).index_add_(
+        0, seg, intensity)
+    mzint_sum = torch.zeros(n_keys, device=key.device).index_add_(
+        0, seg, mz * intensity)
+    members = torch.zeros(n_keys, dtype=torch.int32,
+                          device=key.device).index_add_(
+        0, seg, new_member.int())
+    keys = torch.zeros(n_keys, dtype=torch.int32,
+                       device=key.device).scatter_reduce_(
+        0, seg, key, "amax", include_self=False)
+    return keys, int_sum, mzint_sum, members
+
+
+def check_bits(name, what, got, again, want):
+    """Raise unless a kernel's result equals its plain version's and its
+    own second launch's, bit for bit (tuples compared element-wise)."""
+    import torch
+
+    got, again, want = (x if isinstance(x, tuple) else (x,)
+                        for x in (got, again, want))
+    if not all(torch.equal(g, a) and torch.equal(g, w)
+               for g, a, w in zip(got, again, want)):
+        raise AssertionError(f"{name} {what}: not bit-identical to its plain "
+                             "version or to its own second launch")
+
+
+def phase_dbscan_kernels(dev, parity, times, report, bench_all):
+    """Phase 2, continued: the medoid-score kernels on the bench corpus's
+    charge-2 block as dbscan mode holds it (B.1 on the default path's
+    exact lists, B.2 on its unit vectors), and the consensus kernel (B.3)
+    on that block's consensus input; each bit for bit against its plain
+    version and its own second launch, timed beside PyTorch's index_add_
+    computation of the same function."""
+    import torch
+
+    from falcon_tpu_torch.cluster import ann_engine
+    from falcon_tpu_torch.ops import consensus as cs
+    from falcon_tpu_torch.ops import medoids as md
+    from falcon_tpu_torch.ops import vectorize as vz
+    from falcon_tpu_torch.ops.density import dbscan
+    from falcon_tpu_torch.preprocess import get_dim
+
+    mz, intensity, pmz = bench_block(bench_all, dev)
+    n, n_pad = len(pmz), mz.shape[0]
+    _, mz_min, mz_max = get_dim(101.0, 1500.0, TOL)
+    hasher = vz.SpectrumHasher(mz_min, mz_max, TOL)
+    sims, neigh = ann_engine._prefilter_rerank(
+        mz, intensity, pmz, np.zeros(n), hasher, EPS, 0, 20.0, "ppm", None,
+        TOL, 64, 128, dev)
+    sims, neigh = sims.contiguous(), neigh.contiguous()
+    labels = dbscan(sims, neigh, EPS, n, 2)
+    spill = int(labels.max()) + 1
+    seg = np.where(labels >= 0, labels, spill).astype(np.int32)
+    seg_pad = np.full(n_pad, spill, np.int32)
+    seg_pad[:n] = seg
+    read = torch.from_numpy(seg != spill).to(dev)
+
+    # B.1 on the exact lists.
+    args = (sims, neigh, torch.from_numpy(seg_pad).to(dev), spill)
+    got, again = md.sparse_medoid_scores(*args), md.sparse_medoid_scores(*args)
+    want, t_plain = plain_ms(lambda: md.sparse_medoid_scores_plain(*args))
+    shape = (f"{n_pad}x{sims.shape[1]} lists, "
+             f"{int((neigh[:n] >= 0).sum())} listed pairs, {spill} clusters")
+    check_bits(B1, shape, got, again, want)
+    ms = kernel_ms(lambda: md.sparse_medoid_scores(*args), reps=10)
+    library = kernel_ms(lambda: sparse_medoid_library(*args), reps=3)
+    lib_err = float((sparse_medoid_library(*args)[:n] - got[:n])[read]
+                    .abs().max())
+    n_bytes = sims.numel() * 12 + n_pad * 8
+    times[B1] = dict(ms=ms, plain_ms=t_plain, library_ms=library,
+                     bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+                     bound_by="bytes")
+    parity.err[B1] = 0.0
+    log(f"  {B1} {shape}: kernel {ms:.4f} ms (two kernels, a stable sort "
+        f"and a search), bit-identical to the plain version and across two "
+        f"launches; plain version {t_plain:.1f} ms; index_add_ version "
+        f"{library:.4f} ms (max |diff| {lib_err:.3g} on the rows read); "
+        f"bound {times[B1]['bound_ms']:.5f} ms (bytes)")
+
+    # B.2 on the unit vectors of --rerank off.
+    unit = vz.normalize_rows(hasher.vectorize(mz, intensity, norm=False))
+    seg_n = torch.from_numpy(seg).to(dev)
+    args = (unit, seg_n, spill)
+    got, again = md.hashed_medoid_scores(*args), md.hashed_medoid_scores(*args)
+    want, t_plain = plain_ms(lambda: md.hashed_medoid_scores_plain(*args))
+    shape = f"{n} rows x {unit.shape[1]}, {spill} clusters"
+    check_bits(B2, shape, got, again, want)
+    ms = kernel_ms(lambda: md.hashed_medoid_scores(*args), reps=10)
+    library = kernel_ms(lambda: hashed_medoid_library(*args), reps=10)
+    lib_err = float((hashed_medoid_library(*args) - got)[read].abs().max())
+    n_bytes = n * unit.shape[1] * 4 + n * 8
+    times[B2] = dict(ms=ms, plain_ms=t_plain, library_ms=library,
+                     bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+                     bound_by="bytes")
+    parity.err[B2] = 0.0
+    log(f"  {B2} {shape}: kernel {ms:.4f} ms, bit-identical to the plain "
+        f"version and across two launches; plain version {t_plain:.1f} ms; "
+        f"index_add_ + row dot {library:.4f} ms (max |diff| {lib_err:.3g} "
+        f"on the rows read); bound {times[B2]['bound_ms']:.5f} ms (bytes)")
+
+    # B.3 on the consensus input of the block's clusters (noise as
+    # singletons), as consensus_spectra hands it to aggregate.
+    promoted = labels.copy()
+    noise = promoted < 0
+    promoted[noise] = spill + np.arange(int(noise.sum()))
+    mz_h, int_h = mz[:n].cpu().numpy(), intensity[:n].cpu().numpy()
+    keep = int_h > 0
+    offsets = np.concatenate([[0], np.cumsum(keep.sum(1))]).astype(np.int64)
+    captured = []
+    aggregate = cs.aggregate
+
+    def capture(*inputs):
+        captured.append(inputs)
+        return cs.aggregate_plain(*inputs)
+
+    cs.aggregate = capture
+    try:
+        cs.consensus_spectra(offsets, mz_h[keep], int_h[keep], promoted, TOL,
+                             mz_min, device=dev)
+    finally:
+        cs.aggregate = aggregate
+    inputs = captured[0]
+    got, again = cs.aggregate(*inputs), cs.aggregate(*inputs)
+    want, t_plain = plain_ms(lambda: cs.aggregate_plain(*inputs))
+    shape = f"{inputs[0].shape[0]} peaks, {got[0].shape[0]} keys"
+    check_bits(B3, shape, got, again, want)
+    ms = kernel_ms(lambda: cs.aggregate(*inputs), reps=10)
+    library = kernel_ms(lambda: aggregate_library(*inputs), reps=10)
+    lib_err = float((aggregate_library(*inputs)[2] - got[2]).abs().max())
+    n_bytes = inputs[0].shape[0] * 16 + got[0].shape[0] * 16
+    times[B3] = dict(ms=ms, plain_ms=t_plain, library_ms=library,
+                     bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+                     bound_by="bytes")
+    parity.err[B3] = 0.0
+    log(f"  {B3} {shape}: wrapper {ms:.4f} ms (stable sort, runs, kernel), "
+        f"bit-identical to the plain version and across two launches; plain "
+        f"version {t_plain:.1f} ms; same sort + index_add_ / scatter_reduce_ "
+        f"{library:.4f} ms (max |m/z sum diff| {lib_err:.3g}); bound "
+        f"{times[B3]['bound_ms']:.5f} ms (bytes)")
+
+
 def read_labels(csv_path: str):
     """spectrum_id -> cluster label from the CLI's CSV."""
     with open(csv_path, newline="") as f:
@@ -1010,20 +1270,19 @@ def largest_interval(rows_by_charge):
 
 
 def phase_main_path(name, spectra, truth, tmp, report, required,
-                    flags=(), min_completeness=0.9):
-    """Phases 3, 4, 6 and 7: the CLI with ``flags``; returns the launch
+                    flags=(), min_completeness=0.9, min_purity=0.99):
+    """Phases 3, 4, 6, 7 and 8: the CLI with ``flags``; returns the launch
     counts of the run and raises if a kernel in ``required`` was never
     launched.  The run's labels by spectrum id go to
     ``report["labels"][name]`` (left out of the JSON report)."""
-    kernels = wrappers()
-    for module, attr in kernels.values():
-        getattr(module, attr).launches = 0
+    for attrs in wrappers().values():
+        for module, attr in attrs:
+            getattr(module, attr).launches = 0
     seconds, summary, purity, completeness, labels = run_cli(
         name, spectra, truth, tmp, flags)
     n = len(labels)
     report.setdefault("labels", {})[name] = labels
-    launches = {k: getattr(module, attr).launches
-                for k, (module, attr) in kernels.items()}
+    launches = launch_counts()
     log(f"  {n} spectra clustered in {seconds:.2f} s "
         f"({n / seconds:.0f} spectra/s, ingest included)")
     log(f"  launches: {launches}")
@@ -1040,9 +1299,9 @@ def phase_main_path(name, spectra, truth, tmp, report, required,
     # Both backends recover these generators' clusters almost perfectly
     # (the JAX package: purity 1.00, completeness 0.93 on the bench
     # corpus); far lower values mean wrong distances.
-    if purity < 0.99 or completeness < min_completeness:
+    if purity < min_purity or completeness < min_completeness:
         raise AssertionError(f"{name}: purity {purity:.4f}, completeness "
-                             f"{completeness:.4f} below 0.99 / "
+                             f"{completeness:.4f} below {min_purity} / "
                              f"{min_completeness}")
     return launches
 
@@ -1078,7 +1337,7 @@ def phase_whole_path_ann(dev, rows, tmp, report):
     compare_kernels_with_plain(
         "whole path, ann exact index", report, dev, [K2, K4, PL],
         lambda: ann_engine.generate_clusters(
-            dataset, 0.1, 0, 20.0, "ppm", None, TOL, 2**15,
+            dataset, 0.1, 2, 0, 20.0, "ppm", None, TOL, 2**15,
             ann_index="exact", device=dev),
         len(rows))
 
@@ -1098,8 +1357,55 @@ def phase_whole_path_default(dev, rows, tmp, report):
     compare_kernels_with_plain(
         "whole path, ann default index", report, dev, [VEC, PL, K4],
         lambda: ann_engine.generate_clusters(
-            dataset, EPS, 0, 20.0, "ppm", None, TOL, 2**15, device=dev),
+            dataset, EPS, 2, 0, 20.0, "ppm", None, TOL, 2**15, device=dev),
         len(rows))
+
+
+def phase_whole_path_new(dev, rows, tmp, report):
+    """Phase 5, continued: dbscan mode (default and exact index),
+    ``--rerank off`` (linkage and dbscan) and the consensus spectra of the
+    default path's clusters on one block, through the kernels and through
+    the plain versions, on the card."""
+    from falcon_tpu_torch.cluster import ann_engine
+    from falcon_tpu_torch.ops import consensus as cs
+    from falcon_tpu_torch.preprocess import get_dim
+    from falcon_tpu_torch.store.store import SpectrumStore
+
+    store = SpectrumStore(os.path.join(tmp, "whole_path_new"))
+    writer = store.writer()
+    writer.add_many(rows)
+    writer.close()
+    dataset = store.dataset(2)
+
+    def cluster(**kw):
+        return ann_engine.generate_clusters(
+            dataset, EPS, 2, 0, 20.0, "ppm", None, TOL, 2**15, device=dev,
+            **kw)
+
+    for name, kw, required in (
+            ("dbscan mode", dict(cluster_method="dbscan"), [VEC, PL, B1]),
+            ("dbscan mode, exact index",
+             dict(cluster_method="dbscan", ann_index="exact"), [K2, B1]),
+            ("rerank off, linkage", dict(rerank="off"), [VEC]),
+            ("rerank off, dbscan mode",
+             dict(rerank="off", cluster_method="dbscan"), [VEC, B2])):
+        compare_kernels_with_plain(f"whole path, {name}", report, dev,
+                                   required, lambda kw=kw: cluster(**kw),
+                                   len(rows))
+
+    _, mz_min, _ = get_dim(101.0, 1500.0, TOL)
+    offsets, mz_flat, int_flat = dataset.read_peaks()
+
+    def consensus():
+        labels, _ = cluster()
+        cons = cs.consensus_spectra(offsets, mz_flat, int_flat, labels, TOL,
+                                    mz_min, device=dev)
+        packed = np.concatenate([np.concatenate(cons[k]) for k in
+                                 sorted(cons)]).view(np.int32)
+        return labels, packed
+
+    compare_kernels_with_plain("whole path, consensus spectra", report, dev,
+                               [VEC, PL, B3], consensus, len(rows))
 
 
 def phase_default_ann(name, spectra, truth, tmp, report, required,
@@ -1109,18 +1415,26 @@ def phase_default_ann(name, spectra, truth, tmp, report, required,
                            ANN_DEFAULT + ["--overwrite"], min_completeness)
 
 
-def check_repeatable(name, spectra, truth, tmp):
-    """Phase 7, continued: the CLI run ``name`` again with the same flags,
-    work_dir and output; raise unless its CSV has the same bytes."""
-    path = os.path.join(tmp, f"{name}_out.csv")
-    with open(path, "rb") as f:
-        first = f.read()
-    run_cli(name, spectra, truth, tmp, ANN_DEFAULT + ["--overwrite"])
-    with open(path, "rb") as f:
-        second = f.read()
-    if first != second:
-        raise AssertionError(f"{name}: a second run wrote other CSV bytes")
-    log(f"  {name}: a second run wrote the same {len(first)} CSV bytes")
+def check_repeatable(name, spectra, truth, tmp,
+                     flags=tuple(ANN_DEFAULT + ["--overwrite"])):
+    """Phases 7 and 8, continued: the CLI run ``name`` again with the same
+    flags, work_dir and output; raise unless its CSV (and MGF, where it
+    wrote one) has the same bytes."""
+    paths = [os.path.join(tmp, f"{name}_out{ext}") for ext in (".csv",
+                                                                ".mgf")]
+    paths = [p for p in paths if os.path.isfile(p)]
+    first = []
+    for path in paths:
+        with open(path, "rb") as f:
+            first.append(f.read())
+    run_cli(name, spectra, truth, tmp, flags)
+    for path, data in zip(paths, first):
+        with open(path, "rb") as f:
+            if f.read() != data:
+                raise AssertionError(f"{name}: a second run wrote other "
+                                     f"bytes to {os.path.basename(path)}")
+    log(f"  {name}: a second run wrote the same bytes: " + ", ".join(
+        f"{os.path.basename(p)} {len(d)}" for p, d in zip(paths, first)))
 
 
 def pair_f1(report, name_a, name_b):
@@ -1139,25 +1453,25 @@ def compare_kernels_with_plain(name, report, dev, required, run, n):
     and each kernel in ``required`` was launched."""
     import torch
 
-    kernels = wrappers()
-    before = {k: getattr(m, a).launches for k, (m, a) in kernels.items()}
+    pairs = [pair for attrs in wrappers().values() for pair in attrs]
+    before = launch_counts()
     t0 = time.perf_counter()
     labels, medoids = run()
     t_kernel = time.perf_counter() - t0
+    after = launch_counts()
     for k in required:
-        module, attr = kernels[k]
-        if getattr(module, attr).launches == before[k]:
+        if after[k] == before[k]:
             raise AssertionError(f"{name}: {k} was not launched")
-    saved = {k: getattr(m, a) for k, (m, a) in kernels.items()}
-    for k, (module, attr) in kernels.items():
+    saved = [getattr(m, a) for m, a in pairs]
+    for module, attr in pairs:
         setattr(module, attr, getattr(module, f"{attr}_plain"))
     try:
         t0 = time.perf_counter()
         ref_labels, ref_medoids = run()
         t_plain = time.perf_counter() - t0
     finally:
-        for k, (module, attr) in kernels.items():
-            setattr(module, attr, saved[k])
+        for (module, attr), wrapper in zip(pairs, saved):
+            setattr(module, attr, wrapper)
     torch.cuda.synchronize()
     same = (np.array_equal(labels, ref_labels)
             and np.array_equal(medoids, ref_medoids))
@@ -1169,6 +1483,62 @@ def compare_kernels_with_plain(name, report, dev, required, run, n):
     if not same:
         raise AssertionError(f"{name}: kernels and plain versions disagree "
                              "on labels or medoids")
+
+
+def phase_new_paths(bench_spectra, bench_truth, dense_spectra, dense_truth,
+                    chains, chain_truth, tmp, report):
+    """Phase 8: dbscan mode on the three corpora, --rerank off (linkage
+    and dbscan) and the consensus export on the bench corpus, at full
+    width; returns each run's launch counts.  Purity and completeness are
+    printed; only far-off values (wrong distances) fail, since the JAX
+    package records no reference for these modes on these corpora."""
+    log("== phase 8: main path, dbscan mode, --rerank off, consensus")
+    launches = []
+    # Spectra/s without representatives, as bench.py times dbscan mode;
+    # then the bench corpus again with the medoid MGF, twice.
+    for name, spectra, truth in (
+            ("dbscan_bench_corpus", bench_spectra, bench_truth),
+            ("dbscan_dense_corpus", dense_spectra, dense_truth),
+            ("dbscan_chained_corpus", chains, chain_truth)):
+        log(f"  {name}")
+        launches.append(phase_main_path(
+            name, spectra, truth, tmp, report, [VEC, PL, B1],
+            DBSCAN + ["--overwrite"], min_completeness=0.0, min_purity=0.5))
+    dbscan_flags = DBSCAN + ["--export_representatives", "--overwrite"]
+    log("  dbscan_bench_corpus_mgf (medoid MGF export)")
+    launches.append(phase_main_path(
+        "dbscan_bench_corpus_mgf", bench_spectra, bench_truth, tmp, report,
+        [VEC, PL, B1], dbscan_flags, min_completeness=0.0, min_purity=0.5))
+    check_repeatable("dbscan_bench_corpus_mgf", bench_spectra, bench_truth,
+                     tmp, dbscan_flags)
+    log("  exact backend, single linkage (the reference of dbscan mode's "
+        "pair-F1)")
+    launches.append(phase_main_path(
+        "exact_single_bench_corpus", bench_spectra, bench_truth, tmp, report,
+        [K4], ["--linkage", "single", "--overwrite"], min_completeness=0.0,
+        min_purity=0.5))
+    agreement = pair_f1(report, "dbscan_bench_corpus",
+                        "exact_single_bench_corpus")
+    report["dbscan_vs_single_linkage_bench"] = agreement
+    log(f"  dbscan mode against --backend exact --linkage single: pair F1 "
+        f"{agreement['f1']:.6f} (precision {agreement['precision']:.6f}, "
+        f"recall {agreement['recall']:.6f}; recorded, not asserted)")
+    for name, flags, required in (
+            ("rerank_off_bench_corpus", RERANK_OFF, [VEC, K4]),
+            ("rerank_off_dbscan_bench_corpus", RERANK_OFF
+             + ["--cluster_method", "dbscan"], [VEC, B2])):
+        log(f"  {name}")
+        launches.append(phase_main_path(
+            name, bench_spectra, bench_truth, tmp, report, required,
+            flags + ["--overwrite"], min_completeness=0.0, min_purity=0.5))
+    consensus_flags = ANN_DEFAULT + CONSENSUS + ["--overwrite"]
+    log("  consensus_bench_corpus")
+    launches.append(phase_main_path(
+        "consensus_bench_corpus", bench_spectra, bench_truth, tmp, report,
+        [VEC, PL, K4, B3], consensus_flags, min_completeness=0.0))
+    check_repeatable("consensus_bench_corpus", bench_spectra, bench_truth,
+                     tmp, consensus_flags)
+    return launches
 
 
 def main() -> int:
@@ -1251,6 +1621,7 @@ def main() -> int:
         small = [r for r in bench_rows if r["precursor_charge"] == 2][:1500]
         phase_whole_path_ann(dev, small + chain_rows, tmp, report)
         phase_whole_path_default(dev, small + chain_rows, tmp, report)
+        phase_whole_path_new(dev, small + chain_rows, tmp, report)
         log("== phase 6: main path, --backend ann --ann_index exact")
         log("  bench-shaped corpus")
         launches.append(phase_main_path(
@@ -1288,6 +1659,9 @@ def main() -> int:
         launches.append(phase_default_ann(
             "default_ann_chained_corpus", chains, chain_truth, tmp, report,
             [VEC, PL], min_completeness=0.0))
+        launches.extend(phase_new_paths(
+            bench_spectra, bench_truth, dense_spectra, dense_truth, chains,
+            chain_truth, tmp, report))
     report.pop("labels")
 
     kernels = [
@@ -1298,7 +1672,7 @@ def main() -> int:
          "plain_ms": times[k]["plain_ms"], "bound_ms": times[k]["bound_ms"],
          "bound_by": times[k]["bound_by"],
          "library_ms": times[k].get("library_ms")}
-        for k in (K1, K2, K4, PL, VEC)
+        for k in KERNELS
     ]
     report["kernels"] = kernels
     if args.report:

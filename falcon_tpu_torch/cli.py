@@ -3,17 +3,18 @@
 Port of ``falcon_tpu/cli.py`` with the same parser (``config.py``, a copy
 of the JAX package's), logging, work-dir lifecycle, overwrite gate,
 ingest resume, per-charge clustering with globally disjoint labels, CSV and
-medoid-MGF export and run manifest, so that its CSV equals the JAX
-package's byte for byte apart from the ``# work_dir`` line.  Clustering
-runs on the device named by ``FALCON_TPU_TORCH_DEVICE`` (default
-``cuda``): the exact backend's engine (``cluster/engine.py``), or with
-``--backend ann`` the ann engine (``cluster/ann_engine.py``; ``--ann_index
-auto``, ``brute`` or ``exact``), whose charges run two at a time when each
-fits one device block, as in the JAX package.
+representative-MGF export (medoids, or consensus spectra built by
+``ops/consensus.py``) and run manifest, so that its CSV equals the JAX
+package's byte for byte apart from the ``# work_dir`` line, and its MGF
+byte for byte.  Clustering runs on the device named by
+``FALCON_TPU_TORCH_DEVICE`` (default ``cuda``): the exact backend's engine
+(``cluster/engine.py``), or with ``--backend ann`` the ann engine
+(``cluster/ann_engine.py``; ``--ann_index auto``, ``brute`` or ``exact``,
+``--rerank exact`` or ``off``, ``--cluster_method linkage`` or
+``dbscan``), whose charges run two at a time when each fits one device
+block, as in the JAX package.
 
-Not ported yet, and refused with exit code 1: ``--ann_index ivf``,
-``--rerank off`` with ``--ann_index auto|brute``, ``--cluster_method
-dbscan`` and ``--representative_method consensus``.
+Not ported yet, and refused with exit code 1: ``--ann_index ivf``.
 """
 
 import logging
@@ -60,20 +61,6 @@ def _not_ported() -> Union[str, None]:
         return ("--backend ann with --ann_index ivf is not yet ported to "
                 "falcon_tpu_torch; use --ann_index auto, brute or exact, or "
                 "the JAX package (python -m falcon_tpu)")
-    if (config.backend == "ann" and config.ann_index != "exact"
-            and config.rerank != "exact"):
-        return (f"--rerank {config.rerank} with --ann_index "
-                f"{config.ann_index} is not yet ported to falcon_tpu_torch; "
-                "use --rerank exact, --ann_index exact, or the JAX package "
-                "(python -m falcon_tpu)")
-    if config.backend == "ann" and config.cluster_method != "linkage":
-        return (f"--cluster_method {config.cluster_method} is not yet "
-                "ported to falcon_tpu_torch; use linkage, or the JAX "
-                "package (python -m falcon_tpu)")
-    if config.representative_method == "consensus":
-        return ("--representative_method consensus is not yet ported to "
-                "falcon_tpu_torch; use medoid, or the JAX package "
-                "(python -m falcon_tpu)")
     return None
 
 
@@ -279,13 +266,22 @@ def _run(args: Union[str, List[str], None], cleanup: list,
                         devices=config.devices,
                         device=device,
                     )
+            if (config.export_representatives
+                    and config.representative_method == "consensus"):
+                meta = dataset.read_metadata(
+                    columns=("precursor_mz", "retention_time"))
+                representatives.extend(_consensus_representatives(
+                    dataset, meta, clusters, charge, current_label, mz_min,
+                    device))
+                del meta
             # Globally disjoint labels across charges.
             clusters = clusters + current_label
             current_label = int(np.amax(clusters)) + 1
             total_rows += len(clusters)
             total_clusters += len(np.unique(clusters))
             labels_by_charge.append((dataset, clusters.astype(np.int64)))
-            if config.export_representatives:
+            if (config.export_representatives
+                    and config.representative_method == "medoid"):
                 representatives.extend(dataset.take(medoids))
     finally:
         if charge_pool is not None:
@@ -384,6 +380,7 @@ def _generate_for_charge(dataset, mz_min: float, mz_max: float, device):
     return ann_engine.generate_clusters(
         dataset,
         eps=config.eps,
+        min_samples=config.min_samples,
         min_matches=config.min_matched_peaks,
         precursor_tol_mass=config.precursor_tol[0],
         precursor_tol_mode=config.precursor_tol[1],
@@ -404,6 +401,52 @@ def _generate_for_charge(dataset, mz_min: float, mz_max: float, device):
         linkage=config.linkage,
         device=device,
     )
+
+
+def _consensus_representatives(
+    dataset, meta, labels: np.ndarray, charge, label_offset: int,
+    mz_min: float, device=None,
+) -> List[dict]:
+    """Consensus representative rows for one charge bucket.
+
+    Builds one merged spectrum per cluster on ``device``
+    (``ops/consensus.py``); cluster metadata (precursor m/z, retention
+    time) is the member mean, and the identifier records the global
+    cluster label.  A copy of the JAX package's function.
+    """
+    from .ops.consensus import consensus_spectra
+
+    offsets, mz_flat, int_flat = dataset.read_peaks()
+    cons = consensus_spectra(
+        offsets, mz_flat, int_flat, labels,
+        config.fragment_tol, mz_min,
+        min_fraction=config.consensus_min_fraction,
+        max_peaks=config.max_peaks_used,
+        device=device,
+    )
+    pmz = np.asarray(meta["precursor_mz"], np.float64)
+    rt = np.asarray(meta["retention_time"], np.float64)
+    # Per-cluster member means in one pass over the labels.
+    clustered = labels >= 0
+    member_labels = labels[clustered]
+    counts = np.bincount(member_labels).astype(np.float64)
+    pmz_mean = np.bincount(member_labels, weights=pmz[clustered]) / counts
+    rt_mean = np.bincount(member_labels, weights=rt[clustered]) / counts
+    rows = []
+    for label in sorted(cons):
+        mz, intensity = cons[label]
+        rows.append(
+            {
+                "identifier": f"consensus_cluster{label_offset + label}",
+                "precursor_mz": float(pmz_mean[label]),
+                "precursor_charge": charge,
+                "retention_time": float(rt_mean[label]),
+                "mz": mz,
+                "intensity": intensity,
+                "filename": "",
+            }
+        )
+    return rows
 
 
 def _rep_spectra(representatives: List[dict]) -> List:

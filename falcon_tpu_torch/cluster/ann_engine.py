@@ -1,31 +1,38 @@
 """Per-charge clustering with the ann backend, on PyTorch.
 
-Port of ``falcon_tpu/cluster/ann_engine.py`` for ``--backend ann`` with
-``--cluster_method linkage``, the same labels and medoids:
+Port of ``falcon_tpu/cluster/ann_engine.py`` for ``--backend ann``, the
+same labels and medoids:
 
 1. sort the bucket by precursor m/z and split it into device blocks of at
    most ``device_block_cap()`` spectra on tolerance gaps (logging every
    forced cut), clustered one after the other and merged in block order;
 2. per block: pad and upload the peaks (``ops/xfer.py``) and find each
-   row's neighbours in its precursor band, with scores that are exact
-   peak-matching cosines:
+   row's neighbours in its precursor band:
 
    - ``--ann_index exact``: the exact top-k over the whole band
-     (``ops/exact_knn.py``, kernel K2);
+     (``ops/exact_knn.py``, kernel K2), exact peak-matching cosines;
    - ``--ann_index auto`` or ``brute`` with ``--rerank exact`` (the
-     default): hash plain and tolerance-spread vectors
+     default): hash plain and tolerance-spread vectors in one pass
      (``ops/vectorize.py``), scan the band for the largest upper bounds
      ``spread_i . plain_j`` in bfloat16 (``ops/knn.py``), keep the
      candidates whose bound can reach ``1 - eps`` and score them exactly
      (``ops/rerank.py``, the pair-list kernel);
+   - ``--ann_index auto`` or ``brute`` with ``--rerank off``: the exact
+     top ``n_neighbors`` of the cosines of L2-normalised hashed vectors, in
+     full float32; eps is thresholded on those cosines;
 
-   then the eps-connected components (``ops/density.py`` with
-   ``min_samples = 1``);
-3. per component, as one exact-engine interval: condensed exact distances
-   (K4 for components of up to ``LINKAGE_GROUP_MAX`` spectra; larger ones
-   through the pruned pair lists under complete or single linkage, or K1),
-   then the native linkage, the cut at eps, the precursor / RT
-   refinement and the medoids.
+   then DBSCAN on the lists (``ops/density.py``): with ``min_samples = 1``
+   under ``--cluster_method linkage`` (the eps-connected components),
+   with ``min_samples`` under ``--cluster_method dbscan``;
+3. ``--cluster_method linkage``: per component, as one exact-engine
+   interval, condensed exact distances (K4 for components of up to
+   ``LINKAGE_GROUP_MAX`` spectra; larger ones through the pruned pair
+   lists under complete or single linkage, or K1), then the native
+   linkage, the cut at eps, the precursor / RT refinement and the medoids;
+   ``--cluster_method dbscan``: the precursor / RT refinement of the
+   DBSCAN clusters (``_refine_and_medoids``), and medoids from the sparse
+   exact lists or, under ``--rerank off``, from the hashed vectors
+   (``ops/medoids.py``).
 
 **One wide scan instead of the JAX package's retrieval passes.** The JAX
 package scans for ``k_ann`` candidates per row with ``approx_max_k`` and a
@@ -51,8 +58,7 @@ the JAX package's total coverage, ``k_ann * widen_passes`` (at most
 ``tests/test_torch_ann.py`` holds this against the JAX package in both of
 its modes (certified, and forced exact multi-pass).  The exact index does
 not hash: the JAX package's chain hashes every block into vectors that
-index never reads.  ``--ann_index ivf``, ``--rerank off`` with a hashed
-index and ``--cluster_method dbscan`` are not ported yet and raise
+index never reads.  ``--ann_index ivf`` is not ported yet and raises
 ``NotImplementedError``.
 """
 
@@ -65,13 +71,14 @@ import torch
 
 from .. import native
 from ..device import resolve_device, synchronize
+from ..ops import medoids as medoid_ops
 from ..ops import pairwise
 from ..ops.density import dbscan
 from ..ops.exact_knn import exact_banded_topk
 from ..ops.knn import _pow2_at_least, knn_banded
 from ..ops.matching import f32_tolerance
 from ..ops.rerank import rerank_exact
-from ..ops.vectorize import SpectrumHasher
+from ..ops.vectorize import SpectrumHasher, normalize_rows
 from ..ops.xfer import upload_padded_peaks
 from ..store.store import ChargeDataset, padded_peaks
 from ..utils.profiling import profiler
@@ -137,6 +144,7 @@ def _block_splits(mz_sorted: np.ndarray, tol_mass: float, tol_mode: str,
 def generate_clusters(
     dataset: ChargeDataset,
     eps: float,
+    min_samples: int,
     min_matches: int,
     precursor_tol_mass: float,
     precursor_tol_mode: str,
@@ -161,22 +169,22 @@ def generate_clusters(
 
     The contract of ``falcon_tpu.cluster.ann_engine.generate_clusters``:
     every spectrum labelled, noise as singletons, one medoid per cluster
-    plus each noise point.  ``low_dim`` and ``hash_seed`` shape the
-    hashed vectors (the scan's and the pruned linkage bound's);
+    plus each noise point.  ``min_samples`` is DBSCAN's core threshold
+    under ``cluster_method="dbscan"`` (linkage mode ignores it, as the
+    JAX package does).  ``low_dim`` and ``hash_seed`` shape the
+    hashed vectors (the scan's, the pruned linkage bound's and, under
+    ``rerank="off"``, the scan's cosines and the medoids');
     ``n_neighbors_ann`` is the scan's retrieval width before widening;
     ``device``: see ``falcon_tpu_torch.device.resolve_device``.
     """
     if ann_index not in ("auto", "brute", "exact"):
         raise NotImplementedError(
             f"--ann_index {ann_index} is not yet ported to falcon_tpu_torch")
-    if ann_index != "exact" and rerank != "exact":
-        raise NotImplementedError(
-            f"--rerank {rerank} with --ann_index {ann_index} is not yet "
-            "ported to falcon_tpu_torch")
-    if cluster_method != "linkage":
-        raise NotImplementedError(
-            f"--cluster_method {cluster_method} is not yet ported to "
-            "falcon_tpu_torch")
+    if rerank not in ("exact", "off"):
+        raise ValueError(f"rerank must be 'exact' or 'off', got {rerank!r}")
+    if cluster_method not in ("linkage", "dbscan"):
+        raise ValueError(f"cluster_method must be 'linkage' or 'dbscan', "
+                         f"got {cluster_method!r}")
     dev = resolve_device(device)
     if devices is not None and devices > 1:
         visible = torch.cuda.device_count() if dev.type == "cuda" else 1
@@ -196,8 +204,8 @@ def generate_clusters(
     rt_sorted = rts[order]
     logger.info(
         "Cluster %d spectra with the ANN engine (%s index, eps=%.3f, "
-        "low_dim=%d, n_neighbors=%d)", n, ann_index, eps, low_dim,
-        n_neighbors)
+        "min_samples=%d, low_dim=%d, n_neighbors=%d)", n, ann_index, eps,
+        min_samples, low_dim, n_neighbors)
     if n == 1:
         return np.zeros(1, np.int32), np.zeros(1, np.int64)
 
@@ -217,10 +225,10 @@ def generate_clusters(
             continue
         final_b, med_b = _cluster_range(
             offsets, mz_flat, int_flat, order[b0:b1], mz_sorted[b0:b1],
-            rt_sorted[b0:b1], hasher, pad_to, eps, min_matches,
+            rt_sorted[b0:b1], hasher, pad_to, eps, min_samples, min_matches,
             precursor_tol_mass, precursor_tol_mode, rt_tol, fragment_tol,
-            n_neighbors, n_neighbors_ann, ann_index == "exact", linkage,
-            batch_size, dev)
+            n_neighbors, n_neighbors_ann, ann_index == "exact", rerank,
+            cluster_method, linkage, batch_size, dev)
         mask = final_b >= 0
         final_b = final_b.astype(np.int32)
         final_b[mask] += current
@@ -243,21 +251,27 @@ def generate_clusters(
 
 
 def _cluster_range(offsets, mz_flat, int_flat, order, mz_sorted, rt_sorted,
-                   hasher, pad_to, eps, min_matches, precursor_tol_mass,
-                   precursor_tol_mode, rt_tol, fragment_tol, n_neighbors,
-                   n_neighbors_ann, exact_index, linkage, batch_size, dev):
+                   hasher, pad_to, eps, min_samples, min_matches,
+                   precursor_tol_mass, precursor_tol_mode, rt_tol,
+                   fragment_tol, n_neighbors, n_neighbors_ann, exact_index,
+                   rerank, cluster_method, linkage, batch_size, dev):
     """Cluster one device block (a sorted precursor-m/z range).
 
     Returns (labels in sorted-range order, -1 = noise, numbered from 0;
     medoid dataset-row ids, noise singletons first)."""
     n = len(order)
-    # min_samples = 1 makes every point core, so DBSCAN reduces to the
-    # components of the eps-graph; linkage inside them does the rest.
+    # Linkage mode: min_samples = 1 makes every point core, so DBSCAN
+    # reduces to the components of the eps-graph; linkage inside them does
+    # the rest.
+    if cluster_method == "linkage":
+        min_samples = 1
     k_final = min(n_neighbors, max(n - 1, 1))
+    do_rerank = rerank == "exact" and not exact_index
     with profiler.phase("ann: upload"):
         mz_pad, int_pad = upload_padded_peaks(
             offsets, mz_flat, int_flat, order, pad_to,
             _pow2_at_least(n, 512), dev)
+    unit = None
     if exact_index:
         with profiler.phase("ann: knn"):
             sims, neigh = exact_banded_topk(
@@ -266,19 +280,57 @@ def _cluster_range(offsets, mz_flat, int_flat, order, mz_sorted, rt_sorted,
                 rts=rt_sorted if rt_tol is not None else None,
                 rt_tol=rt_tol, min_matches=min_matches)
             synchronize(dev)
-    else:
+    elif do_rerank:
         sims, neigh = _prefilter_rerank(
             mz_pad, int_pad, mz_sorted, rt_sorted, hasher, eps, min_matches,
             precursor_tol_mass, precursor_tol_mode, rt_tol, fragment_tol,
             k_final, n_neighbors_ann, dev)
+    else:
+        # --rerank off: the exact top k_final of the hashed cosines, in
+        # full float32 (eps is thresholded on them; TF32 is refused), of
+        # vectors normalised in the JAX package's order.
+        with profiler.phase("ann: vectorize"):
+            unit = normalize_rows(hasher.vectorize(mz_pad, int_pad,
+                                                   norm=False))
+            synchronize(dev)
+        with profiler.phase("ann: knn"):
+            sims, neigh = knn_banded(
+                unit, mz_sorted, precursor_tol_mass, precursor_tol_mode,
+                k_final, rts=rt_sorted, rt_tol=rt_tol)
+            synchronize(dev)
     del mz_pad, int_pad
     with profiler.phase("ann: dbscan"):
-        comp = dbscan(sims, neigh, eps, n, 1)
-    del sims, neigh
-    return _linkage_refine_and_medoids(
-        comp, order, mz_sorted, rt_sorted, n, offsets, mz_flat, int_flat,
-        pad_to, linkage, eps, min_matches, fragment_tol, precursor_tol_mass,
-        precursor_tol_mode, rt_tol, batch_size, hasher, dev)
+        labels = dbscan(sims, neigh, eps, n, min_samples)
+    if cluster_method == "linkage":
+        del sims, neigh, unit
+        return _linkage_refine_and_medoids(
+            labels, order, mz_sorted, rt_sorted, n, offsets, mz_flat,
+            int_flat, pad_to, linkage, eps, min_matches, fragment_tol,
+            precursor_tol_mass, precursor_tol_mode, rt_tol, batch_size,
+            hasher, dev)
+
+    def medoid_scores(seg, n_seg):
+        """Scores of the rows (numpy, (n,)); ``seg`` puts noise in the
+        spill segment ``n_seg - 1``."""
+        if unit is None:
+            # The lists hold exact similarities: medoids from the same
+            # distances the clustering ran on.
+            seg_pad = np.full(sims.shape[0], n_seg - 1, np.int32)
+            seg_pad[:n] = seg
+            scores = medoid_ops.sparse_medoid_scores(
+                sims.contiguous(), neigh.contiguous(),
+                torch.from_numpy(seg_pad).to(dev), n_seg - 1)
+        else:
+            # --rerank off clustered on the hashed cosines: medoids from
+            # the same vectors.
+            scores = medoid_ops.hashed_medoid_scores(
+                unit, torch.from_numpy(seg.astype(np.int32)).to(dev),
+                n_seg - 1)
+        return scores[:n].cpu().numpy()
+
+    return _refine_and_medoids(labels, order, mz_sorted, rt_sorted, n,
+                               precursor_tol_mass, precursor_tol_mode,
+                               rt_tol, min_samples, medoid_scores)
 
 
 def scan_width(mz_sorted: np.ndarray, tol_mass: float, tol_mode: str,
@@ -353,8 +405,7 @@ def _prefilter_rerank(mz_pad, int_pad, mz_sorted, rt_sorted, hasher, eps,
     k_scan = scan_width(mz_sorted, precursor_tol_mass, precursor_tol_mode,
                         k_final, n_neighbors_ann)
     with profiler.phase("ann: vectorize"):
-        plain = hasher.vectorize(mz_pad, int_pad, norm=False)
-        spread = hasher.vectorize(mz_pad, int_pad, norm=False, spread=True)
+        plain, spread = hasher.vectorize_pair(mz_pad, int_pad)
         synchronize(dev)
     with profiler.phase("ann: knn"):
         # spread_i . plain_j with unnormalised vectors bounds the exact
@@ -511,4 +562,94 @@ def _linkage_refine_and_medoids(
             current += n_cl
             med_parts.append(med)
         medoids = np.concatenate(med_parts)
+    return final, medoids
+
+
+def _refine_and_medoids(labels, order, mz_sorted, rt_sorted, n,
+                        precursor_tol_mass, precursor_tol_mode, rt_tol,
+                        min_samples, medoid_scores_fn):
+    """DBSCAN mode's tail: host refinement, medoid selection.
+
+    A copy of the JAX engine's ``_refine_and_medoids`` (whose module
+    imports JAX), without its stage timer: the precursor m/z / RT
+    refinement of each cluster (clusters inside the span are kept whole or
+    demoted below ``max(min_samples, 2)`` members), then per cluster the
+    first row with the largest ``medoid_scores_fn(seg, n_seg + 1)`` score,
+    noise in the spill segment ``n_seg``."""
+    with profiler.phase("ann: refine"):
+        # 4. Refinement: precursor m/z / RT splitting per cluster,
+        # identical semantics to the exact engine.
+        order2 = np.argsort(labels, kind="stable")
+        sorted_labels = labels[order2].astype(np.int32)
+        mzs_interval = mz_sorted[order2]
+        rts_interval = rt_sorted[order2]
+        current_label = 0
+        slices = list(cluster_group_slices(sorted_labels))
+        # Vectorized no-split fast path: a cluster whose precursor m/z
+        # span (and RT span) is within tolerance cannot be split by the
+        # 1-D complete-linkage cut (its root merge distance IS the span),
+        # so the expensive per-cluster machinery only runs on the rare
+        # out-of-span clusters.  min_samples demotion semantics preserved.
+        starts = np.asarray([s for s, _ in slices], np.int64)
+        mz_min_ = np.minimum.reduceat(mzs_interval, starts)
+        mz_max_ = np.maximum.reduceat(mzs_interval, starts)
+        if precursor_tol_mode == "ppm":
+            mz_ok = (mz_max_ - mz_min_) / np.maximum(mz_min_, 1e-12) \
+                * 1e6 <= precursor_tol_mass
+        else:
+            mz_ok = (mz_max_ - mz_min_) <= precursor_tol_mass
+        if rt_tol is not None:
+            rt_min_ = np.minimum.reduceat(rts_interval, starts)
+            rt_max_ = np.maximum.reduceat(rts_interval, starts)
+            mz_ok &= (rt_max_ - rt_min_) <= rt_tol
+        min_samples_eff = max(min_samples, 2)
+        for k_i, (start_i, stop_i) in enumerate(slices):
+            if sorted_labels[start_i] == -1:
+                continue
+            if mz_ok[k_i]:
+                if stop_i - start_i < min_samples_eff:
+                    sorted_labels[start_i:stop_i] = -1
+                else:
+                    sorted_labels[start_i:stop_i] = current_label
+                    current_label += 1
+                continue
+            n_clusters = postprocess_cluster(
+                sorted_labels[start_i:stop_i],
+                mzs_interval[start_i:stop_i],
+                rts_interval[start_i:stop_i],
+                precursor_tol_mass, precursor_tol_mode, rt_tol,
+                min_samples_eff, current_label,
+            )
+            current_label += n_clusters
+
+        final = np.full(n, -1, np.int32)
+        final[order2] = sorted_labels
+
+    with profiler.phase("ann: medoids"):
+        # 5. Medoids: per cluster, the first row with the largest score.
+        order3 = np.argsort(final, kind="stable")
+        sorted_final = final[order3]
+        n_seg = int(final.max()) + 1 if final.max() >= 0 else 1
+        # Noise points go to a dedicated spill segment (n_seg) so they
+        # never pollute a real cluster's sum.
+        seg = np.where(final >= 0, final, n_seg).astype(np.int32)
+        scores = medoid_scores_fn(seg, n_seg + 1)
+        # Vectorized per-cluster argmax (first-max-by-row tie-breaking):
+        # noise singletons represent themselves and come first, mirroring
+        # cluster_group_slices iteration order.
+        noise_rows = order3[sorted_final == -1]
+        pos_rows = order3[sorted_final >= 0]
+        if len(pos_rows):
+            lab = final[pos_rows]
+            lex = np.lexsort((-pos_rows, scores[pos_rows], lab))
+            sorted_lab = lab[lex]
+            ends = np.flatnonzero(
+                np.diff(sorted_lab, append=sorted_lab[-1] + 1)
+            )
+            best = pos_rows[lex][ends]
+        else:
+            best = np.zeros(0, np.int64)
+        # Convert positions in the sorted order back to dataset row
+        # indices.
+        medoids = order[np.concatenate([noise_rows, best]).astype(np.int64)]
     return final, medoids

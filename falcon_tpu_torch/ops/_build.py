@@ -48,9 +48,19 @@ _SIGNATURES = {
     # matches, stream
     "falcon_pair_list_scores": [_p, _p, _i, _p, _p, _p, _i, _f, _i, _p,
                                 _p, _p],
-    # mz, intensity, n, mapping, n_bins, min_bound, bin_size, dim, spread,
-    # norm, out, stream
-    "falcon_vectorize": [_p, _p, _i, _p, _i, _f, _f, _i, _i, _i, _p, _p],
+    # mz, intensity, n, mapping, n_bins, min_bound, inv_bin, dim, norm,
+    # out_plain, out_spread, stream
+    "falcon_vectorize": [_p, _p, _i, _p, _i, _f, _f, _i, _i, _p, _p, _p],
+    # sims, neigh, seg, n_pad, k, spill, w, tgt, rowsum, stream
+    "falcon_medoid_weights": [_p, _p, _p, _i, _i, _i, _p, _p, _p, _p],
+    # w, perm, off, rowsum, n_pad, k, chunk, out, stream
+    "falcon_medoid_sums": [_p, _p, _p, _p, _i, _i, _i, _p, _p],
+    # v, dim, rows, off, n_seg, out, stream
+    "falcon_hashed_medoid_scores": [_p, _i, _p, _p, _i, _p, _p],
+    # key, member, mz, intensity, off, n_keys, keys_out, int_sum,
+    # mzint_sum, members, stream
+    "falcon_consensus_segments": [_p, _p, _p, _p, _p, _i, _p, _p, _p, _p,
+                                  _p],
 }
 
 

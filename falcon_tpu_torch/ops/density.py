@@ -7,11 +7,14 @@ eps-graph; a border point joins its most similar core neighbour (the first
 on a tie); components of fewer than two members become noise.
 
 Components come from min-label propagation on the device, as in the JAX
-package: gather the neighbours' labels for out-edges, ``scatter_reduce_``
-with ``amin`` for in-edges (so the one-sided top-k lists act as an
-undirected graph), then two pointer jumps, until nothing changes or
-``n_pad`` rounds have run.  The JAX package runs this as XLA; every step
-here is a plain torch op.  Only the compact per-row parts come to the
+package: gather the neighbours' labels for out-edges, and the smallest
+label among the rows that list a row for its in-edges (so the one-sided
+top-k lists act as an undirected graph), then two pointer jumps, until
+nothing changes or ``n_pad`` rounds have run.  The JAX package scatters
+the in-edges with a min; here they are grouped by target once (a sort)
+and reduced per target with ``segment_reduce``, so no scatter runs on the
+card.  The JAX package runs this as XLA; every step here is a plain torch
+op.  Only the compact per-row parts come to the
 host, where ``labels_from_parts`` (a copy of the JAX package's NumPy
 function) numbers the components.
 """
@@ -42,19 +45,25 @@ def dbscan(sims: torch.Tensor, neigh: torch.Tensor, eps: float, n: int,
     edge = within & core[:, None] & core[neigh_safe]
 
     labels = torch.where(core, row, n_pad)
-    target = torch.where(edge, neigh_safe, n_pad).reshape(-1)
+    # In-edges grouped by target: the source rows, and each row's count
+    # (non-edges take target n_pad and sort last).
+    target, order = torch.sort(torch.where(edge, neigh_safe, n_pad)
+                               .reshape(-1))
+    off = torch.searchsorted(target, torch.arange(n_pad + 1, device=device))
+    src = order[:int(off[-1])] // k
+    in_degree = off[1:] - off[:-1]
     for _ in range(n_pad):
         # Out-edges: the smallest neighbour label.
         new = torch.minimum(
             labels,
             torch.where(edge, labels[neigh_safe], n_pad).amin(dim=1))
-        # In-edges: each row's label to its neighbours (slot n_pad takes
-        # the non-edges).
-        new = torch.cat([new, new.new_full((1,), n_pad)])
-        new.scatter_reduce_(0, target,
-                            labels[:, None].expand(n_pad, k).reshape(-1),
-                            "amin")
-        new = new[:n_pad]
+        # In-edges: the smallest label among the rows that list this one
+        # (labels are row ids, exact in float64).
+        if src.numel():
+            incoming = torch.segment_reduce(
+                labels[src].double(), "min", lengths=in_degree,
+                unsafe=True, initial=float(n_pad))
+            new = torch.minimum(new, incoming.long())
         # Pointer jumping: a label is a row id, so label[label[x]] is in
         # x's component too.
         new = torch.minimum(new, new[new.clamp_max(n_pad - 1)])

@@ -128,14 +128,30 @@ def mask_invalid(scores: torch.Tensor, idx: torch.Tensor, n: int,
     return torch.where(bad, NEG, scores), torch.where(bad, -1, idx)
 
 
+def _tf32_matmuls() -> bool:
+    """Whether CUDA float32 matmuls may run in TF32.  Reads the precision
+    API (``torch.backends.cuda.matmul.fp32_precision``, "none" deferring
+    to ``torch.backends.fp32_precision``) where it exists: reading the
+    legacy ``allow_tf32`` after TF32 was set through it raises.  The
+    legacy flag is read only where the new attribute is missing."""
+    matmul = torch.backends.cuda.matmul
+    precision = getattr(matmul, "fp32_precision", None)
+    if precision is None:
+        return bool(matmul.allow_tf32)
+    if precision == "none":
+        precision = getattr(torch.backends, "fp32_precision", "none")
+    return precision == "tf32"
+
+
 def refuse_tf32(name: str, device: torch.device) -> None:
     """Raise if float32 products on ``device`` would run in TF32, which
     rounds the operands to 10 mantissa bits: the upper bounds (and the
-    bf16 scan's certified margin) need full float32 products."""
-    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+    bf16 scan's certified margin) need full float32 products, and the
+    ``--rerank off`` scan thresholds eps on its float32 scores."""
+    if device.type == "cuda" and _tf32_matmuls():
         raise RuntimeError(
             f"{name} needs full float32 matmuls; TF32 is on "
-            "(torch.backends.cuda.matmul.allow_tf32 / "
+            "(torch.backends.cuda.matmul.fp32_precision / allow_tf32 / "
             "torch.set_float32_matmul_precision)")
 
 

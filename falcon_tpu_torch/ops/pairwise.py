@@ -584,8 +584,7 @@ def pruned_condensed_distances(
         np.ascontiguousarray(intensity, np.float32)).to(dev)
     panel = min(panel_rows, m_pad)
     with profiler.phase("bound pairs"):
-        spread = hasher.vectorize(mz_d, int_d, norm=False, spread=True)
-        plain = hasher.vectorize(mz_d, int_d, norm=False)
+        plain, spread = hasher.vectorize_pair(mz_d, int_d)
         kmax = int(ub_pass_counts(spread, plain, thr, panel).max())
     out = np.ones(n * (n - 1) // 2, np.float32)
     if kmax == 0:

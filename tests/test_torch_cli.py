@@ -1,9 +1,11 @@
 """The port's CLI (``python -m falcon_tpu_torch``) against the JAX
 package's on the CPU: the same corpus gives the same CSV bytes (apart from
-the ``# work_dir`` line) and the same medoid MGF, with the exact backend,
-with ``--backend ann`` (the default index, and ``brute``) and with
-``--backend ann --ann_index exact``; a work_dir ingested by one package
-resumes under the other, and the port never imports JAX.
+the ``# work_dir`` line) and the same representative MGF, with the exact
+backend, with ``--backend ann`` (the default index, and ``brute``), with
+``--backend ann --ann_index exact``, in dbscan mode, under ``--rerank off``
+and with consensus representatives; a work_dir ingested by one package
+resumes under the other, only ``--ann_index ivf`` is refused, and the port
+never imports JAX.
 """
 
 import os
@@ -185,8 +187,14 @@ def test_api_matches_jax_api(mgf_inputs):
         assert (getattr(result, field) == getattr(ref, field)).all()
     assert ([s.identifier for s in result.representatives]
             == [s.identifier for s in ref.representatives])
+    options = dict(backend="ann", rerank="off", export_representatives=True)
+    result = api.cluster(files, **options)
+    ref = jax_api.cluster(files, **options)
+    assert (result.cluster == ref.cluster).all()
+    assert ([s.identifier for s in result.representatives]
+            == [s.identifier for s in ref.representatives])
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        api.cluster(files, backend="ann", rerank="off")
+        api.cluster(files, backend="ann", ann_index="ivf")
 
 
 def test_api_passes_ann_options_through(mgf_inputs):
@@ -201,9 +209,16 @@ def test_api_passes_ann_options_through(mgf_inputs):
         assert (getattr(result, field) == getattr(ref, field)).all()
     assert ([s.identifier for s in result.representatives]
             == [s.identifier for s in ref.representatives])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        api.cluster(files, backend="ann", ann_index="exact",
-                    cluster_method="dbscan")
+    options.update(cluster_method="dbscan", min_samples=3,
+                   representative_method="consensus")
+    result = api.cluster(files, **options)
+    ref = jax_api.cluster(files, **options)
+    assert (result.cluster == ref.cluster).all()
+    assert len(result.representatives) == len(ref.representatives) > 0
+    for got, want in zip(result.representatives, ref.representatives):
+        assert got.identifier == want.identifier
+        assert (got.mz == want.mz).all()
+        assert (got.intensity == want.intensity).all()
 
 
 def test_profile_writes_a_torch_trace(mgf_inputs):
@@ -214,8 +229,13 @@ def test_profile_writes_a_torch_trace(mgf_inputs):
     assert (trace_dir / "trace.json").stat().st_size > 0
 
 
-@pytest.mark.parametrize("flags", [[], ANN, ["--backend", "ann"]],
-                         ids=["exact", "ann_exact", "ann"])
+@pytest.mark.parametrize("flags", [
+    [], ANN, ["--backend", "ann"],
+    ["--backend", "ann", "--cluster_method", "dbscan"],
+    ["--backend", "ann", "--rerank", "off", "--cluster_method", "dbscan"],
+    ["--export_representatives", "--representative_method", "consensus"],
+], ids=["exact", "ann_exact", "ann", "ann_dbscan", "ann_rerank_off_dbscan",
+        "consensus"])
 def test_no_jax_is_imported(mgf_inputs, flags):
     tmp_path, files = mgf_inputs
     script = (
@@ -256,15 +276,44 @@ def test_cuda_without_gpu_raises(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
+CONSENSUS = ["--representative_method", "consensus"]
+
+
 @pytest.mark.parametrize("flags", [
     ["--backend", "ann", "--rerank", "off"],
-    ["--export_representatives", "--representative_method", "consensus"],
+    CONSENSUS,
     ANN + ["--cluster_method", "dbscan"],
-    ["--backend", "ann", "--ann_index", "ivf"],
     ["--backend", "ann", "--ann_index", "brute", "--rerank", "off"],
     ["--backend", "ann", "--cluster_method", "dbscan"],
-], ids=["ann", "consensus", "ann_dbscan", "ann_ivf", "ann_brute_rerank_off",
-        "ann_auto_dbscan"])
+    ["--backend", "ann", "--rerank", "off", "--cluster_method", "dbscan"],
+    ["--backend", "ann", "--cluster_method", "dbscan", "--min_samples", "3",
+     "--rt_tol", "30", "--min_matched_peaks", "3"],
+    ["--backend", "ann"] + CONSENSUS,
+    ANN + ["--cluster_method", "dbscan"] + CONSENSUS,
+], ids=["ann", "consensus", "ann_dbscan", "ann_brute_rerank_off",
+        "ann_auto_dbscan", "ann_rerank_off_dbscan",
+        "ann_dbscan_min_samples_rt_min_matches", "ann_consensus",
+        "ann_exact_dbscan_consensus"])
+def test_ported_options_csv_and_mgf_identical_to_jax(mgf_inputs, flags):
+    # The options earlier slices refused: dbscan mode, --rerank off and
+    # consensus representatives.
+    tmp_path, files = mgf_inputs
+    flags = ["--export_representatives"] + flags
+    assert jax_cli.main(files + [str(tmp_path / "jax"), "--work_dir",
+                                 str(tmp_path / "w_jax")] + flags) == 0
+    assert cli.main(files + [str(tmp_path / "torch"), "--work_dir",
+                             str(tmp_path / "w_torch")] + flags) == 0
+    assert (_csv_without_work_dir(str(tmp_path / "torch.csv"))
+            == _csv_without_work_dir(str(tmp_path / "jax.csv")))
+    mgf = _read(str(tmp_path / "torch.mgf"))
+    assert mgf == _read(str(tmp_path / "jax.mgf"))
+    if CONSENSUS[1] in flags:
+        assert b"consensus_cluster" in mgf
+
+
+@pytest.mark.parametrize("flags", [
+    ["--backend", "ann", "--ann_index", "ivf"],
+], ids=["ann_ivf"])
 def test_unported_options_exit_1(mgf_inputs, flags, caplog):
     tmp_path, files = mgf_inputs
     out = str(tmp_path / "out")

@@ -13,9 +13,11 @@ through the plain versions on the CPU.  Every matching kernel walks the
 peak pairs within tolerance of a row sorted by m/z, so each is also held
 against its plain version on peaks in no m/z order, on tie-heavy spectra
 and at wide tolerances, where a column has many such pairs.  The vectorize
-kernel sums in its plain version's order, so the two agree bit for bit,
-and so do two launches; the scan and the rerank built on the kernels agree
-with their CPU versions.
+kernel (and its fused plain + spread call), the two medoid-score kernels
+and the consensus kernel sum in their plain versions' order, so each
+agrees with its plain version, on the card and on the CPU, bit for bit,
+and so do two launches; the scan, the rerank and dbscan mode built on the
+kernels agree with their CPU versions.
 """
 
 import numpy as np
@@ -23,14 +25,17 @@ import pytest
 import torch
 
 from falcon_tpu_torch.cluster import ann_engine, engine
+from falcon_tpu_torch.ops import consensus as cs
 from falcon_tpu_torch.ops import exact_knn as ex
-from falcon_tpu_torch.ops import knn, rerank
+from falcon_tpu_torch.ops import knn
+from falcon_tpu_torch.ops import medoids as md
+from falcon_tpu_torch.ops import rerank
 from falcon_tpu_torch.ops import pairwise as pw
 from falcon_tpu_torch.ops import vectorize as vz
 from falcon_tpu_torch.preprocess import process_spectrum
 from falcon_tpu_torch.simulate import make_clustered_spectra
 from falcon_tpu_torch.store.store import SpectrumStore, padded_peaks
-from torch_cases import permuted, tie_heavy
+from torch_cases import consensus_peaks, medoid_lists, permuted, tie_heavy
 
 pytestmark = pytest.mark.cuda
 
@@ -215,7 +220,7 @@ def test_ann_engine_gpu_equals_cpu(cuda, rows, tmp_path, monkeypatch,
     writer = store.writer()
     writer.add_many(rows)
     writer.close()
-    args = (store.dataset(2), 0.2, 0, 20.0, "ppm", None, TOL, 2**15)
+    args = (store.dataset(2), 0.2, 2, 0, 20.0, "ppm", None, TOL, 2**15)
     before = (ex.banded_panel_scores.launches, pw.pair_list_scores.launches,
               pw.panel_scores.launches)
     labels, medoids = ann_engine.generate_clusters(
@@ -408,12 +413,145 @@ def test_default_ann_engine_gpu_equals_cpu(cuda, rows, tmp_path):
     writer = store.writer()
     writer.add_many(rows)
     writer.close()
-    args = (store.dataset(2), 0.2, 0, 20.0, "ppm", None, TOL, 2**15)
-    before = (vz.vectorize.launches, pw.pair_list_scores.launches)
+    args = (store.dataset(2), 0.2, 2, 0, 20.0, "ppm", None, TOL, 2**15)
+    before = (vz.vectorize_pair.launches, pw.pair_list_scores.launches)
     labels, medoids = ann_engine.generate_clusters(*args, device=cuda)
-    assert vz.vectorize.launches == before[0] + 2
+    assert vz.vectorize_pair.launches == before[0] + 1
     assert pw.pair_list_scores.launches > before[1]
     ref_labels, ref_medoids = ann_engine.generate_clusters(*args,
                                                            device="cpu")
     np.testing.assert_array_equal(labels, ref_labels)
     np.testing.assert_array_equal(medoids, ref_medoids)
+
+
+@pytest.mark.parametrize("case", ["sorted", "permuted_out_of_range"])
+def test_vectorize_pair_bit_identical_to_plain(cuda, rows, case):
+    mz, intensity = _padded(rows, cuda)
+    if case == "permuted_out_of_range":
+        mz, intensity = _permuted(mz, intensity, seed=9)
+        mz[:, :2] = torch.tensor([50.0, 2500.0], device=cuda)
+        intensity[:, :2] = 0.5
+    # Padded rows (zero intensity) are written without the hit machinery.
+    mz = torch.nn.functional.pad(mz, (0, 0, 0, 40), value=pw.PAD_MZ)
+    intensity = torch.nn.functional.pad(intensity, (0, 0, 0, 40))
+    args = _hasher_args(mz, intensity)
+    before = vz.vectorize_pair.launches
+    got = vz.vectorize_pair(*args)
+    again = vz.vectorize_pair(*args)
+    torch.cuda.synchronize()
+    assert vz.vectorize_pair.launches == before + 2
+    want = vz.vectorize_pair_plain(*args)
+    for g, a, w, single in zip(got, again, want, (
+            vz.vectorize(*args, False, False),
+            vz.vectorize(*args, False, True))):
+        assert torch.equal(g, a) and torch.equal(g, w)
+        assert torch.equal(g, single)
+        assert (g[-40:] == 0).all()
+
+
+def _medoid_lists(n, n_pad, k, seed, device):
+    """Sparse lists with mutual and one-way edges, -1 slots, a spill
+    segment and duplicate rows (``tests/test_torch_dbscan.py``'s)."""
+    sims, neigh, seg, n_seg = medoid_lists(n, n_pad, k, seed)
+    seg_pad = np.full(n_pad, n_seg - 1, np.int32)
+    seg_pad[:n] = seg
+    return (torch.from_numpy(sims).to(device),
+            torch.from_numpy(neigh).to(device),
+            torch.from_numpy(seg_pad).to(device), n_seg - 1)
+
+
+@pytest.mark.parametrize("n,n_pad,k", [(300, 512, 16), (300, 512, 48),
+                                       (1500, 2048, 64), (700, 1024, 37)])
+def test_sparse_medoid_kernel_bit_identical_to_plain(cuda, n, n_pad, k):
+    args = _medoid_lists(n, n_pad, k, n + k, cuda)
+    before = md.sparse_medoid_scores.launches
+    got = md.sparse_medoid_scores(*args)
+    again = md.sparse_medoid_scores(*args)
+    torch.cuda.synchronize()
+    assert md.sparse_medoid_scores.launches == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, md.sparse_medoid_scores_plain(*args))
+    cpu = tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
+    assert torch.equal(got.cpu(), md.sparse_medoid_scores_plain(*cpu))
+
+
+@pytest.mark.parametrize("dim", [512, 1664])
+def test_hashed_medoid_kernel_bit_identical_to_plain(cuda, rows, dim):
+    mz, intensity = _padded(rows, cuda)
+    hasher = vz.SpectrumHasher(101.0, 1500.0, TOL, dim - 64 if dim > 512
+                               else 400, 3)
+    unit = vz.normalize_rows(hasher.vectorize(mz, intensity, norm=False))
+    unit = torch.cat([unit, unit[:20]])  # duplicate rows
+    rng = np.random.default_rng(dim)
+    seg = rng.integers(0, 40, unit.shape[0]).astype(np.int32)  # 40: spill
+    seg[-20:] = seg[:20]
+    seg = torch.from_numpy(seg).to(cuda)
+    before = md.hashed_medoid_scores.launches
+    got = md.hashed_medoid_scores(unit, seg, 40)
+    again = md.hashed_medoid_scores(unit, seg, 40)
+    torch.cuda.synchronize()
+    assert md.hashed_medoid_scores.launches == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, md.hashed_medoid_scores_plain(unit, seg, 40))
+    assert torch.equal(got.cpu(), md.hashed_medoid_scores_plain(
+        unit.cpu(), seg.cpu(), 40))
+    assert torch.equal(got[-20:], got[:20])
+
+
+@pytest.mark.parametrize("n", [1, 37, 20000])
+def test_consensus_kernel_bit_identical_to_plain(cuda, n):
+    arrays = tuple(torch.from_numpy(a).to(cuda)
+                   for a in consensus_peaks(n, seed=n))
+    before = cs.aggregate.launches
+    got = cs.aggregate(*arrays)
+    again = cs.aggregate(*arrays)
+    torch.cuda.synchronize()
+    assert cs.aggregate.launches == before + 2
+    want = cs.aggregate_plain(*arrays)
+    cpu = cs.aggregate_plain(*(a.cpu() for a in arrays))
+    for g, a, w, c in zip(got, again, want, cpu):
+        assert torch.equal(g, a) and torch.equal(g, w)
+        assert torch.equal(g.cpu(), c)
+
+
+@pytest.mark.parametrize("case", ["auto", "exact", "rerank_off",
+                                  "rerank_off_linkage"])
+def test_dbscan_engine_gpu_equals_cpu(cuda, rows, tmp_path, case):
+    store = SpectrumStore(str(tmp_path / "spectra"))
+    writer = store.writer()
+    writer.add_many(rows)
+    writer.close()
+    kw = dict(cluster_method="dbscan")
+    if case == "exact":
+        kw.update(ann_index="exact", min_samples=3)
+    elif case.startswith("rerank_off"):
+        kw.update(rerank="off")
+    if case == "rerank_off_linkage":
+        kw.update(cluster_method="linkage")
+    args = (store.dataset(2), 0.2, kw.pop("min_samples", 2), 0, 20.0, "ppm",
+            None, TOL, 2**15)
+    counts = (md.sparse_medoid_scores, md.hashed_medoid_scores)
+    before = [c.launches for c in counts]
+    labels, medoids = ann_engine.generate_clusters(*args, device=cuda, **kw)
+    launched = [c.launches - b for c, b in zip(counts, before)]
+    ref_labels, ref_medoids = ann_engine.generate_clusters(*args,
+                                                           device="cpu", **kw)
+    np.testing.assert_array_equal(labels, ref_labels)
+    np.testing.assert_array_equal(medoids, ref_medoids)
+    assert launched == {"auto": [1, 0], "exact": [1, 0],
+                        "rerank_off": [0, 1],
+                        "rerank_off_linkage": [0, 0]}[case]
+
+
+def test_consensus_spectra_gpu_equals_cpu(cuda, rows):
+    offsets = np.concatenate([[0], np.cumsum([len(r["mz"]) for r in rows])])
+    mz = np.concatenate([r["mz"] for r in rows])
+    intensity = np.concatenate([r["intensity"] for r in rows])
+    labels = np.arange(len(rows)) // 4
+    args = (offsets, mz, intensity, labels, TOL, 101.0)
+    got = cs.consensus_spectra(*args, device=cuda)
+    want = cs.consensus_spectra(*args, device="cpu")
+    assert sorted(got) == sorted(want)
+    for label in want:
+        for g, w in zip(got[label], want[label]):
+            np.testing.assert_array_equal(g, w)

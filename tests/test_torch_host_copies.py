@@ -17,6 +17,7 @@ import pytest
 
 import falcon_tpu.api as j_api
 import falcon_tpu.cli as j_cli
+import falcon_tpu.cluster.ann_engine as j_ann
 import falcon_tpu.cluster.intervals as j_intervals
 import falcon_tpu.cluster.postprocess as j_post
 import falcon_tpu.export as j_export
@@ -34,6 +35,7 @@ from falcon_tpu.simulate import make_clustered_spectra, write_mgf, write_mzml
 
 import falcon_tpu_torch.api as t_api
 import falcon_tpu_torch.cli as t_cli
+import falcon_tpu_torch.cluster.ann_engine as t_ann
 import falcon_tpu_torch.cluster.intervals as t_intervals
 import falcon_tpu_torch.cluster.postprocess as t_post
 import falcon_tpu_torch.export as t_export
@@ -187,6 +189,38 @@ def case_postprocess(tmp_path, spectra):
     assert (t_post.assign_global_cluster_labels(got, order, splits, 7)
             == j_post.assign_global_cluster_labels(want, order, splits, 7))
     np.testing.assert_array_equal(got, want)
+
+
+def case_refine_and_medoids(tmp_path, spectra):
+    # dbscan mode's host tail: clusters inside and outside the precursor /
+    # RT span, demotion below min_samples, and quantised scores, so the
+    # medoid's first-maximum-by-row tie-break decides.
+    class Timer:
+        def stage(self, name):
+            pass
+
+    rng = np.random.default_rng(11)
+    n = 400
+    labels = rng.integers(-1, 60, n)
+    mzs = np.sort(rng.uniform(500.0, 500.2, n))
+    rts = rng.uniform(0.0, 200.0, n)
+    order = rng.permutation(n)
+    scores = rng.choice(np.float32([0.5, 0.75, 1.0]), n)
+    seen = []
+
+    def score_fn(seg, n_seg):
+        seen.append((seg.copy(), n_seg))
+        return scores
+
+    for rt_tol, min_samples in ((None, 2), (50.0, 3), (None, 5)):
+        args = (labels, order, mzs, rts, n, 100.0, "ppm", rt_tol,
+                min_samples, score_fn)
+        got = t_ann._refine_and_medoids(*args)
+        want = j_ann._refine_and_medoids(Timer(), *args)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(seen[-1][0], seen[-2][0])
+        assert seen[-1][1] == seen[-2][1]
 
 
 def case_hashing(tmp_path, spectra):

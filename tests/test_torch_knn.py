@@ -114,6 +114,39 @@ def test_passes_and_block_sizes_do_not_change_the_lists(corpus,
     assert (starts + window <= n_pad).all()
 
 
+@pytest.mark.parametrize("api", ["precision", "legacy", "matmul_precision"])
+def test_refuse_tf32_reads_either_api(api):
+    # No GPU is touched: the guard reads only the backend flags.  Setting
+    # TF32 through the precision API and then reading the legacy flag
+    # raises PyTorch's own "mix of the legacy and new APIs" error.
+    matmul = torch.backends.cuda.matmul
+    saved = getattr(matmul, "fp32_precision", None)
+    cuda = torch.device("cuda")
+    try:
+        if api == "precision":
+            if saved is None:
+                pytest.skip("this torch has no fp32_precision API")
+            matmul.fp32_precision = "tf32"
+        elif api == "legacy":
+            matmul.allow_tf32 = True
+        else:
+            torch.set_float32_matmul_precision("high")
+        with pytest.raises(RuntimeError, match="x needs full float32"):
+            knn.refuse_tf32("x", cuda)
+        knn.refuse_tf32("x", torch.device("cpu"))
+        if saved is not None:
+            matmul.fp32_precision = "ieee"
+        else:
+            matmul.allow_tf32 = False
+        knn.refuse_tf32("x", cuda)
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        if saved is not None:
+            matmul.fp32_precision = saved
+        else:
+            matmul.allow_tf32 = False
+
+
 def test_knn_banded_rejects_mismatched_vectors(corpus):
     pmz, _, vec = corpus
     plain = torch.from_numpy(vec["plain"])

@@ -1,6 +1,8 @@
-"""Spectra that make the port's matching kernels work hard, for the
-``tests/test_torch_*.py`` files: made with numpy from a seed, (n, 64)
-float32 m/z and intensity with padding m/z -1e6 and intensity 0."""
+"""Inputs that make the port's kernels work hard, for the
+``tests/test_torch_*.py`` files, made with numpy from a seed: spectra as
+(n, 64) float32 m/z and intensity with padding m/z -1e6 and intensity 0,
+sparse neighbour lists for the medoid scores, and peaks for the consensus
+table.  Numpy only, so the card's tests can use them without JAX."""
 
 import numpy as np
 
@@ -27,3 +29,39 @@ def permuted(mz: np.ndarray, intensity: np.ndarray, seed: int):
     perm = np.argsort(np.random.default_rng(seed).random(mz.shape), axis=1)
     return (np.take_along_axis(mz, perm, 1),
             np.take_along_axis(intensity, perm, 1))
+
+
+def medoid_lists(n, n_pad, k, seed):
+    """Sparse lists of ``n`` rows padded to ``n_pad``: ids near the row
+    (so many edges are mutual), -1 slots, quantised similarities (some
+    negative), clusters with noise in the spill segment, and rows 0..9
+    duplicates of rows 10..19.  Returns (sims, neigh, seg, n_seg)."""
+    rng = np.random.default_rng(seed)
+    n_seg = max(n // 6, 2)
+    seg = rng.integers(0, n_seg + 1, n).astype(np.int32)  # n_seg: spill
+    seg[:10] = seg[10:20]
+    neigh = np.full((n_pad, k), -1, np.int64)
+    sims = np.full((n_pad, k), -2.0, np.float32)
+    for i in range(n):
+        ids = rng.integers(max(0, i - 30), min(n, i + 30), k)
+        ids[(rng.random(k) < 0.2) | (ids == i)] = -1
+        neigh[i] = ids
+        sims[i] = np.where(
+            ids >= 0, rng.choice([0.95, 0.9, 0.5, -0.1, 1 / 3], k)
+            * rng.choice([1.0, 0.999], k), -2.0)
+    for a in range(10):
+        neigh[a], sims[a] = neigh[a + 10], sims[a + 10]
+        neigh[a][neigh[a] == a] = a + 10
+    return sims, neigh, seg, n_seg + 1
+
+
+def consensus_peaks(n, seed):
+    """(key, member, m/z, intensity): few keys and members, so runs are
+    long and one member often has several peaks in one bin."""
+    rng = np.random.default_rng(seed)
+    key = rng.integers(0, max(n // 40, 2), n).astype(np.int32)
+    member = rng.integers(0, 6, n).astype(np.int32)
+    mz = rng.uniform(100.0, 1500.0, n).astype(np.float32)
+    intensity = (rng.random(n) * rng.choice([1.0, 1e-3, 1e2], n)
+                 ).astype(np.float32)
+    return key, member, mz, intensity
