@@ -58,9 +58,12 @@ top-k apart) and rerank (pair-list kernel and sort apart) at that block,
 and holds the medoid-score kernels (on that block's lists and unit
 vectors) and the consensus kernel (on its consensus input) against their
 plain versions bit for bit, timed beside a PyTorch computation of the same
-function on ``index_add_``; phase 5 also runs the default index, dbscan
-mode, ``--rerank off`` and the consensus spectra through the kernels and
-through the plain versions.
+function on ``index_add_``; B.1 and B.3 also on a skewed input each (hub
+targets, a hot key), with their device time split by ``torch.profiler``
+into the group-by and the walk, which must hold no sort or search
+kernel; phase 5 also runs the default index, dbscan mode, ``--rerank
+off`` and the consensus spectra through the kernels and through the plain
+versions.
 
 Every phase raises on failure, so the script exits non-zero; it also exits
 non-zero, printing no result, without a CUDA GPU.  On success the last two
@@ -138,6 +141,7 @@ DBSCAN = ANN_DEFAULT + ["--cluster_method", "dbscan"]
 RERANK_OFF = ANN_DEFAULT + ["--rerank", "off"]
 CONSENSUS = ["--export_representatives", "--representative_method",
              "consensus"]
+GROUPBY_FREE = True  # B.1 and B.3 run no sort (set by phase 2)
 
 
 def log(msg: str) -> None:
@@ -1104,6 +1108,95 @@ def check_bits(name, what, got, again, want):
                              "version or to its own second launch")
 
 
+def groupby_split(name, fn, walk, other):
+    """Device milliseconds per call of a B.1 / B.3 wrapper (torch.profiler),
+    summed into the walk (the kernels named in ``walk``, with the short
+    groups' order fused in), ``other`` kernels, and the group-by (all the
+    rest: zeroing, counts, scans, fill, the long groups' order); raises if
+    a sort or a search ran."""
+    split = device_split(fn, reps=10)
+    log_split(name, split)
+    if not split:
+        return {}
+    banned = [k for k in split if "sort" in k.lower() or "search" in k.lower()]
+    if banned and not GROUPBY_FREE:  # an older package (--root)
+        log(f"  {name}: sort or search kernels ran (older package)")
+    elif banned:
+        raise AssertionError(f"{name}: sort or search kernels ran: {banned}")
+    walk_ms = sum(v for k, v in split.items() if any(w in k for w in walk))
+    other_ms = sum(v for k, v in split.items() if any(w in k for w in other))
+    total = sum(split.values())
+    out = dict(device_ms=total, groupby_ms=total - walk_ms - other_ms,
+               walk_ms=walk_ms, other_ms=other_ms, kernels=split)
+    log(f"  {name} device time: {total:.4f} ms = group-by "
+        f"{out['groupby_ms']:.4f} + walk {walk_ms:.4f} + {'/'.join(other)} "
+        f"{other_ms:.4f} ms"
+        + ("" if banned else "; no sort or search kernel ran"))
+    return out
+
+
+def skewed_medoids(dev, args, n):
+    """B.1 at the block's shape with hubs: the first 3,000 rows made one
+    cluster whose rows list row 0 in slot 0 (an in-degree of ~3,000, a
+    block's sort) and rows 6..305 rows 1..5 in slot 1 (60 each, a warp's);
+    bit for bit against the plain version and across two launches, timed."""
+    import torch
+
+    from falcon_tpu_torch.ops import medoids as md
+
+    sims, neigh, seg = (a.clone() for a in args[:3])
+    m = min(3000, n)
+    seg[:m] = 0
+    neigh[1:m, 0] = 0
+    sims[1:m, 0] = 0.5
+    neigh[6:306, 1] = 1 + torch.arange(300, device=dev) % 5
+    sims[6:306, 1] = 0.75
+    skewed = (sims, neigh, seg, args[3])
+    got = md.sparse_medoid_scores(*skewed)
+    again = md.sparse_medoid_scores(*skewed)
+    in_degree = torch.bincount(neigh[neigh >= 0], minlength=neigh.shape[0])
+    shape = (f"hubs, listed in-degree max {int(in_degree.max())}, "
+             f"{int(((in_degree > 16) & (in_degree <= 1024)).sum())} targets "
+             f"of 17..1,024")
+    check_bits(B1, shape, got, again, md.sparse_medoid_scores_plain(*skewed))
+    ms = kernel_ms(lambda: md.sparse_medoid_scores(*skewed), reps=10)
+    log(f"  {B1} {shape}: wrapper {ms:.4f} ms, bit-identical to the plain "
+        f"version and across two launches")
+    return dict(ms=ms, max_in_degree=int(in_degree.max()))
+
+
+def skewed_consensus(inputs, kw):
+    """B.3 on the block's consensus input with every other one of its
+    first 40,000 peaks moved into the first peak's key (a bucket of over
+    20,000 peaks, ordered in global memory); bit for bit against the plain
+    version and across two launches, timed; and the group-by alone on its
+    buckets against its plain version."""
+    import torch
+
+    from falcon_tpu_torch.ops import consensus as cs
+    from falcon_tpu_torch.ops import groupby
+
+    key = inputs[0].clone()
+    key[:40000:2] = key[0]
+    skewed = (key,) + tuple(inputs[1:])
+    got, again = cs.aggregate(*skewed, **kw), cs.aggregate(*skewed, **kw)
+    shift, n_buckets = cs.bucket_shift(kw["max_key"], key.shape[0])
+    sizes = torch.bincount((key >> shift).long(), minlength=n_buckets)
+    shape = (f"{key.shape[0]} peaks, a key of "
+             f"{int((key == key[0]).sum())}, largest bucket {int(sizes.max())}")
+    check_bits(B3, shape, got, again, cs.aggregate_plain(*skewed))
+    ms = kernel_ms(lambda: cs.aggregate(*skewed, **kw), reps=5)
+    for a, b in zip(groupby.group_by(key, n_buckets, shift),
+                    groupby.group_by_plain(key, n_buckets, shift)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"group_by {shape}: differs from the "
+                                 "stable sort")
+    log(f"  {B3} {shape}: wrapper {ms:.4f} ms, bit-identical to the plain "
+        f"version and across two launches; group_by alone equals the "
+        f"stable sort")
+    return dict(ms=ms, largest_bucket=int(sizes.max()))
+
+
 def phase_dbscan_kernels(dev, parity, times, report, bench_all):
     """Phase 2, continued: the medoid-score kernels on the bench corpus's
     charge-2 block as dbscan mode holds it (B.1 on the default path's
@@ -1120,6 +1213,10 @@ def phase_dbscan_kernels(dev, parity, times, report, bench_all):
     from falcon_tpu_torch.ops.density import dbscan
     from falcon_tpu_torch.preprocess import get_dim
 
+    global GROUPBY_FREE
+    # Packages before the group-by (a parent through --root) sort: their
+    # B.1 and B.3 are timed, but neither checked for sorts nor skewed.
+    GROUPBY_FREE = hasattr(cs, "bucket_shift")
     mz, intensity, pmz = bench_block(bench_all, dev)
     n, n_pad = len(pmz), mz.shape[0]
     _, mz_min, mz_max = get_dim(101.0, 1500.0, TOL)
@@ -1135,7 +1232,7 @@ def phase_dbscan_kernels(dev, parity, times, report, bench_all):
     seg_pad[:n] = seg
     read = torch.from_numpy(seg != spill).to(dev)
 
-    # B.1 on the exact lists.
+    # B.1 on the exact lists, then with two hubs at the same shape.
     args = (sims, neigh, torch.from_numpy(seg_pad).to(dev), spill)
     got, again = md.sparse_medoid_scores(*args), md.sparse_medoid_scores(*args)
     want, t_plain = plain_ms(lambda: md.sparse_medoid_scores_plain(*args))
@@ -1147,15 +1244,20 @@ def phase_dbscan_kernels(dev, parity, times, report, bench_all):
     lib_err = float((sparse_medoid_library(*args)[:n] - got[:n])[read]
                     .abs().max())
     n_bytes = sims.numel() * 12 + n_pad * 8
+    split = groupby_split(B1, lambda: md.sparse_medoid_scores(*args),
+                          ("medoid_sums",), ("medoid_weights",))
     times[B1] = dict(ms=ms, plain_ms=t_plain, library_ms=library,
                      bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
                      bound_by="bytes")
+    report[f"{B1} split"] = split
     parity.err[B1] = 0.0
-    log(f"  {B1} {shape}: kernel {ms:.4f} ms (two kernels, a stable sort "
-        f"and a search), bit-identical to the plain version and across two "
-        f"launches; plain version {t_plain:.1f} ms; index_add_ version "
-        f"{library:.4f} ms (max |diff| {lib_err:.3g} on the rows read); "
-        f"bound {times[B1]['bound_ms']:.5f} ms (bytes)")
+    log(f"  {B1} {shape}: wrapper {ms:.4f} ms (weights, group-by, sums), "
+        f"bit-identical to the plain version and across two launches; "
+        f"plain version {t_plain:.1f} ms; index_add_ version {library:.4f} "
+        f"ms (max |diff| {lib_err:.3g} on the rows read); bound "
+        f"{times[B1]['bound_ms']:.5f} ms (bytes)")
+    if GROUPBY_FREE:
+        report["B.1 skewed"] = skewed_medoids(dev, args, n)
 
     # B.2 on the unit vectors of --rerank off.
     unit = vz.normalize_rows(hasher.vectorize(mz, intensity, norm=False))
@@ -1189,8 +1291,8 @@ def phase_dbscan_kernels(dev, parity, times, report, bench_all):
     captured = []
     aggregate = cs.aggregate
 
-    def capture(*inputs):
-        captured.append(inputs)
+    def capture(*inputs, **kw):
+        captured.append((inputs, kw))
         return cs.aggregate_plain(*inputs)
 
     cs.aggregate = capture
@@ -1199,24 +1301,29 @@ def phase_dbscan_kernels(dev, parity, times, report, bench_all):
                              mz_min, device=dev)
     finally:
         cs.aggregate = aggregate
-    inputs = captured[0]
-    got, again = cs.aggregate(*inputs), cs.aggregate(*inputs)
+    inputs, kw = captured[0]
+    got, again = cs.aggregate(*inputs, **kw), cs.aggregate(*inputs, **kw)
     want, t_plain = plain_ms(lambda: cs.aggregate_plain(*inputs))
     shape = f"{inputs[0].shape[0]} peaks, {got[0].shape[0]} keys"
     check_bits(B3, shape, got, again, want)
-    ms = kernel_ms(lambda: cs.aggregate(*inputs), reps=10)
+    ms = kernel_ms(lambda: cs.aggregate(*inputs, **kw), reps=10)
     library = kernel_ms(lambda: aggregate_library(*inputs), reps=10)
     lib_err = float((aggregate_library(*inputs)[2] - got[2]).abs().max())
     n_bytes = inputs[0].shape[0] * 16 + got[0].shape[0] * 16
+    split = groupby_split(B3, lambda: cs.aggregate(*inputs, **kw),
+                          ("consensus_walk",), ("consensus_compact",))
     times[B3] = dict(ms=ms, plain_ms=t_plain, library_ms=library,
                      bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
                      bound_by="bytes")
+    report[f"{B3} split"] = split
     parity.err[B3] = 0.0
-    log(f"  {B3} {shape}: wrapper {ms:.4f} ms (stable sort, runs, kernel), "
+    log(f"  {B3} {shape}: wrapper {ms:.4f} ms, "
         f"bit-identical to the plain version and across two launches; plain "
-        f"version {t_plain:.1f} ms; same sort + index_add_ / scatter_reduce_ "
+        f"version {t_plain:.1f} ms; sort + index_add_ / scatter_reduce_ "
         f"{library:.4f} ms (max |m/z sum diff| {lib_err:.3g}); bound "
         f"{times[B3]['bound_ms']:.5f} ms (bytes)")
+    if GROUPBY_FREE:
+        report["B.3 skewed"] = skewed_consensus(inputs, kw)
 
 
 def read_labels(csv_path: str):

@@ -1,7 +1,7 @@
 // Medoid scores of the ann engine's dbscan mode, with a plain C interface
 // for ctypes (falcon_tpu_torch/ops/_build.py).  Each entry point launches
 // on the given stream, does not synchronise, allocates nothing and returns
-// cudaGetLastError() of its launch.
+// cudaGetLastError() of its launches.
 //
 // Both replace XLA scatter-adds of falcon_tpu/cluster/ann_engine.py, which
 // on the CPU add their updates one after another in index order.  An atomic
@@ -24,11 +24,17 @@
 //    - falcon_medoid_weights: one warp per row; lanes over slots find the
 //      valid edges, and for each one the warp scans the neighbour's list for
 //      the row (the mutual test).  It writes the counted weights, their
-//      targets (n_pad for none: a sink) and the row sums.
-//    - The wrapper sorts the targets (torch.sort, stable: a target's
-//      contributions stay in (row, slot) order) into per-target ranges.
-//    - falcon_medoid_sums: one thread per target walks its range in that
-//      order and inserts its row sum where the reference adds it.
+//      int32 targets (n_pad for none: a sink), the row sums, and counts each
+//      target's in-edges (step 1 of the group-by, csrc/groupby.cuh).
+//    - The wrapper scans the counts and falcon_groupby_fill (csrc/
+//      groupby.cu) puts each target's flat indices f = row * k + slot in
+//      its range, in no fixed order.
+//    - falcon_medoid_sums orders each target's range by f, ascending,
+//      which is (row, slot) order (targets of more than MED_WARP_CAP
+//      in-edges in a launch of their own first, the rest inside the sums
+//      kernel), and one lane per target walks it in that order, inserting
+//      the row sum where the reference adds it.  No sort of the whole
+//      (n_pad, k) array runs, and no float atomics.
 //    Bound: bytes, the (n, k) lists read, the scores written; the mutual
 //    test reads a neighbour's list per valid edge, mostly from L2.
 // 2. falcon_hashed_medoid_scores replaces _medoid_scores (:138-174): the
@@ -42,10 +48,13 @@
 
 #include <cuda_runtime.h>
 
+#include "groupby.cuh"
+
 namespace falcon {
 
 constexpr unsigned MED_FULL = 0xffffffffu;
 constexpr int MED_WARPS = 8;
+constexpr int MED_WARP_CAP = 1024;  // the warp tier of the sums, 4 KB a warp
 
 // XLA's CPU row sum: above 32 entries the reduction is split into windows
 // of 32 (padding split evenly before and after), each summed in order,
@@ -72,8 +81,8 @@ __device__ inline float xla_row_sum(const float* w, int k) {
 __global__ void __launch_bounds__(MED_WARPS * 32) medoid_weights_kernel(
     const float* __restrict__ sims, const long long* __restrict__ neigh,
     const int* __restrict__ seg, int n_pad, int k, int spill,
-    float* __restrict__ w, long long* __restrict__ tgt,
-    float* __restrict__ rowsum) {
+    float* __restrict__ w, int* __restrict__ tgt,
+    float* __restrict__ rowsum, int* __restrict__ cnt1) {
   extern __shared__ float wsm[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -104,7 +113,8 @@ __global__ void __launch_bounds__(MED_WARPS * 32) medoid_weights_kernel(
     const float wc = counted ? fmaxf(sims[base + j], 0.f) : 0.f;
     if (in) {
       w[base + j] = wc;
-      tgt[base + j] = counted ? nbs : (long long)n_pad;
+      tgt[base + j] = counted ? (int)nbs : n_pad;
+      if (counted) atomicAdd(&cnt1[nbs + 1], 1);
       wrow[j] = wc;
     }
   }
@@ -112,25 +122,31 @@ __global__ void __launch_bounds__(MED_WARPS * 32) medoid_weights_kernel(
   if (lane == 0) rowsum[i] = xla_row_sum(wrow, k);
 }
 
-__global__ void medoid_sums_kernel(const float* __restrict__ w,
-                                   const long long* __restrict__ perm,
-                                   const long long* __restrict__ off,
-                                   const float* __restrict__ rowsum,
-                                   int n_pad, int k, int chunk,
-                                   float* __restrict__ out) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(MED_WARPS * 32) medoid_sums_kernel(
+    const float* __restrict__ w, int* items, const int* __restrict__ off,
+    const float* __restrict__ rowsum, int n_pad, int k, int chunk,
+    float* __restrict__ out) {
+  __shared__ int buf[MED_WARPS][MED_WARP_CAP];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int t0 = (blockIdx.x * MED_WARPS + warp) * 32;
+  if (t0 >= n_pad) return;  // the whole warp
+  const int t = t0 + lane;
+  const int beg = t < n_pad ? off[t] : 0;
+  const int end = t < n_pad ? off[t + 1] : 0;
+  order_tiers<MED_WARP_CAP>(items, beg, end - beg, ByPosition(), buf[warp],
+                            lane);
   if (t >= n_pad) return;
-  const long long first_of_chunk = (long long)(t / chunk) * chunk;
-  long long e = off[t];
-  const long long end = off[t + 1];
+  const int first = (t / chunk) * chunk * k;  // the target's chunk's first f
+  int e = beg;
   float acc = 0.f;
   for (; e < end; ++e) {
-    const long long f = perm[e];
-    if (f / k >= first_of_chunk) break;
+    const int f = items[e];
+    if (f >= first) break;
     acc = __fadd_rn(acc, w[f]);
   }
   acc = __fadd_rn(acc, rowsum[t]);
-  for (; e < end; ++e) acc = __fadd_rn(acc, w[perm[e]]);
+  for (; e < end; ++e) acc = __fadd_rn(acc, w[items[e]]);
   out[t] = acc;
 }
 
@@ -182,11 +198,12 @@ __global__ void __launch_bounds__(MED_WARPS * 32) hashed_medoid_kernel(
 extern "C" {
 
 // sims (n_pad, k) f32, neigh (n_pad, k) int64 (-1 = none), seg (n_pad,)
-// int32 with noise and padding in segment `spill`; k <= 1024.  Writes w and
-// tgt (n_pad, k) and rowsum (n_pad,).
+// int32 with noise and padding in segment `spill`; k <= 1024 and n_pad * k
+// < 2^31.  Writes w and tgt (n_pad, k) and rowsum (n_pad,), and adds each
+// counted edge to cnt1[target + 1] (n_pad + 1, zeroed by the caller).
 int falcon_medoid_weights(const float* sims, const long long* neigh,
                           const int* seg, int n_pad, int k, int spill,
-                          float* w, long long* tgt, float* rowsum,
+                          float* w, int* tgt, float* rowsum, int* cnt1,
                           void* stream) {
   if (n_pad <= 0 || k <= 0) return (int)cudaGetLastError();
   if (k > 1024) return (int)cudaErrorInvalidValue;
@@ -195,19 +212,25 @@ int falcon_medoid_weights(const float* sims, const long long* neigh,
   const unsigned blocks = (unsigned)((n_pad + warps - 1) / warps);
   falcon::medoid_weights_kernel<<<blocks, warps * 32, bytes,
                                   (cudaStream_t)stream>>>(
-      sims, neigh, seg, n_pad, k, spill, w, tgt, rowsum);
+      sims, neigh, seg, n_pad, k, spill, w, tgt, rowsum, cnt1);
   return (int)cudaGetLastError();
 }
 
-// perm: flat (row * k + slot) indices sorted stably by target; off
-// (n_pad + 1,): each target's range in perm.  Writes out (n_pad,).
-int falcon_medoid_sums(const float* w, const long long* perm,
-                       const long long* off, const float* rowsum, int n_pad,
-                       int k, int chunk, float* out, void* stream) {
+// items: each target's flat (row * k + slot) indices in its range of off
+// (n_pad + 1,), in any order (falcon_groupby_fill); ordered here in place.
+// Writes out (n_pad,).
+int falcon_medoid_sums(const float* w, int* items, const int* off,
+                       const float* rowsum, int n_pad, int k, int chunk,
+                       float* out, void* stream) {
   if (n_pad <= 0) return (int)cudaGetLastError();
-  const unsigned blocks = (unsigned)((n_pad + 255) / 256);
-  falcon::medoid_sums_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
-      w, perm, off, rowsum, n_pad, k, chunk, out);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t err = falcon::launch_order_long(
+      off, n_pad, items, falcon::MED_WARP_CAP, falcon::ByPosition(), s);
+  if (err != cudaSuccess) return (int)err;
+  const int per_block = falcon::MED_WARPS * 32;
+  falcon::medoid_sums_kernel<<<(n_pad + per_block - 1) / per_block,
+                               per_block, 0, s>>>(w, items, off, rowsum,
+                                                  n_pad, k, chunk, out);
   return (int)cudaGetLastError();
 }
 

@@ -51,16 +51,26 @@ _SIGNATURES = {
     # mz, intensity, n, mapping, n_bins, min_bound, inv_bin, dim, norm,
     # out_plain, out_spread, stream
     "falcon_vectorize": [_p, _p, _i, _p, _i, _f, _f, _i, _i, _p, _p, _p],
-    # sims, neigh, seg, n_pad, k, spill, w, tgt, rowsum, stream
-    "falcon_medoid_weights": [_p, _p, _p, _i, _i, _i, _p, _p, _p, _p],
-    # w, perm, off, rowsum, n_pad, k, chunk, out, stream
+    # sims, neigh, seg, n_pad, k, spill, w, tgt, rowsum, cnt1, stream
+    "falcon_medoid_weights": [_p, _p, _p, _i, _i, _i, _p, _p, _p, _p, _p],
+    # w, items, off, rowsum, n_pad, k, chunk, out, stream
     "falcon_medoid_sums": [_p, _p, _p, _p, _i, _i, _i, _p, _p],
     # v, dim, rows, off, n_seg, out, stream
     "falcon_hashed_medoid_scores": [_p, _i, _p, _p, _i, _p, _p],
-    # key, member, mz, intensity, off, n_keys, keys_out, int_sum,
-    # mzint_sum, members, stream
-    "falcon_consensus_segments": [_p, _p, _p, _p, _p, _i, _p, _p, _p, _p,
-                                  _p],
+    # key, n, shift, n_groups, cnt1, stream
+    "falcon_groupby_count": [_p, _i, _i, _i, _p, _p],
+    # key, n, shift, n_groups, off, cnt1, items, stream
+    "falcon_groupby_fill": [_p, _i, _i, _i, _p, _p, _p, _p],
+    # off, n_groups, items, stream
+    "falcon_groupby_order": [_p, _i, _p, _p],
+    # key, member, mz, intensity, items, off, n_buckets, key_tmp, int_tmp,
+    # mzint_tmp, members_tmp, kcnt1, stream
+    "falcon_consensus_walk": [_p, _p, _p, _p, _p, _p, _i, _p, _p, _p, _p,
+                              _p, _p],
+    # off, koff, n_buckets, key_tmp, int_tmp, mzint_tmp, members_tmp,
+    # keys_out, int_sum, mzint_sum, members, stream
+    "falcon_consensus_compact": [_p, _p, _i, _p, _p, _p, _p, _p, _p, _p, _p,
+                                 _p],
 }
 
 

@@ -8,13 +8,15 @@ becomes one consensus peak at the intensity-weighted mean m/z with the
 member-averaged intensity (L2-renormalised, capped at ``max_peaks``).
 
 ``aggregate`` is the device part (the JAX package's ``_get_aggregate``):
-a stable sort of the peaks by (cluster-bin key, member), ``torch.sort``,
-then per key the intensity sum, the intensity-weighted m/z sum, the number
-of distinct members and the key.  XLA adds those up one peak after another
-in sorted order; the kernel (``csrc/consensus.cu``) and its plain version
-``segment_sums_plain`` do the same, so they agree bit for bit with each
-other and with the JAX package on the CPU, and the m/z printed into the MGF
-does not change from run to run.  ``consensus_spectra`` keeps the JAX
+the peaks in stable order of (cluster-bin key, member), then per key the
+intensity sum, the intensity-weighted m/z sum, the number of distinct
+members and the key.  XLA adds those up one peak after another in sorted
+order.  The plain version sorts (``torch.sort``) and ``segment_sums_plain``
+walks the runs; the kernels (``csrc/consensus.cu``) reach the same order
+with the fixed-order group-by of ``ops/groupby.py`` (buckets of high key
+bits, each ordered on its own), so they agree bit for bit with each other
+and with the JAX package on the CPU, and the m/z printed into the MGF does
+not change from run to run.  ``consensus_spectra`` keeps the JAX
 package's chunked int32 composite keys and its host code, verbatim.
 """
 
@@ -23,7 +25,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, groupby
 from .pairwise import _check_launch, count_launch
 
 
@@ -42,47 +44,80 @@ def _sorted_runs(bin_key, member, mz, intensity):
     return (bin_key, member, mz, intensity), off
 
 
+WARP_CAP = 256  # csrc/consensus.cu CONS_WARP_CAP: a warp orders a bucket
+
+
+def bucket_shift(max_key: int, n: int) -> Tuple[int, int]:
+    """(shift, buckets): the kernels group keys below ``max_key`` by
+    ``key >> shift``, the smallest shift that makes the buckets at most as
+    many as the ``n`` peaks."""
+    shift = 0
+    while ((max_key - 1) >> shift) + 1 > n:
+        shift += 1
+    return shift, ((max_key - 1) >> shift) + 1
+
+
 def aggregate(bin_key: torch.Tensor, member: torch.Tensor, mz: torch.Tensor,
-              intensity: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+              intensity: torch.Tensor,
+              max_key: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """Per distinct key, in key order: (key int32, intensity sum float32,
     intensity-weighted m/z sum float32, distinct members int32), each
     (n_keys,) on the inputs' device.  Inputs are (n,) int32 non-negative
-    keys and members and float32 m/z and intensity, n >= 1."""
+    keys and members and float32 m/z and intensity, n >= 1, in any order.
+    ``max_key``: a bound above every key, if the caller knows one (else
+    the kernel's wrapper reads the largest key back)."""
     for t, dtype in ((bin_key, torch.int32), (member, torch.int32),
                      (mz, torch.float32), (intensity, torch.float32)):
         if (t.dtype != dtype or t.ndim != 1 or t.shape != bin_key.shape
-                or t.device != bin_key.device):
+                or t.device != bin_key.device or not t.is_contiguous()):
             raise ValueError("aggregate: keys and members int32, m/z and "
                              "intensity float32, all (n,) on one device")
-    if bin_key.shape[0] == 0:
+    n = bin_key.shape[0]
+    if n == 0:
         raise ValueError("aggregate: no peaks")
     if bin_key.device.type == "cpu":
         return aggregate_plain(bin_key, member, mz, intensity)
+    if max_key is None:
+        max_key = int(bin_key.max()) + 1
+    if not 0 < max_key <= 2**31:
+        raise ValueError(f"aggregate: max_key {max_key} not in [1, 2**31]")
+    shift, n_buckets = bucket_shift(max_key, n)
     dev = bin_key.device
-    (key_s, member_s, mz_s, int_s), off = _sorted_runs(bin_key, member, mz,
-                                                       intensity)
-    n_keys = off.shape[0] - 1
-    keys = torch.empty(n_keys, dtype=torch.int32, device=dev)
-    members = torch.empty(n_keys, dtype=torch.int32, device=dev)
-    int_sum, mzint_sum = (torch.empty(n_keys, dtype=torch.float32,
-                                      device=dev) for _ in range(2))
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # Rows: key, intensity sum, m/z sum, members; the sums as float32.
+    tmp, out = (torch.empty((4, n), dtype=torch.int32, device=dev)
+                for _ in range(2))
+    kcnt1 = torch.empty(n_buckets + 1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        _check_launch("aggregate", _build.library().falcon_consensus_segments(
-            key_s.data_ptr(), member_s.data_ptr(), mz_s.data_ptr(),
-            int_s.data_ptr(), off.data_ptr(), n_keys, keys.data_ptr(),
-            int_sum.data_ptr(), mzint_sum.data_ptr(), members.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream))
+        off, items = groupby.count_and_fill(bin_key, n_buckets, shift,
+                                            stream=stream)
+        _check_launch("aggregate", lib.falcon_consensus_walk(
+            bin_key.data_ptr(), member.data_ptr(), mz.data_ptr(),
+            intensity.data_ptr(), items.data_ptr(), off.data_ptr(),
+            n_buckets, *(r.data_ptr() for r in tmp), kcnt1.data_ptr(),
+            stream))
+        koff = torch.cumsum(kcnt1, 0, dtype=torch.int32)
+        _check_launch("aggregate", lib.falcon_consensus_compact(
+            off.data_ptr(), koff.data_ptr(), n_buckets,
+            *(r.data_ptr() for r in tmp), *(r.data_ptr() for r in out),
+            stream))
     count_launch(aggregate)
-    return keys, int_sum, mzint_sum, members
+    n_keys = int(koff[-1])  # the one wait on the card
+    keys, int_sum, mzint_sum, members = out[:, :n_keys]
+    return (keys, int_sum.view(torch.float32), mzint_sum.view(torch.float32),
+            members)
 
 
 aggregate.launches = 0
 
 
 def aggregate_plain(bin_key: torch.Tensor, member: torch.Tensor,
-                    mz: torch.Tensor,
-                    intensity: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """Plain PyTorch version of :func:`aggregate` (any device)."""
+                    mz: torch.Tensor, intensity: torch.Tensor,
+                    max_key: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of :func:`aggregate` (any device); it needs
+    no ``max_key``."""
     (key_s, member_s, mz_s, int_s), off = _sorted_runs(bin_key, member, mz,
                                                        intensity)
     return segment_sums_plain(key_s, member_s, mz_s, int_s, off)
@@ -188,7 +223,8 @@ def consensus_spectra(
             t.cpu().numpy() for t in aggregate(*(
                 torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                 for a in (key32, peak_member[chunk_mask], mz[chunk_mask],
-                          intensity[chunk_mask]))))
+                          intensity[chunk_mask])),
+                max_key=int(key32.max()) + 1))
         real = keys < big
         parts.append((
             base + (keys[real] // n_bins).astype(np.int64),

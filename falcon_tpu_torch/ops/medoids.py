@@ -21,15 +21,17 @@ first 8 products rounded and added, then one fused multiply-add per
 dimension), and the kernels (``csrc/medoids.cu``) take the plain versions'
 order, so the three agree bit for bit; an atomic
 scatter on the card would not, and one ulp can move the medoid of tied
-(duplicate) spectra.  Each wrapper launches its kernel for CUDA tensors,
-counts the launch in its ``launches`` attribute, and runs its plain
-version for CPU tensors.  No ``index_add_``, ``scatter_add_`` or
+(duplicate) spectra.  The sparse scores put each target's weights in
+(row, slot) order with the fixed-order group-by of ``ops/groupby.py``
+(integer atomics and a per-target sort, no sort of the whole list).  Each
+wrapper launches its kernel for CUDA tensors, counts the launch in its
+``launches`` attribute, and runs its plain version for CPU tensors.  No ``index_add_``, ``scatter_add_`` or
 ``scatter_reduce_`` runs here.
 """
 
 import torch
 
-from . import _build
+from . import _build, groupby
 from .pairwise import _check_launch, count_launch
 
 CHUNK_ROWS = 1024  # the JAX package's chunk of rows
@@ -74,25 +76,29 @@ def sparse_medoid_scores(sims: torch.Tensor, neigh: torch.Tensor,
     if sims.device.type == "cpu":
         return sparse_medoid_scores_plain(sims, neigh, seg, spill)
     n_pad, k = sims.shape
+    if n_pad * k >= 2**31:
+        raise ValueError("sparse_medoid_scores: the kernel takes n_pad * k "
+                         f"< 2**31 list slots, got {n_pad} x {k}")
     dev = sims.device
     lib = _build.library()
     w = torch.empty((n_pad, k), dtype=torch.float32, device=dev)
-    tgt = torch.empty((n_pad, k), dtype=torch.int64, device=dev)
-    rowsum = torch.empty(n_pad, dtype=torch.float32, device=dev)
-    out = torch.empty(n_pad, dtype=torch.float32, device=dev)
+    tgt = torch.empty((n_pad, k), dtype=torch.int32, device=dev)
+    rowsum, out = torch.empty((2, n_pad), dtype=torch.float32, device=dev)
+    cnt1 = torch.zeros(n_pad + 1, dtype=torch.int32, device=dev)
+    stream = _stream(dev)
     with torch.cuda.device(dev):
         _check_launch("sparse_medoid_scores", lib.falcon_medoid_weights(
             sims.data_ptr(), neigh.data_ptr(), seg.data_ptr(), n_pad, k,
             int(spill), w.data_ptr(), tgt.data_ptr(), rowsum.data_ptr(),
-            _stream(dev)))
-        # A stable sort keeps each target's contributions in (row, slot)
-        # order; the sink n_pad sorts last.
-        sorted_tgt, perm = torch.sort(tgt.view(-1), stable=True)
-        off = torch.searchsorted(
-            sorted_tgt, torch.arange(n_pad + 1, device=dev))
+            cnt1.data_ptr(), stream))
+        # Each target's flat indices, ordered by the sums kernel into
+        # (row, slot) order; the sink n_pad is dropped.
+        off, items = groupby.count_and_fill(tgt.view(-1), n_pad, cnt1=cnt1,
+                                            stream=stream)
         _check_launch("sparse_medoid_scores", lib.falcon_medoid_sums(
-            w.data_ptr(), perm.data_ptr(), off.data_ptr(), rowsum.data_ptr(),
-            n_pad, k, min(CHUNK_ROWS, n_pad), out.data_ptr(), _stream(dev)))
+            w.data_ptr(), items.data_ptr(), off.data_ptr(),
+            rowsum.data_ptr(), n_pad, k, min(CHUNK_ROWS, n_pad),
+            out.data_ptr(), stream))
     count_launch(sparse_medoid_scores)
     return out
 

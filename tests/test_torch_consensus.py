@@ -18,7 +18,7 @@ import torch
 from falcon_tpu.ops import consensus as jax_consensus
 from falcon_tpu.simulate import make_clustered_spectra
 from falcon_tpu_torch.ops import consensus
-from torch_cases import consensus_peaks
+from torch_cases import consensus_peaks, consensus_skewed
 
 
 @pytest.mark.parametrize("n", [1, 37, 4096, 20000])
@@ -35,6 +35,23 @@ def test_aggregate_matches_jax(n):
     for g, p, r in zip(got, plain, ref[:4]):
         assert torch.equal(g, p)
         np.testing.assert_array_equal(g.numpy(), np.asarray(r)[:n_keys])
+
+
+@pytest.mark.parametrize("n,case", [(4096, "hot_key"), (200, "one_bucket"),
+                                    (5000, "one_bucket")])
+def test_aggregate_skewed_matches_jax(n, case):
+    # A key of 2,048 peaks (a bucket the kernel orders in global memory),
+    # and every peak in one bucket (a warp's sort at 200, a block's at
+    # 5,000).
+    arrays = consensus_skewed(n, n, case)
+    ref = jax_consensus._get_aggregate()(*(jnp.asarray(a) for a in arrays))
+    n_keys = int(ref[4])
+    got = consensus.aggregate(*(torch.from_numpy(a) for a in arrays))
+    assert got[0].shape == (n_keys,)
+    for g, r in zip(got, ref[:4]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r)[:n_keys])
+    if case == "hot_key":
+        assert int(got[3][got[0] == 7]) == 6  # every member in the hot key
 
 
 def _ragged(rng, n_rows):

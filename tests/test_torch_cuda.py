@@ -27,6 +27,7 @@ import torch
 from falcon_tpu_torch.cluster import ann_engine, engine
 from falcon_tpu_torch.ops import consensus as cs
 from falcon_tpu_torch.ops import exact_knn as ex
+from falcon_tpu_torch.ops import groupby
 from falcon_tpu_torch.ops import knn
 from falcon_tpu_torch.ops import medoids as md
 from falcon_tpu_torch.ops import rerank
@@ -35,7 +36,9 @@ from falcon_tpu_torch.ops import vectorize as vz
 from falcon_tpu_torch.preprocess import process_spectrum
 from falcon_tpu_torch.simulate import make_clustered_spectra
 from falcon_tpu_torch.store.store import SpectrumStore, padded_peaks
-from torch_cases import consensus_peaks, medoid_lists, permuted, tie_heavy
+from torch_cases import (GROUPBY_CASES, consensus_peaks, consensus_skewed,
+                         groupby_keys, medoid_hub_lists, medoid_lists,
+                         permuted, tie_heavy, tiers_reached)
 
 pytestmark = pytest.mark.cuda
 
@@ -507,6 +510,64 @@ def test_consensus_kernel_bit_identical_to_plain(cuda, n):
     again = cs.aggregate(*arrays)
     torch.cuda.synchronize()
     assert cs.aggregate.launches == before + 2
+    want = cs.aggregate_plain(*arrays)
+    cpu = cs.aggregate_plain(*(a.cpu() for a in arrays))
+    for g, a, w, c in zip(got, again, want, cpu):
+        assert torch.equal(g, a) and torch.equal(g, w)
+        assert torch.equal(g.cpu(), c)
+
+
+@pytest.mark.parametrize("case", sorted(GROUPBY_CASES))
+def test_groupby_kernels_equal_stable_sort(cuda, case):
+    key, n_groups, shift = groupby_keys(case, seed=3)
+    want = groupby.group_by_plain(torch.from_numpy(key), n_groups, shift)
+    assert tiers_reached(np.diff(want[0].numpy()), groupby.WARP_CAP) == \
+        GROUPBY_CASES[case][1]
+    before = groupby.group_by.launches
+    got = groupby.group_by(torch.from_numpy(key).to(cuda), n_groups, shift)
+    again = groupby.group_by(torch.from_numpy(key).to(cuda), n_groups, shift)
+    torch.cuda.synchronize()
+    assert groupby.group_by.launches == before + 2
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a) and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("k", [16, 24])
+def test_sparse_medoid_kernel_hub_bit_identical_to_plain(cuda, k):
+    # In-degrees of 1,281 (a block's sort), 80 (a warp's) and a few.
+    sims, neigh, seg, n_seg = medoid_hub_lists(1500, 2048, k, seed=k)
+    seg_pad = np.full(2048, n_seg - 1, np.int32)
+    seg_pad[:1500] = seg
+    args = (torch.from_numpy(sims).to(cuda), torch.from_numpy(neigh).to(cuda),
+            torch.from_numpy(seg_pad).to(cuda), n_seg - 1)
+    assert tiers_reached(np.bincount(neigh[neigh >= 0]),
+                         groupby.WARP_CAP) == (True, True, True)
+    got = md.sparse_medoid_scores(*args)
+    again = md.sparse_medoid_scores(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, md.sparse_medoid_scores_plain(*args))
+    cpu = tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
+    assert torch.equal(got.cpu(), md.sparse_medoid_scores_plain(*cpu))
+
+
+@pytest.mark.parametrize("with_max_key", [False, True])
+@pytest.mark.parametrize("n,case", [(4096, "hot_key"), (200, "one_bucket"),
+                                    (5000, "one_bucket")])
+def test_consensus_kernel_skewed_bit_identical_to_plain(cuda, n, case,
+                                                        with_max_key):
+    arrays = consensus_skewed(n, n, case)
+    max_key = int(arrays[0].max()) + 1
+    shift, n_buckets = cs.bucket_shift(max_key, n)
+    sizes = np.bincount(arrays[0] >> shift, minlength=n_buckets)
+    assert {"hot_key": (True, True, True), "one_bucket": (
+        False, n <= cs.WARP_CAP, n > cs.WARP_CAP)}[case] == tiers_reached(
+            sizes, cs.WARP_CAP)
+    arrays = tuple(torch.from_numpy(a).to(cuda) for a in arrays)
+    kw = dict(max_key=max_key) if with_max_key else {}
+    got = cs.aggregate(*arrays, **kw)
+    again = cs.aggregate(*arrays, **kw)
+    torch.cuda.synchronize()
     want = cs.aggregate_plain(*arrays)
     cpu = cs.aggregate_plain(*(a.cpu() for a in arrays))
     for g, a, w, c in zip(got, again, want, cpu):

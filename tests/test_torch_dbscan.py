@@ -33,7 +33,7 @@ from falcon_tpu.simulate import make_clustered_spectra
 from falcon_tpu.store.store import SpectrumStore
 from falcon_tpu_torch.cluster import ann_engine
 from falcon_tpu_torch.ops import medoids
-from torch_cases import medoid_lists
+from torch_cases import medoid_hub_lists, medoid_lists, tiers_reached
 
 TOL = 0.05
 ATOL = 1e-6
@@ -60,6 +60,27 @@ def test_sparse_medoid_scores_match_jax(n, n_pad, k):
     np.testing.assert_allclose(got[read], ref[read], atol=ATOL, rtol=0)
     np.testing.assert_array_equal(got[read], ref[read])
     assert (got[read] > 0).mean() > 0.15
+
+
+@pytest.mark.parametrize("k", [16, 24])
+def test_sparse_medoid_scores_hub_matches_jax(k):
+    # Targets whose in-edges the kernel orders with a warp (80) and with a
+    # block of its own (1,281, from two 1,024-row chunks around the hub's
+    # own row sum).
+    n, n_pad = 1500, 2048
+    sims, neigh, seg, n_seg = medoid_hub_lists(n, n_pad, k, seed=k)
+    ref = np.asarray(jax_engine._sparse_exact_medoid_scores(
+        jnp.asarray(sims), jnp.asarray(neigh.astype(np.int32)), seg, n_seg))
+    seg_pad = np.full(n_pad, n_seg - 1, np.int32)
+    seg_pad[:n] = seg
+    args = (torch.from_numpy(sims), torch.from_numpy(neigh),
+            torch.from_numpy(seg_pad), n_seg - 1)
+    got = medoids.sparse_medoid_scores(*args).numpy()[:n]
+    read = seg != n_seg - 1
+    np.testing.assert_array_equal(got[read], ref[read])
+    in_deg = np.bincount(neigh[neigh >= 0], minlength=n_pad)
+    assert in_deg[1400] > 1024 and 32 < in_deg[1450] <= 1024
+    assert tiers_reached(in_deg, 1024) == (True, True, True)
 
 
 @pytest.mark.parametrize("n,n_pad", [(300, 512), (700, 1024)])

@@ -65,3 +65,77 @@ def consensus_peaks(n, seed):
     intensity = (rng.random(n) * rng.choice([1.0, 1e-3, 1e2], n)
                  ).astype(np.float32)
     return key, member, mz, intensity
+
+
+def medoid_hub_lists(n, n_pad, k, seed):
+    """``medoid_lists`` with one large cluster (rows 20..1300, n > 1450)
+    whose rows all list row 1400 in slot 0 (an in-degree of 1,281, above
+    a warp's 1,024) and rows 20..99 also row 1450 in slot 1 (80, above 32);
+    neither hub lists them back, so every such edge counts."""
+    sims, neigh, seg, n_seg = medoid_lists(n, n_pad, k, seed)
+    big = np.arange(20, 1301)
+    seg[big] = 0
+    seg[[1400, 1450]] = 0
+    neigh[big, 0] = 1400
+    sims[big, 0] = np.where(big % 3 == 0, 0.7, 1 / 3)
+    neigh[20:100, 1] = 1450
+    sims[20:100, 1] = 0.9
+    for hub in (1400, 1450):
+        neigh[hub][(neigh[hub] >= 20) & (neigh[hub] <= 1300)] = -1
+    return sims, neigh, seg, n_seg
+
+
+def consensus_skewed(n, seed, case):
+    """``consensus_peaks`` with skew: ``hot_key`` gives half the peaks one
+    key (a bucket longer than a warp sorts in shared memory);
+    ``one_bucket`` puts every key in [2**20, 2**20 + 64), which the
+    kernel's buckets of high key bits hold in one bucket."""
+    key, member, mz, intensity = consensus_peaks(n, seed)
+    if case == "hot_key":
+        key[::2] = 7
+    else:
+        key = (2**20 + np.random.default_rng(seed).integers(0, 64, n)
+               ).astype(np.int32)
+    return key, member, mz, intensity
+
+
+# Group-by inputs (key, n_groups, shift) and the tiers (small, warp, long)
+# each reaches, for ops/groupby.py's kernels and the tests' mirror of them.
+GROUPBY_CASES = {
+    "small_groups": ((3000, 1000, 0), (True, False, False)),
+    "hub_warp": ((3000, 1000, 0), (True, True, False)),
+    "hub_long": ((4000, 1000, 0), (True, True, True)),
+    "one_group": ((1500, 1, 0), (False, False, True)),
+    "sinks_and_shift": ((3000, 200, 4), (True, True, False)),
+    "sparse_groups": ((500, 100000, 0), (True, False, False)),
+}
+
+
+def groupby_keys(case: str, seed: int):
+    """(key int32 (n,), n_groups, shift) of a GROUPBY_CASES case."""
+    (n, n_groups, shift), _ = GROUPBY_CASES[case]
+    rng = np.random.default_rng(seed)
+    key = rng.integers(0, n_groups << shift, n)
+    if case == "hub_warp":
+        key[rng.random(n) < 0.2] = 17  # ~600 items in group 17
+    elif case == "hub_long":
+        key[rng.random(n) < 0.5] = 3  # ~2,000 items in group 3
+        key[:100] = 900  # and 100 in group 900
+    elif case == "one_group":
+        key[:] = 0
+    elif case == "sinks_and_shift":
+        key[rng.random(n) < 0.1] = -5  # negative: dropped
+        key[rng.random(n) < 0.1] = n_groups << shift  # past the end
+        key[:300] = (12 << shift) + rng.integers(0, 1 << shift, 300)
+    elif case == "sparse_groups":
+        key[:5] = 42  # most groups empty, a few of one item, one of 5+
+    return key.astype(np.int32), n_groups, shift
+
+
+def tiers_reached(sizes, warp_cap: int, small: int = 16):
+    """(any group sorted by one thread, by a warp, by a block) of the
+    group sizes, as the kernels pick them."""
+    sizes = np.asarray(sizes)
+    return (bool(((sizes > 1) & (sizes <= small)).any()),
+            bool(((sizes > small) & (sizes <= warp_cap)).any()),
+            bool((sizes > warp_cap).any()))
