@@ -58,9 +58,10 @@ top-k apart) and rerank (pair-list kernel and sort apart) at that block,
 and holds the medoid-score kernels (on that block's lists and unit
 vectors) and the consensus kernel (on its consensus input) against their
 plain versions bit for bit, timed beside a PyTorch computation of the same
-function on ``index_add_``; B.1 and B.3 also on a skewed input each (hub
-targets, a hot key), with their device time split by ``torch.profiler``
-into the group-by and the walk, which must hold no sort or search
+function on ``index_add_``; B.1, B.2 and B.3 also on a skewed input each
+(hub targets, a cluster of 3,000 rows, a hot key), with their device time
+split by ``torch.profiler`` into the group-by and the walk (B.2: the
+cluster sums and the row dots), which must hold no sort or search
 kernel; phase 5 also runs the default index, dbscan mode, ``--rerank
 off`` and the consensus spectra through the kernels and through the plain
 versions.
@@ -1108,18 +1109,22 @@ def check_bits(name, what, got, again, want):
                              "version or to its own second launch")
 
 
-def groupby_split(name, fn, walk, other):
-    """Device milliseconds per call of a B.1 / B.3 wrapper (torch.profiler),
-    summed into the walk (the kernels named in ``walk``, with the short
-    groups' order fused in), ``other`` kernels, and the group-by (all the
-    rest: zeroing, counts, scans, fill, the long groups' order); raises if
-    a sort or a search ran."""
+def groupby_split(name, fn, walk, other, sort_free=None):
+    """Device milliseconds per call of a B.1 / B.2 / B.3 wrapper
+    (torch.profiler), summed into the walk (the kernels named in ``walk``:
+    B.1's and B.3's with the short groups' order fused in, B.2's cluster
+    sums), ``other`` kernels, and the group-by (all the rest: zeroing,
+    counts, scans, fill, the order); raises if a sort or a search ran,
+    unless ``sort_free`` (default ``GROUPBY_FREE``) is false: an older
+    package, whose sorts are only logged."""
     split = device_split(fn, reps=10)
     log_split(name, split)
     if not split:
         return {}
+    if sort_free is None:
+        sort_free = GROUPBY_FREE
     banned = [k for k in split if "sort" in k.lower() or "search" in k.lower()]
-    if banned and not GROUPBY_FREE:  # an older package (--root)
+    if banned and not sort_free:  # an older package (--root)
         log(f"  {name}: sort or search kernels ran (older package)")
     elif banned:
         raise AssertionError(f"{name}: sort or search kernels ran: {banned}")
@@ -1163,6 +1168,33 @@ def skewed_medoids(dev, args, n):
     log(f"  {B1} {shape}: wrapper {ms:.4f} ms, bit-identical to the plain "
         f"version and across two launches")
     return dict(ms=ms, max_in_degree=int(in_degree.max()))
+
+
+def skewed_hashed(args):
+    """B.2 on the block's unit vectors with the first 3,000 rows made one
+    cluster (a block's sum of 3,000 rows, and a block's sort of their ids
+    in the group-by); bit for bit against the plain version and across two
+    launches, timed, with its device split."""
+    from falcon_tpu_torch.ops import medoids as md
+
+    unit, seg, spill = args
+    seg = seg.clone()
+    m = min(3000, seg.shape[0])
+    seg[:m] = 0
+    skewed = (unit, seg, spill)
+    got = md.hashed_medoid_scores(*skewed)
+    again = md.hashed_medoid_scores(*skewed)
+    shape = f"{seg.shape[0]} rows x {unit.shape[1]}, a cluster of {m}"
+    check_bits(B2, shape, got, again, md.hashed_medoid_scores_plain(*skewed))
+    ms = kernel_ms(lambda: md.hashed_medoid_scores(*skewed), reps=10)
+    log(f"  {B2} {shape}: wrapper {ms:.4f} ms, bit-identical to the plain "
+        f"version and across two launches")
+    split = groupby_split(f"{B2} {shape}",
+                          lambda: md.hashed_medoid_scores(*skewed),
+                          ("hashed_medoid_sums", "hashed_medoid_kernel"),
+                          ("hashed_medoid_dot",),
+                          sort_free=hasattr(md, "_cluster_rows"))
+    return dict(ms=ms, cluster=m, split=split)
 
 
 def skewed_consensus(inputs, kw):
@@ -1271,14 +1303,23 @@ def phase_dbscan_kernels(dev, parity, times, report, bench_all):
     library = kernel_ms(lambda: hashed_medoid_library(*args), reps=10)
     lib_err = float((hashed_medoid_library(*args) - got)[read].abs().max())
     n_bytes = n * unit.shape[1] * 4 + n * 8
+    # Packages before B.2's group-by (a parent through --root) sort: timed
+    # and split, their sorts logged, not failed.
+    split = groupby_split(B2, lambda: md.hashed_medoid_scores(*args),
+                          ("hashed_medoid_sums", "hashed_medoid_kernel"),
+                          ("hashed_medoid_dot",),
+                          sort_free=hasattr(md, "_cluster_rows"))
     times[B2] = dict(ms=ms, plain_ms=t_plain, library_ms=library,
                      bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
                      bound_by="bytes")
+    report[f"{B2} split"] = split
     parity.err[B2] = 0.0
-    log(f"  {B2} {shape}: kernel {ms:.4f} ms, bit-identical to the plain "
-        f"version and across two launches; plain version {t_plain:.1f} ms; "
-        f"index_add_ + row dot {library:.4f} ms (max |diff| {lib_err:.3g} "
-        f"on the rows read); bound {times[B2]['bound_ms']:.5f} ms (bytes)")
+    log(f"  {B2} {shape}: wrapper {ms:.4f} ms (group-by, sums, dots), "
+        f"bit-identical to the plain version and across two launches; plain "
+        f"version {t_plain:.1f} ms; index_add_ + row dot {library:.4f} ms "
+        f"(max |diff| {lib_err:.3g} on the rows read); bound "
+        f"{times[B2]['bound_ms']:.5f} ms (bytes)")
+    report["B.2 skewed"] = skewed_hashed(args)
 
     # B.3 on the consensus input of the block's clusters (noise as
     # singletons), as consensus_spectra hands it to aggregate.

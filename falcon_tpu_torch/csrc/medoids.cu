@@ -37,14 +37,31 @@
 //      (n_pad, k) array runs, and no float atomics.
 //    Bound: bytes, the (n, k) lists read, the scores written; the mutual
 //    test reads a neighbour's list per valid edge, mostly from L2.
-// 2. falcon_hashed_medoid_scores replaces _medoid_scores (:138-174): the
-//    per-cluster sums s_C of the normalised vectors (rows in order), then
-//    v_i . s_C per row as XLA's CPU dot (a GEMV in tiles of 8) takes it:
-//    the first 8 products rounded and added in order, then one fused
-//    multiply-add per dimension in order.  One warp per cluster: lanes over dimensions
-//    sum the member rows into shared memory, then each lane scores one
-//    member.  The noise segment's sum is never read and is skipped.
-//    Bound: bytes, each member row read twice (sum, dot), one score out.
+// 2. falcon_hashed_medoid_sums + falcon_hashed_medoid_dot replace
+//    _medoid_scores (:138-174): the per-cluster sums s_C of the normalised
+//    vectors (member rows in ascending order), then v_i . s_C per row as
+//    XLA's CPU dot (a GEMV in tiles of 8) takes it: the first 8 products
+//    rounded and added in order, then one fused multiply-add per dimension
+//    in order.  That order rules out tensor cores and a split of either sum.
+//    - The wrapper puts each cluster's rows in ascending order with the
+//      group-by's own entry points (falcon_groupby_count, _fill, _order of
+//      csrc/groupby.cu, key seg, n_groups spill: noise rows are sinks).
+//    - falcon_hashed_medoid_sums: one block of HM_SUM_THREADS per
+//      cluster, never a warp, each thread owning a float4 of dimensions
+//      (several in turn when dim > 4 * HM_SUM_THREADS).  It adds the
+//      member rows with __fadd_rn in the ids' order, HM_BATCH rows in
+//      flight, each row one coalesced read of the block, and writes the
+//      sums to an (n_seg, dim) table in global memory (2 KB a cluster at
+//      dim 512, held in L2 for the dot).  A 3,000-member cluster gets
+//      128 threads over 512 dimensions, not 32 lanes.
+//    - falcon_hashed_medoid_dot: one thread per row, over every row; a warp
+//      stages its 32 rows in tiles of 32 dimensions through padded
+//      [32][33] shared tiles (coalesced 128-byte reads, no bank conflicts),
+//      two tiles a step with the next step's rows in flight, while each
+//      lane walks its own row's dimensions against its cluster's sum
+//      (float4 reads from the table).  Noise rows write 0, so every
+//      out[row < n] is written.
+//    Bound: bytes, each member row read once and one score written.
 
 #include <cuda_runtime.h>
 
@@ -150,47 +167,144 @@ __global__ void __launch_bounds__(MED_WARPS * 32) medoid_sums_kernel(
   out[t] = acc;
 }
 
-__global__ void __launch_bounds__(MED_WARPS * 32) hashed_medoid_kernel(
-    const float* __restrict__ v, int dim, const long long* __restrict__ rows,
-    const long long* __restrict__ off, int n_seg, float* __restrict__ out) {
-  extern __shared__ float4 sum_sm[];
+constexpr int HM_SUM_THREADS = 128;  // the sum kernel's block
+constexpr int HM_BATCH = 32;         // member rows in flight per thread
+constexpr int HM_DOT_WARPS = 4;      // the dot kernel's block, in warps
+constexpr int HM_DOT_SUB = 2;        // 32-dimension tiles per dot step
+
+// Each cluster's sum over its member rows items[off[s] .. off[s + 1]), in
+// that order, one dimension at a time: block s, threads over float4s of
+// dimensions.  A batch's row ids are read one a lane and broadcast with
+// shuffles, and all of its HM_BATCH row loads are issued before its first
+// add: on the H100, ids read from shared memory, or a ring that refills
+// each slot as it is added, kept fewer loads in flight, and batches of 16
+// or 8 (fewer registers) were slower on a 3,000-member cluster than they
+// were faster on clusters of ~10 (PERF.md).
+__global__ void __launch_bounds__(HM_SUM_THREADS) hashed_medoid_sums_kernel(
+    const float4* __restrict__ v, int n4, const int* __restrict__ items,
+    const int* __restrict__ off, float4* __restrict__ sums) {
+  const int s = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int beg = off[s], end = off[s + 1];
+  for (int q0 = 0; q0 < n4; q0 += HM_SUM_THREADS) {  // uniform in the block
+    const int q = q0 + threadIdx.x;
+    const bool on = q < n4;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int b = beg; b < end; b += HM_BATCH) {
+      const int mine =
+          lane < HM_BATCH && b + lane < end ? items[b + lane] : 0;
+      float4 r[HM_BATCH];
+#pragma unroll
+      for (int j = 0; j < HM_BATCH; ++j) {
+        const int row = __shfl_sync(MED_FULL, mine, j);
+        if (on && b + j < end) r[j] = v[(size_t)row * n4 + q];
+      }
+#pragma unroll
+      for (int j = 0; j < HM_BATCH; ++j) {
+        if (on && b + j < end) {
+          acc = make_float4(__fadd_rn(acc.x, r[j].x),
+                            __fadd_rn(acc.y, r[j].y),
+                            __fadd_rn(acc.z, r[j].z),
+                            __fadd_rn(acc.w, r[j].w));
+        }
+      }
+    }
+    if (on) sums[(size_t)s * n4 + q] = acc;
+  }
+}
+
+// out[i] = v_i . sums[seg[i]] in XLA's order for each row i < n, 0 for
+// the noise rows (seg[i] == spill).  Lane l of a warp owns row 32 w + l.
+// A step takes HM_DOT_SUB tiles of 32 rows x 32 dimensions; the next
+// step's rows are in flight while this step's are used.
+__global__ void __launch_bounds__(HM_DOT_WARPS * 32) hashed_medoid_dot_kernel(
+    const float* __restrict__ v, int dim, const int* __restrict__ seg, int n,
+    int spill, const float* __restrict__ sums, float* __restrict__ out) {
+  __shared__ float tile[HM_DOT_WARPS][HM_DOT_SUB][32][33];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int s = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (s >= n_seg) return;  // warps are independent
-  const int n4 = dim >> 2;
-  float4* sum = sum_sm + (size_t)warp * n4;
-  for (int q = lane; q < n4; q += 32) sum[q] = make_float4(0.f, 0.f, 0.f, 0.f);
-  const long long beg = off[s], end = off[s + 1];
-  for (long long e = beg; e < end; ++e) {
-    const float4* r = reinterpret_cast<const float4*>(v + rows[e] * dim);
-    for (int q = lane; q < n4; q += 32) {
-      const float4 a = sum[q], b = r[q];
-      sum[q] = make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
-                           __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+  const int i0 = (blockIdx.x * HM_DOT_WARPS + warp) * 32;
+  if (i0 >= n) return;  // the whole warp
+  const int i = i0 + lane;
+  const int si = i < n ? seg[i] : spill;
+  const unsigned live = __ballot_sync(MED_FULL, si != spill);
+  if (!live) {
+    if (i < n) out[i] = 0.f;
+    return;
+  }
+  float(*t)[32][33] = tile[warp];
+  // Lane l loads dimensions 4 (l % 8) .. + 3 of rows l / 8 + 4 r.
+  const int sub = lane >> 3, col = (lane & 7) * 4;
+  float4 cur[HM_DOT_SUB][8];
+  auto load = [&](int d0) {
+#pragma unroll
+    for (int u = 0; u < HM_DOT_SUB; ++u) {
+      const int d = d0 + 32 * u + col;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int row = sub + 4 * r;
+        cur[u][r] = ((live >> row) & 1u) && d < dim
+                        ? *reinterpret_cast<const float4*>(
+                              v + (size_t)(i0 + row) * dim + d)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  };
+  const float* srow = sums + (size_t)(si != spill ? si : 0) * dim;
+  float acc = 0.f;
+  load(0);
+  for (int d0 = 0; d0 < dim; d0 += 32 * HM_DOT_SUB) {
+    __syncwarp();  // the last step's tiles are read
+#pragma unroll
+    for (int u = 0; u < HM_DOT_SUB; ++u) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        float* dst = &t[u][sub + 4 * r][col];
+        dst[0] = cur[u][r].x;
+        dst[1] = cur[u][r].y;
+        dst[2] = cur[u][r].z;
+        dst[3] = cur[u][r].w;
+      }
+    }
+    __syncwarp();
+    if (d0 + 32 * HM_DOT_SUB < dim) load(d0 + 32 * HM_DOT_SUB);
+    if (si == spill) continue;
+    float4 b[HM_DOT_SUB][8];  // this step's cluster sum, all loads at once
+#pragma unroll
+    for (int u = 0; u < HM_DOT_SUB; ++u) {
+#pragma unroll
+      for (int j4 = 0; j4 < 8; ++j4) {
+        const int d = d0 + 32 * u + 4 * j4;
+        if (d < dim) {
+          b[u][j4] = __ldg(reinterpret_cast<const float4*>(srow + d));
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < HM_DOT_SUB; ++u) {
+      const float* a = t[u][lane];
+#pragma unroll
+      for (int j4 = 0; j4 < 8; ++j4) {
+        const int d = d0 + 32 * u + 4 * j4;
+        if (d >= dim) break;
+        const float4 c = b[u][j4];
+        const float* x = a + 4 * j4;
+        if (d < 8) {  // XLA's first tile of 8 products: unfused
+          acc = d == 0 ? __fmul_rn(x[0], c.x)
+                       : __fadd_rn(acc, __fmul_rn(x[0], c.x));
+          acc = __fadd_rn(acc, __fmul_rn(x[1], c.y));
+          acc = __fadd_rn(acc, __fmul_rn(x[2], c.z));
+          acc = __fadd_rn(acc, __fmul_rn(x[3], c.w));
+        } else {
+          acc = __fmaf_rn(x[0], c.x, acc);
+          acc = __fmaf_rn(x[1], c.y, acc);
+          acc = __fmaf_rn(x[2], c.z, acc);
+          acc = __fmaf_rn(x[3], c.w, acc);
+        }
+      }
     }
   }
-  __syncwarp();
-  for (long long e = beg + lane; e < end; e += 32) {
-    const float4* r = reinterpret_cast<const float4*>(v + rows[e] * dim);
-    float acc = 0.f;
-    for (int q = 0; q < 2; ++q) {  // dim >= 8: the first tile, unfused
-      const float4 a = r[q], b = sum[q];
-      acc = q == 0 ? __fmul_rn(a.x, b.x)
-                   : __fadd_rn(acc, __fmul_rn(a.x, b.x));
-      acc = __fadd_rn(acc, __fmul_rn(a.y, b.y));
-      acc = __fadd_rn(acc, __fmul_rn(a.z, b.z));
-      acc = __fadd_rn(acc, __fmul_rn(a.w, b.w));
-    }
-    for (int q = 2; q < n4; ++q) {
-      const float4 a = r[q], b = sum[q];
-      acc = __fmaf_rn(a.x, b.x, acc);
-      acc = __fmaf_rn(a.y, b.y, acc);
-      acc = __fmaf_rn(a.z, b.z, acc);
-      acc = __fmaf_rn(a.w, b.w, acc);
-    }
-    out[rows[e]] = acc;
-  }
+  if (i < n) out[i] = si == spill ? 0.f : acc;
 }
 
 }  // namespace falcon
@@ -234,30 +348,34 @@ int falcon_medoid_sums(const float* w, int* items, const int* off,
   return (int)cudaGetLastError();
 }
 
-// v (rows, dim) f32, 16-byte aligned, dim a multiple of 4 and >= 8; rows:
-// row ids
-// sorted stably by segment; off (n_seg + 1,): each segment's range.  Writes
-// out[row] for every row of segments 0 .. n_seg - 1.
-int falcon_hashed_medoid_scores(const float* v, int dim,
-                                const long long* rows, const long long* off,
-                                int n_seg, float* out, void* stream) {
+// v (rows, dim) f32, 16-byte aligned, dim a multiple of 4; items: each
+// cluster's row ids in ascending order in its range of off (n_seg + 1,)
+// (falcon_groupby_order).  Writes sums (n_seg, dim).
+int falcon_hashed_medoid_sums(const float* v, int dim, const int* items,
+                              const int* off, int n_seg, float* sums,
+                              void* stream) {
   if (n_seg <= 0 || dim <= 0) return (int)cudaGetLastError();
+  if (dim & 3) return (int)cudaErrorInvalidValue;
+  falcon::hashed_medoid_sums_kernel<<<(unsigned)n_seg,
+                                      falcon::HM_SUM_THREADS, 0,
+                                      (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(v), dim >> 2, items, off,
+      reinterpret_cast<float4*>(sums));
+  return (int)cudaGetLastError();
+}
+
+// v as above, dim >= 8; seg (n,) int32 in [0, spill], noise in spill;
+// sums (spill, dim) from falcon_hashed_medoid_sums.  Writes out (n,).
+int falcon_hashed_medoid_dot(const float* v, int dim, const int* seg, int n,
+                             int spill, const float* sums, float* out,
+                             void* stream) {
+  if (n <= 0 || dim <= 0) return (int)cudaGetLastError();
   if ((dim & 3) || dim < 8) return (int)cudaErrorInvalidValue;
-  int warps = falcon::MED_WARPS;
-  while (warps > 1 && (size_t)warps * dim * sizeof(float) > 48 * 1024) {
-    warps >>= 1;
-  }
-  const size_t bytes = (size_t)warps * dim * sizeof(float);
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        falcon::hashed_medoid_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const unsigned blocks = (unsigned)((n_seg + warps - 1) / warps);
-  falcon::hashed_medoid_kernel<<<blocks, warps * 32, bytes,
-                                 (cudaStream_t)stream>>>(v, dim, rows, off,
-                                                         n_seg, out);
+  const int per_block = falcon::HM_DOT_WARPS * 32;
+  falcon::hashed_medoid_dot_kernel<<<(unsigned)((n + per_block - 1) /
+                                                per_block),
+                                     per_block, 0, (cudaStream_t)stream>>>(
+      v, dim, seg, n, spill, sums, out);
   return (int)cudaGetLastError();
 }
 

@@ -55,8 +55,10 @@ _SIGNATURES = {
     "falcon_medoid_weights": [_p, _p, _p, _i, _i, _i, _p, _p, _p, _p, _p],
     # w, items, off, rowsum, n_pad, k, chunk, out, stream
     "falcon_medoid_sums": [_p, _p, _p, _p, _i, _i, _i, _p, _p],
-    # v, dim, rows, off, n_seg, out, stream
-    "falcon_hashed_medoid_scores": [_p, _i, _p, _p, _i, _p, _p],
+    # v, dim, items, off, n_seg, sums, stream
+    "falcon_hashed_medoid_sums": [_p, _i, _p, _p, _i, _p, _p],
+    # v, dim, seg, n, spill, sums, out, stream
+    "falcon_hashed_medoid_dot": [_p, _i, _p, _i, _i, _p, _p, _p],
     # key, n, shift, n_groups, cnt1, stream
     "falcon_groupby_count": [_p, _i, _i, _i, _p, _p],
     # key, n, shift, n_groups, off, cnt1, items, stream

@@ -23,10 +23,14 @@ order, so the three agree bit for bit; an atomic
 scatter on the card would not, and one ulp can move the medoid of tied
 (duplicate) spectra.  The sparse scores put each target's weights in
 (row, slot) order with the fixed-order group-by of ``ops/groupby.py``
-(integer atomics and a per-target sort, no sort of the whole list).  Each
-wrapper launches its kernel for CUDA tensors, counts the launch in its
-``launches`` attribute, and runs its plain version for CPU tensors.  No ``index_add_``, ``scatter_add_`` or
-``scatter_reduce_`` runs here.
+(integer atomics and a per-target sort, no sort of the whole list); the
+hashed scores put each cluster's rows in ascending order with the same
+group-by's entry points, then sum each cluster in a block and score each
+row in a thread.  Each wrapper launches its kernels for CUDA tensors
+without waiting for the card, counts one launch in its ``launches``
+attribute, and runs its plain version for CPU tensors.  No ``torch.sort``,
+``index_add_``, ``scatter_add_`` or ``scatter_reduce_`` runs on the card
+here.
 """
 
 import torch
@@ -200,7 +204,8 @@ def _check_vectors(vectors, seg):
 
 def _segments(seg: torch.Tensor, spill: int):
     """(row ids sorted stably by segment, (spill + 1,) offsets of segments
-    0 .. spill - 1 and of the spill segment's start)."""
+    0 .. spill - 1 and of the spill segment's start), for the plain
+    version."""
     sorted_seg, rows = torch.sort(seg, stable=True)
     off = torch.searchsorted(
         sorted_seg, torch.arange(spill + 1, device=seg.device,
@@ -208,23 +213,45 @@ def _segments(seg: torch.Tensor, spill: int):
     return rows, off
 
 
+def _cluster_rows(seg: torch.Tensor, spill: int, stream: int):
+    """On the card, without waiting for it: ``(off (spill + 1,), items)``,
+    int32, each cluster's row ids in ascending order in its range of
+    ``items`` (the noise rows, in ``spill``, dropped): the group-by of
+    ``ops/groupby.py``, counted, filled and ordered by position."""
+    off, items = groupby.count_and_fill(seg, spill, stream=stream)
+    _check_launch("hashed_medoid_scores", _build.library()
+                  .falcon_groupby_order(off.data_ptr(), spill,
+                                        items.data_ptr(), stream))
+    return off, items
+
+
 def hashed_medoid_scores(vectors: torch.Tensor, seg: torch.Tensor,
                          spill: int) -> torch.Tensor:
     """(n,) float32 scores ``v_i . s_C`` for the first ``n = len(seg)``
     rows of ``vectors`` (rows, dim); ``seg`` (n,) int32 is each row's
-    cluster in [0, spill], noise in ``spill``, whose rows score 0."""
+    cluster in [0, spill], noise in ``spill``, whose rows score 0.
+
+    On the card: each cluster's rows in order (the group-by), the sums (a
+    block per cluster) and the dots (a thread per row); no sort and no
+    wait for the card."""
     _check_vectors(vectors, seg)
     if vectors.device.type == "cpu":
         return hashed_medoid_scores_plain(vectors, seg, spill)
     dev = vectors.device
-    rows, off = _segments(seg, spill)
-    out = torch.zeros(seg.shape[0], dtype=torch.float32, device=dev)
+    seg, spill = seg.contiguous(), int(spill)
+    n, dim = seg.shape[0], vectors.shape[1]
+    lib = _build.library()
+    sums = torch.empty((spill, dim), dtype=torch.float32, device=dev)
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    stream = _stream(dev)
     with torch.cuda.device(dev):
-        _check_launch("hashed_medoid_scores",
-                      _build.library().falcon_hashed_medoid_scores(
-                          vectors.data_ptr(), vectors.shape[1],
-                          rows.data_ptr(), off.data_ptr(), int(spill),
-                          out.data_ptr(), _stream(dev)))
+        off, items = _cluster_rows(seg, spill, stream)
+        _check_launch("hashed_medoid_scores", lib.falcon_hashed_medoid_sums(
+            vectors.data_ptr(), dim, items.data_ptr(), off.data_ptr(),
+            spill, sums.data_ptr(), stream))
+        _check_launch("hashed_medoid_scores", lib.falcon_hashed_medoid_dot(
+            vectors.data_ptr(), dim, seg.data_ptr(), n, spill,
+            sums.data_ptr(), out.data_ptr(), stream))
     count_launch(hashed_medoid_scores)
     return out
 

@@ -478,17 +478,32 @@ def test_sparse_medoid_kernel_bit_identical_to_plain(cuda, n, n_pad, k):
     assert torch.equal(got.cpu(), md.sparse_medoid_scores_plain(*cpu))
 
 
-@pytest.mark.parametrize("dim", [512, 1664])
-def test_hashed_medoid_kernel_bit_identical_to_plain(cuda, rows, dim):
-    mz, intensity = _padded(rows, cuda)
+def _hashed_inputs(rows, device, dim, big):
+    """Unit vectors of the rows at ``dim`` with 20 duplicate rows, and 40
+    clusters (40: the spill segment); ``big``: the vectors repeated to
+    3,400 rows, the first 3,000 of them one cluster (and the last 20,
+    their duplicates)."""
+    mz, intensity = _padded(rows, device)
     hasher = vz.SpectrumHasher(101.0, 1500.0, TOL, dim - 64 if dim > 512
                                else 400, 3)
     unit = vz.normalize_rows(hasher.vectorize(mz, intensity, norm=False))
+    if big:
+        unit = unit.repeat(-(-3400 // unit.shape[0]), 1)[:3380]
     unit = torch.cat([unit, unit[:20]])  # duplicate rows
     rng = np.random.default_rng(dim)
     seg = rng.integers(0, 40, unit.shape[0]).astype(np.int32)  # 40: spill
+    if big:
+        seg[:3000] = 0
     seg[-20:] = seg[:20]
-    seg = torch.from_numpy(seg).to(cuda)
+    return unit, torch.from_numpy(seg).to(device)
+
+
+@pytest.mark.parametrize("dim,big", [
+    pytest.param(512, False, id="512"), pytest.param(1664, False, id="1664"),
+    pytest.param(512, True, id="512-cluster3000"),
+    pytest.param(1664, True, id="1664-cluster3000")])
+def test_hashed_medoid_kernel_bit_identical_to_plain(cuda, rows, dim, big):
+    unit, seg = _hashed_inputs(rows, cuda, dim, big)
     before = md.hashed_medoid_scores.launches
     got = md.hashed_medoid_scores(unit, seg, 40)
     again = md.hashed_medoid_scores(unit, seg, 40)
@@ -499,6 +514,34 @@ def test_hashed_medoid_kernel_bit_identical_to_plain(cuda, rows, dim):
     assert torch.equal(got.cpu(), md.hashed_medoid_scores_plain(
         unit.cpu(), seg.cpu(), 40))
     assert torch.equal(got[-20:], got[:20])
+    # The group-by's order: each cluster's rows ascending, noise dropped.
+    with torch.cuda.device(cuda):
+        off, items = md._cluster_rows(seg, 40, md._stream(cuda))
+    want_rows, want_off = md._segments(seg, 40)
+    assert torch.equal(off.long(), want_off.long())
+    assert torch.equal(items[:int(off[-1])].long(),
+                       want_rows[:int(want_off[-1])].long())
+
+
+def test_hashed_medoid_kernel_runs_no_sort(cuda, rows):
+    # One call's torch.profiler trace: the group-by, the sums and the dots,
+    # and no sort or search kernel.
+    from torch.profiler import ProfilerActivity, profile
+
+    unit, seg = _hashed_inputs(rows, cuda, 512, True)
+    md.hashed_medoid_scores(unit, seg, 40)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        md.hashed_medoid_scores(unit, seg, 40)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if getattr(e, "device_time_total",
+                        getattr(e, "cuda_time_total", 0.0)) > 0]
+    assert any("hashed_medoid_sums" in k for k in names), names
+    assert any("hashed_medoid_dot" in k for k in names), names
+    assert any("groupby_order" in k for k in names), names
+    assert not [k for k in names
+                if "sort" in k.lower() or "search" in k.lower()], names
 
 
 @pytest.mark.parametrize("n", [1, 37, 20000])

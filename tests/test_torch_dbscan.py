@@ -9,8 +9,9 @@ labels and medoids.
   on every row the medoid search reads; the sums take XLA's CPU order, so
   they agree bit for bit here.
 - ``hashed_medoid_scores_plain`` against ``_medoid_scores``: within 1e-6 on
-  every row the medoid search reads (the spill segment is skipped); XLA's
-  CPU dot agrees with one fused multiply-add per dimension to an ulp.
+  every row the medoid search reads (the spill segment is skipped), with
+  one cluster of 1,180 rows in one case; XLA's CPU dot agrees with one
+  fused multiply-add per dimension to an ulp.
 - ``generate_clusters`` labels and medoids identical to the JAX package's
   in dbscan mode (``auto``, ``brute`` and ``exact`` index, ``min_samples``
   2 and 3, with ``rt_tol``, with ``min_matches > 0``, in device blocks) and
@@ -83,15 +84,25 @@ def test_sparse_medoid_scores_hub_matches_jax(k):
     assert tiers_reached(in_deg, 1024) == (True, True, True)
 
 
-@pytest.mark.parametrize("n,n_pad", [(300, 512), (700, 1024)])
-def test_hashed_medoid_scores_match_jax(n, n_pad):
+@pytest.mark.parametrize("n,n_pad,big", [
+    pytest.param(300, 512, 0, id="300-512"),
+    pytest.param(700, 1024, 0, id="700-1024"),
+    # One cluster of 1,180 rows (above the group-by's warp tier of 1,024,
+    # so its rows are ordered by a block) beside small ones.
+    pytest.param(1500, 2048, 1180, id="big_cluster")])
+def test_hashed_medoid_scores_match_jax(n, n_pad, big):
     _, _, seg, n_seg = medoid_lists(n, n_pad, 8, seed=n)
+    seg[20:20 + big] = 0
     rng = np.random.default_rng(n)
     v = rng.random((n_pad, 512)) * (rng.random((n_pad, 512)) < 0.1)
     v = (v / np.maximum(np.linalg.norm(v, axis=1, keepdims=True), 1e-12)
          ).astype(np.float32)
     v[n:] = 0.0  # padded rows: zero vectors in segment 0 in JAX
     v[:10] = v[10:20]  # duplicates
+    if big:
+        v[1000:1010] = v[20:30]  # duplicates inside the big cluster
+        assert tiers_reached(np.bincount(seg[seg != n_seg - 1]),
+                             1024) == (True, False, True)
     ref = np.asarray(jax_engine._medoid_scores(jnp.asarray(v), seg, n_seg))
     args = (torch.from_numpy(v), torch.from_numpy(seg), n_seg - 1)
     before = medoids.hashed_medoid_scores.launches
@@ -102,6 +113,8 @@ def test_hashed_medoid_scores_match_jax(n, n_pad):
     read = seg != n_seg - 1
     np.testing.assert_allclose(got[read], ref[read], atol=ATOL, rtol=0)
     np.testing.assert_array_equal(got[:10], got[10:20])
+    if big:
+        np.testing.assert_array_equal(got[1000:1010], got[20:30])
     assert (got[~read] == 0).all()
 
 

@@ -1,5 +1,6 @@
-"""The fixed-order group-by under the medoid scores (B.1) and the consensus
-table (B.3), on the CPU: a mirror of its kernels' steps in numpy against
+"""The fixed-order group-by under the medoid scores (B.1, B.2) and the
+consensus table (B.3), on the CPU: a mirror of its kernels' steps in numpy
+against
 its plain version, ``ops/groupby.py::group_by_plain`` (a stable sort by
 group id and a search).
 
@@ -18,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from falcon_tpu_torch.ops import consensus, groupby
+from falcon_tpu_torch.ops import consensus, groupby, medoids
 from torch_cases import GROUPBY_CASES, groupby_keys, tiers_reached
 
 TOP = (2**63 - 1, 2**31 - 1)  # above every (order key, position)
@@ -159,6 +160,31 @@ def test_consensus_buckets_order_as_stable_sort(n, case):
         assert reached == (True, True, True)
     elif case == "one_bucket":
         assert (np.diff(off) > 0).sum() == 1
+
+
+@pytest.mark.parametrize("big", [False, True],
+                         ids=["small_clusters", "big_cluster"])
+def test_cluster_rows_of_hashed_medoids(big):
+    # B.2's use: key seg (int32), n_groups spill, noise rows in spill (a
+    # sink).  After the order step each cluster holds its rows in
+    # ascending order and the noise is dropped: what the plain version's
+    # stable sort (ops/medoids.py::_segments) gives.
+    rng = np.random.default_rng(9)
+    n, spill = 4000, 500
+    seg = rng.integers(0, spill + 1, n).astype(np.int32)
+    seg[rng.random(n) < 0.1] = spill  # more noise
+    if big:
+        seg[rng.random(n) < 0.4] = 3  # a cluster of ~1,500 rows
+    off, items = _mirror(seg, spill, 0, seed=4)
+    rows, want_off = medoids._segments(torch.from_numpy(seg), spill)
+    np.testing.assert_array_equal(off, want_off.numpy())
+    np.testing.assert_array_equal(items, rows[:int(off[-1])].numpy())
+    assert (seg[items] != spill).all()
+    assert len(items) == int((seg != spill).sum())
+    for g in range(spill):
+        assert (np.diff(items[off[g]:off[g + 1]]) > 0).all()
+    assert tiers_reached(np.diff(off), groupby.WARP_CAP) == (
+        True, False, big)
 
 
 def test_group_by_rejects_bad_inputs():
