@@ -48,7 +48,12 @@ It builds the port's CUDA kernels from ``falcon_tpu_torch/csrc`` and then:
    consensus representatives on the bench corpus, prints the pair-F1 of
    dbscan mode against ``--backend exact --linkage single`` (recorded, not
    asserted), and runs dbscan mode and the consensus export a second time,
-   which must give the same CSV and MGF bytes.
+   which must give the same CSV and MGF bytes;
+9. runs the CLI with ``--backend ann --ann_index ivf`` on the bench and
+   dense corpora, and with ``--rerank off --cluster_method dbscan`` on the
+   bench corpus, prints spectra/s, purity, completeness and the pair-F1
+   against phase 6's labels (recorded, not asserted), and runs the bench
+   corpus a second time, which must give the same CSV bytes.
 
 Phase 2 also holds the vectorize kernel (one output, and the fused plain +
 spread call) against its plain version at the bench corpus's charge-2 block
@@ -62,9 +67,14 @@ function on ``index_add_``; B.1, B.2 and B.3 also on a skewed input each
 (hub targets, a cluster of 3,000 rows, a hot key), with their device time
 split by ``torch.profiler`` into the group-by and the walk (B.2: the
 cluster sums and the row dots), which must hold no sort or search
-kernel; phase 5 also runs the default index, dbscan mode, ``--rerank
-off`` and the consensus spectra through the kernels and through the plain
-versions.
+kernel; phase 2 also holds the IVF probe scan (IVF.1) at the bench
+corpus's charge-2 block and at a dense block, and the IVF k-means update
+(IVF.2) at the bench block's training sample, against their plain versions
+bit for bit, timed beside a gather + einsum + mask and a one-hot product,
+with a torch.profiler split into the kernel, the sorts and the group-by;
+phase 5 also runs the default index, dbscan mode, ``--rerank off``, the
+consensus spectra and the IVF index through the kernels and through the
+plain versions.
 
 Every phase raises on failure, so the script exits non-zero; it also exits
 non-zero, printing no result, without a CUDA GPU.  On success the last two
@@ -106,7 +116,8 @@ K1, K2, K4, PL, VEC = ("K1 panel_scores", "K2 banded_panel_scores",
                        "vectorize")
 B1, B2, B3 = ("B.1 sparse_medoid_scores", "B.2 hashed_medoid_scores",
               "B.3 consensus aggregate")
-KERNELS = (K1, K2, K4, PL, VEC, B1, B2, B3)
+IVF1, IVF2 = "IVF.1 probe_scan", "IVF.2 kmeans_update"
+KERNELS = (K1, K2, K4, PL, VEC, B1, B2, B3, IVF1, IVF2)
 SOURCES = {K1: "falcon_tpu_torch/csrc/pairwise.cu",
            K2: "falcon_tpu_torch/csrc/exact_knn.cu",
            K4: "falcon_tpu_torch/csrc/pairwise.cu",
@@ -114,7 +125,9 @@ SOURCES = {K1: "falcon_tpu_torch/csrc/pairwise.cu",
            VEC: "falcon_tpu_torch/csrc/vectorize.cu",
            B1: "falcon_tpu_torch/csrc/medoids.cu",
            B2: "falcon_tpu_torch/csrc/medoids.cu",
-           B3: "falcon_tpu_torch/csrc/consensus.cu"}
+           B3: "falcon_tpu_torch/csrc/consensus.cu",
+           IVF1: "falcon_tpu_torch/csrc/ivf.cu",
+           IVF2: "falcon_tpu_torch/csrc/medoids.cu"}
 # The bound of a kernel's call: the larger of its bytes (each input read
 # once, each output written once) over the HBM rate and its operations over
 # the float32 rate outside the tensor cores (H100 SXM data sheet, 700 W).
@@ -137,11 +150,14 @@ REPLACES = {
     B1: "falcon_tpu/cluster/ann_engine.py:180",
     B2: "falcon_tpu/cluster/ann_engine.py:138",
     B3: "falcon_tpu/ops/consensus.py:34",
+    IVF1: "falcon_tpu/ops/ivf.py:543",
+    IVF2: "falcon_tpu/ops/ivf.py:63",
 }
 DBSCAN = ANN_DEFAULT + ["--cluster_method", "dbscan"]
 RERANK_OFF = ANN_DEFAULT + ["--rerank", "off"]
 CONSENSUS = ["--export_representatives", "--representative_method",
              "consensus"]
+IVF = ANN_DEFAULT + ["--ann_index", "ivf"]
 GROUPBY_FREE = True  # B.1 and B.3 run no sort (set by phase 2)
 
 
@@ -309,6 +325,7 @@ def wrappers():
     attribute has a plain version named ``<attribute>_plain``."""
     from falcon_tpu_torch.ops import consensus as cs
     from falcon_tpu_torch.ops import exact_knn as ex
+    from falcon_tpu_torch.ops import ivf
     from falcon_tpu_torch.ops import medoids as md
     from falcon_tpu_torch.ops import pairwise as pw
     from falcon_tpu_torch.ops import vectorize as vz
@@ -318,7 +335,8 @@ def wrappers():
             PL: [(pw, "pair_list_scores")],
             VEC: [(vz, "vectorize"), (vz, "vectorize_pair")],
             B1: [(md, "sparse_medoid_scores")],
-            B2: [(md, "hashed_medoid_scores")], B3: [(cs, "aggregate")]}
+            B2: [(md, "hashed_medoid_scores")], B3: [(cs, "aggregate")],
+            IVF1: [(ivf, "probe_scan")], IVF2: [(ivf, "kmeans_update")]}
 
 
 def launch_counts():
@@ -484,6 +502,7 @@ def phase_kernels(dev, dense_rows, bench_rows, bench_all, chain_rows,
                  {"bench": bench_rows, "dense": dense_rows}, chain_rows)
     phase_default_index(dev, parity, times, detail, report, bench_all)
     phase_dbscan_kernels(dev, parity, times, report, bench_all)
+    phase_ivf_kernels(dev, parity, times, report, bench_all, dense_rows)
     report["kernel_times_ms"] = {" | ".join(map(str, k)): v
                                  for k, v in detail.items()}
     report["kernel_bounds"] = times
@@ -1367,6 +1386,240 @@ def phase_dbscan_kernels(dev, parity, times, report, bench_all):
         report["B.3 skewed"] = skewed_consensus(inputs, kw)
 
 
+def probe_scan_library(q3d, qmz3d, qrow3d, corpus3d, cmz3d, crow3d,
+                       probe_ids, tol, tol_is_da, c0, chunk):
+    """IVF.1 as PyTorch computes it: the probed slabs gathered into a
+    (chunk, n_probe, lb, D) copy, one einsum (bf16 operands give a bf16
+    result, widened), and the same mask."""
+    import torch
+
+    probes = probe_ids[c0:c0 + chunk].long()
+    sims = torch.einsum("cqd,cpbd->cqpb", q3d[c0:c0 + chunk],
+                        corpus3d[probes]).float()
+    qm = qmz3d[c0:c0 + chunk][:, :, None, None]
+    sm = cmz3d[probes][:, None]
+    diff = qm - sm
+    mass = diff.abs() if tol_is_da else (diff / sm * 1e6).abs()
+    valid = (torch.isfinite(qm) & torch.isfinite(sm) & (mass <= tol)
+             & (qrow3d[c0:c0 + chunk][:, :, None, None]
+                != crow3d[probes][:, None]))
+    return torch.where(valid, sims, -2.0).flatten(2)
+
+
+def kmeans_update_library(vectors, assign, centroids):
+    """IVF.2 as PyTorch computes it: a one-hot float32 product (TF32 off)
+    for the sums and counts, then the renormalisation."""
+    import torch
+
+    one_hot = torch.nn.functional.one_hot(
+        assign.long(), centroids.shape[0]).float()
+    sums = one_hot.t() @ vectors
+    new = torch.where(one_hot.sum(0)[:, None] > 0, sums, centroids)
+    return new / torch.linalg.norm(new, dim=1, keepdim=True).clamp_min(1e-12)
+
+
+def kernel_split(name, fn, kernel, banned=("sort", "search"), reps=3):
+    """Device milliseconds per call of ``fn`` (torch.profiler) summed into
+    ``kernel`` (the kernels whose names hold it), the sorts, the group-by
+    (``groupby`` and ``order_long`` kernels) and the rest; raises if a
+    kernel named by ``banned`` ran."""
+    split = device_split(fn, reps=reps)
+    log_split(name, split)
+    if not split:
+        return {}
+    ran = [k for k in split if any(b in k.lower() for b in banned)]
+    if ran:
+        raise AssertionError(f"{name}: {ran} ran")
+
+    def total(*words):
+        return sum(v for k, v in split.items()
+                   if any(w in k.lower() for w in words))
+
+    out = dict(device_ms=sum(split.values()), kernel_ms=total(kernel),
+               sort_ms=total("sort"), groupby_ms=total("groupby",
+                                                       "order_long"))
+    out["other_ms"] = (out["device_ms"] - out["kernel_ms"] - out["sort_ms"]
+                       - out["groupby_ms"])
+    log(f"  {name} device time: {out['device_ms']:.4f} ms = {kernel} "
+        f"{out['kernel_ms']:.4f} + sorts {out['sort_ms']:.4f} + group-by "
+        f"{out['groupby_ms']:.4f} + other {out['other_ms']:.4f} ms")
+    out["kernels"] = split
+    return out
+
+
+def ivf_index(mz, intensity, pmz, dev):
+    """The block's IVF index as ``--ann_index ivf`` builds it under the
+    default ``--rerank exact`` (bf16 slabs of the unnormalised plain
+    vectors, spread rank vectors, the normalised spread space for the
+    quantizer), the scan's arguments (q3d, m/z, rows, slabs, m/z, rows,
+    probe ids on ``dev``) and its chunk."""
+    import torch
+
+    from falcon_tpu_torch.ops import ivf
+    from falcon_tpu_torch.ops import vectorize as vz
+    from falcon_tpu_torch.preprocess import get_dim
+
+    _, mz_min, mz_max = get_dim(101.0, 1500.0, TOL)
+    hasher = vz.SpectrumHasher(mz_min, mz_max, TOL)
+    plain, spread = hasher.vectorize_pair(mz, intensity)
+    index = ivf.IVFIndex(plain, pmz, coarse_vectors=vz.normalize_rows(spread),
+                         rank_vectors=spread)
+    n_probe, lb = min(32, index.n_lists), index._lb
+    chunk = 1
+    while (chunk * 2 * lb * n_probe * lb * 4 <= 256 * 2**20
+           and chunk * 2 <= index.n_lists):
+        chunk *= 2
+    args = (index._query3d, index._mz3d, index._row3d, index._corpus3d,
+            index._mz3d, index._row3d,
+            torch.from_numpy(index._probe_ids(n_probe)).to(dev))
+    return index, plain, args, chunk
+
+
+def phase_ivf_kernels(dev, parity, times, report, bench_all, dense_rows):
+    """Phase 2, continued: the IVF probe scan (IVF.1) at the bench corpus's
+    charge-2 block and at a dense block, and the k-means update (IVF.2) at
+    the bench block's training sample, each bit for bit against its plain
+    version and its own second launch, timed beside a PyTorch computation
+    of the same function (gather + einsum + mask; a one-hot product), with
+    its bound and a torch.profiler split."""
+    import torch
+
+    from falcon_tpu_torch.cluster import ann_engine
+    from falcon_tpu_torch.ops import ivf
+    from falcon_tpu_torch.ops import vectorize as vz
+    from falcon_tpu_torch.ops.knn import _pow2_at_least
+    from falcon_tpu_torch.preprocess import get_dim
+
+    dense = sorted(dense_rows, key=lambda r: r["precursor_mz"])
+    n_dense = _pow2_at_least(len(dense), 512)
+    mz_d = np.full((n_dense, 64), -1e6, np.float32)
+    int_d = np.zeros((n_dense, 64), np.float32)
+    mz_d[:len(dense)], int_d[:len(dense)] = padded(dense)
+    blocks = {"bench": bench_block(bench_all, dev),
+              "dense": (torch.from_numpy(mz_d).to(dev),
+                        torch.from_numpy(int_d).to(dev),
+                        np.asarray([r["precursor_mz"] for r in dense]))}
+    for name, (mz, intensity, pmz) in blocks.items():
+        t0 = time.perf_counter()
+        index, plain, args, chunk = ivf_index(mz, intensity, pmz, dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        n, lb, n_lists = len(pmz), index._lb, index.n_lists
+        n_probe, dim = args[-1].shape[1], plain.shape[1]
+        calls = [args + (20.0, False, c0, chunk)
+                 for c0 in range(0, n_lists, chunk)]
+        n_valid = n_out = 0
+        for call in calls:
+            got, again = ivf.probe_scan(*call), ivf.probe_scan(*call)
+            want = ivf.probe_scan_plain(*call)
+            check_bits(IVF1, f"{name} block, lists {call[-2]}+{chunk}", got,
+                       again, want)
+            n_valid += int((want > -2.0).sum())
+            n_out += want.numel()
+        shape = (f"{name} block: {n} spectra, {n_lists} lists of {lb} slots,"
+                 f" {n_probe} probes, chunks of {chunk} lists, 20 ppm, "
+                 f"{n_valid} unmasked of {n_out} pairs")
+        ms = kernel_ms(lambda: [ivf.probe_scan(*c) for c in calls],
+                       reps=3) / len(calls)
+        _, t_plain = plain_ms(lambda: [ivf.probe_scan_plain(*c)
+                                       for c in calls])
+        library = kernel_ms(lambda: [probe_scan_library(*c) for c in calls],
+                            reps=3) / len(calls)
+        lib_err = max(float((probe_scan_library(*c) - ivf.probe_scan(*c))
+                            .abs().max()) for c in calls)
+        # Bytes: each chunk's queries, the probed slabs and the slots' m/z
+        # and rows read once, the scores written; operations: a dot of
+        # bf16 operands per unmasked pair, and the mask's few per pair.
+        probed = sum(int(torch.unique(c[6][c[-2]:c[-2] + chunk]).numel())
+                     for c in calls)
+        n_bytes = (n_out * 4 + n_lists * lb * (dim * 2 + 8)
+                   + probed * lb * (dim * 2 + 8) + args[-1].numel() * 4)
+        op_ms = (n_valid * 2 * dim / BF16_OPS_PER_S
+                 + n_out * 6 / F32_OPS_PER_S) * 1e3 / len(calls)
+        byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3 / len(calls)
+        bound_ms, bound_by = max((byte_ms, "bytes"), (op_ms, "operations"))
+        # The engine's search width at the CLI's defaults (n_neighbors 64,
+        # n_neighbors_ann 128, 20 ppm).
+        _, k_ivf = ann_engine.ivf_widths(
+            ann_engine.band_spans(pmz, 20.0, "ppm"), 64, 128, True)
+
+        def search():
+            return index.search(plain, pmz, np.arange(n, dtype=np.int32),
+                                k_ivf, n_probe=32, tol_mass=20.0,
+                                tol_mode="ppm")
+
+        t0 = time.perf_counter()
+        search()
+        search_s = time.perf_counter() - t0
+        split = kernel_split(f"{IVF1} {name} search", search,
+                             "ivf_probe_scan", banned=(), reps=2)
+        entry = dict(ms=ms, plain_ms=t_plain / len(calls),
+                     library_ms=library, bound_ms=bound_ms,
+                     bound_by=bound_by, chunks=len(calls),
+                     unmasked_pairs=n_valid, pairs=n_out, lists=n_lists,
+                     lb=lb, build_s=build_s, search_s=search_s, k=k_ivf,
+                     split=split)
+        report[f"{IVF1} {name}"] = entry
+        if name == "bench":
+            times[IVF1] = {k: entry[k] for k in ("ms", "plain_ms",
+                                                 "library_ms", "bound_ms",
+                                                 "bound_by")}
+        log(f"  {IVF1} {shape}: {ms:.4f} ms a chunk, bit-identical to the "
+            f"plain version and across two launches; plain version "
+            f"{t_plain / len(calls):.1f} ms a chunk; gather + einsum + mask "
+            f"{library:.4f} ms (max |diff| {lib_err:.3g}); bound "
+            f"{bound_ms:.5f} ms ({bound_by}); index built in {build_s:.2f} s,"
+            f" search (k={k_ivf}) {search_s:.3f} s")
+        if name == "bench":
+            n_lists_bench = index.n_lists
+        del index, plain, args, calls, got, again, want
+    parity.err[IVF1] = 0.0
+
+    # IVF.2 at the bench block's training sample, from its initial rows,
+    # as the index trains: the normalised spread vectors.
+    mz, intensity, pmz = blocks["bench"]
+    n, n_lists = len(pmz), n_lists_bench
+    _, mz_min, mz_max = get_dim(101.0, 1500.0, TOL)
+    coarse = vz.normalize_rows(vz.SpectrumHasher(mz_min, mz_max, TOL)
+                               .vectorize(mz, intensity, norm=False,
+                                          spread=True))
+    sample = min(ivf._bucket(n_lists * 128, 1024), ivf._bucket(n, 512))
+    train_rows = (np.arange(sample) * max(n // sample, 1)) % n
+    init_rows = np.random.default_rng(42).choice(n, n_lists, replace=False)
+    train = coarse[torch.from_numpy(train_rows).to(dev)].contiguous()
+    centroids = coarse[torch.from_numpy(init_rows).to(dev)]
+    assign = torch.argmax(train @ centroids.t(), dim=1).int()
+    args = (train, assign, centroids)
+    got = ivf.kmeans_update(*args)
+    again = ivf.kmeans_update(*args)
+    want, t_plain = plain_ms(lambda: ivf.kmeans_update_plain(*args))
+    sizes = torch.bincount(assign.long(), minlength=n_lists)
+    shape = (f"{sample} x {train.shape[1]} training rows, {n_lists} lists "
+             f"(largest {int(sizes.max())}, {int((sizes == 0).sum())} empty)")
+    check_bits(IVF2, shape, got, again, want)
+    ms = kernel_ms(lambda: ivf.kmeans_update(*args), reps=20)
+    library = kernel_ms(lambda: kmeans_update_library(*args), reps=20)
+    lib_err = float((kmeans_update_library(*args) - got).abs().max())
+    n_bytes = (train.numel() * 4 + assign.numel() * 4
+               + 2 * centroids.numel() * 4)
+    split = kernel_split(IVF2, lambda: ivf.kmeans_update(*args),
+                         "hashed_medoid_sums", reps=10)
+    fit_ms = kernel_ms(lambda: ivf._kmeans_fit(train, centroids, n_lists,
+                                               10), reps=2)
+    times[IVF2] = dict(ms=ms, plain_ms=t_plain, library_ms=library,
+                       bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
+                       bound_by="bytes")
+    report[IVF2] = dict(times[IVF2], split=split, fit_10_steps_ms=fit_ms,
+                        rows=sample, lists=n_lists)
+    parity.err[IVF2] = 0.0
+    log(f"  {IVF2} {shape}: wrapper {ms:.4f} ms (group-by, sums, "
+        f"renormalisation), bit-identical to the plain version and across "
+        f"two launches; plain version {t_plain:.1f} ms; one-hot product "
+        f"{library:.4f} ms (max |diff| {lib_err:.3g}); bound "
+        f"{times[IVF2]['bound_ms']:.5f} ms (bytes); 10 Lloyd steps "
+        f"{fit_ms:.3f} ms")
+
+
 def read_labels(csv_path: str):
     """spectrum_id -> cluster label from the CLI's CSV."""
     with open(csv_path, newline="") as f:
@@ -1536,7 +1789,11 @@ def phase_whole_path_new(dev, rows, tmp, report):
              dict(cluster_method="dbscan", ann_index="exact"), [K2, B1]),
             ("rerank off, linkage", dict(rerank="off"), [VEC]),
             ("rerank off, dbscan mode",
-             dict(rerank="off", cluster_method="dbscan"), [VEC, B2])):
+             dict(rerank="off", cluster_method="dbscan"), [VEC, B2]),
+            ("ivf index", dict(ann_index="ivf"), [VEC, IVF1, IVF2, PL]),
+            ("ivf index, rerank off, dbscan mode",
+             dict(ann_index="ivf", rerank="off", cluster_method="dbscan"),
+             [VEC, IVF1, IVF2, B2])):
         compare_kernels_with_plain(f"whole path, {name}", report, dev,
                                    required, lambda kw=kw: cluster(**kw),
                                    len(rows))
@@ -1689,6 +1946,46 @@ def phase_new_paths(bench_spectra, bench_truth, dense_spectra, dense_truth,
     return launches
 
 
+def phase_ivf_paths(bench_spectra, bench_truth, dense_spectra, dense_truth,
+                    tmp, report):
+    """Phase 9: ``--backend ann --ann_index ivf`` on the bench and dense
+    corpora with its defaults, and on the bench corpus with ``--rerank off
+    --cluster_method dbscan``, at full width; returns each run's launch
+    counts.  The pair-F1 against phase 6's ann-exact labels is recorded,
+    not asserted (the index probes a share of the lists, so it may miss
+    neighbours), and so is the pair-F1 against phase 7's or 8's run of the
+    same mode on the default index; purity is held to the floor of the
+    other ann phases in the same mode, and a second bench run must write
+    the same CSV bytes."""
+    log("== phase 9: main path, --backend ann --ann_index ivf")
+    launches = []
+    off_dbscan = ["--rerank", "off", "--cluster_method", "dbscan"]
+    for name, spectra, truth, flags, required, min_purity, same_mode in (
+            ("ivf_bench_corpus", bench_spectra, bench_truth, IVF,
+             [VEC, IVF1, IVF2, PL, K4], 0.99, "default_ann_bench_corpus"),
+            ("ivf_dense_corpus", dense_spectra, dense_truth, IVF,
+             [VEC, IVF1, IVF2, PL], 0.99, "default_ann_dense_corpus"),
+            ("ivf_rerank_off_dbscan_bench_corpus", bench_spectra,
+             bench_truth, IVF + off_dbscan, [VEC, IVF1, IVF2, B2], 0.5,
+             "rerank_off_dbscan_bench_corpus")):
+        log(f"  {name}")
+        launches.append(phase_main_path(
+            name, spectra, truth, tmp, report, required,
+            flags + ["--overwrite"], min_completeness=0.0,
+            min_purity=min_purity))
+        ref = "ann_dense_corpus" if "dense" in name else "ann_bench_corpus"
+        for other in (ref, same_mode):
+            agreement = pair_f1(report, name, other)
+            report[f"{name}_vs_{other}"] = agreement
+            log(f"  pair agreement with {other}'s labels: F1 "
+                f"{agreement['f1']:.6f} (precision "
+                f"{agreement['precision']:.6f}, recall "
+                f"{agreement['recall']:.6f}; recorded, not asserted)")
+    check_repeatable("ivf_bench_corpus", bench_spectra, bench_truth, tmp,
+                     tuple(IVF + ["--overwrite"]))
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--report", help="also write the results as JSON")
@@ -1810,6 +2107,9 @@ def main() -> int:
         launches.extend(phase_new_paths(
             bench_spectra, bench_truth, dense_spectra, dense_truth, chains,
             chain_truth, tmp, report))
+        launches.extend(phase_ivf_paths(
+            bench_spectra, bench_truth, dense_spectra, dense_truth, tmp,
+            report))
     report.pop("labels")
 
     kernels = [

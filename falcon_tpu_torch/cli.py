@@ -9,12 +9,10 @@ package's byte for byte apart from the ``# work_dir`` line, and its MGF
 byte for byte.  Clustering runs on the device named by
 ``FALCON_TPU_TORCH_DEVICE`` (default ``cuda``): the exact backend's engine
 (``cluster/engine.py``), or with ``--backend ann`` the ann engine
-(``cluster/ann_engine.py``; ``--ann_index auto``, ``brute`` or ``exact``,
-``--rerank exact`` or ``off``, ``--cluster_method linkage`` or
-``dbscan``), whose charges run two at a time when each fits one device
-block, as in the JAX package.
-
-Not ported yet, and refused with exit code 1: ``--ann_index ivf``.
+(``cluster/ann_engine.py``; ``--ann_index auto``, ``brute``, ``exact`` or
+``ivf`` with ``--n_probe``, ``--rerank exact`` or ``off``,
+``--cluster_method linkage`` or ``dbscan``), whose charges run two at a
+time when each fits one device block, as in the JAX package.
 """
 
 import logging
@@ -55,15 +53,6 @@ def main(args: Union[str, List[str], None] = None,
             shutil.rmtree(path, ignore_errors=True)
 
 
-def _not_ported() -> Union[str, None]:
-    """Why the parsed configuration cannot run on the port, or None."""
-    if config.backend == "ann" and config.ann_index == "ivf":
-        return ("--backend ann with --ann_index ivf is not yet ported to "
-                "falcon_tpu_torch; use --ann_index auto, brute or exact, or "
-                "the JAX package (python -m falcon_tpu)")
-    return None
-
-
 def _run(args: Union[str, List[str], None], cleanup: list,
          collect: Union[dict, None] = None) -> int:
     # Configure logging.  Idempotent: repeated main() calls in one process
@@ -100,13 +89,6 @@ def _run(args: Union[str, List[str], None], cleanup: list,
     ):
         logger.debug("%s = %s", key, config[key])
 
-    reason = _not_ported()
-    if reason is not None:
-        logger.error(reason)
-        logging.shutdown()
-        if collect is not None:
-            raise NotImplementedError(reason)
-        return 1
     device = resolve_device()
     logger.info("Device: %s", device)
 
@@ -390,6 +372,7 @@ def _generate_for_charge(dataset, mz_min: float, mz_max: float, device):
         low_dim=config.low_dim,
         n_neighbors=config.n_neighbors,
         n_neighbors_ann=config.n_neighbors_ann,
+        n_probe=config.n_probe,
         hash_seed=config.hash_seed,
         min_mz=mz_min,
         max_mz=mz_max,

@@ -20,6 +20,13 @@ same labels and medoids:
    - ``--ann_index auto`` or ``brute`` with ``--rerank off``: the exact
      top ``n_neighbors`` of the cosines of L2-normalised hashed vectors, in
      full float32; eps is thresholded on those cosines;
+   - ``--ann_index ivf``: the IVF index (``ops/ivf.py``), its quantizer
+     trained on the normalised spread vectors; with ``--rerank exact`` it
+     ranks the upper bounds ``spread_i . plain_j`` in bfloat16 (the
+     probe-scan kernel, IVF.1), cuts the lists to ``k_ann``, filters them
+     by RT on the host and scores the first power-of-two columns covering
+     the widest band exactly; with ``--rerank off`` it ranks the cosines
+     of the normalised plain vectors in float32, cut to ``n_neighbors``;
 
    then DBSCAN on the lists (``ops/density.py``): with ``min_samples = 1``
    under ``--cluster_method linkage`` (the eps-connected components),
@@ -58,8 +65,8 @@ the JAX package's total coverage, ``k_ann * widen_passes`` (at most
 ``tests/test_torch_ann.py`` holds this against the JAX package in both of
 its modes (certified, and forced exact multi-pass).  The exact index does
 not hash: the JAX package's chain hashes every block into vectors that
-index never reads.  ``--ann_index ivf`` is not ported yet and raises
-``NotImplementedError``.
+index never reads.  The IVF index takes one retrieval in both packages;
+``tests/test_torch_ivf.py`` holds its labels against the JAX package's.
 """
 
 import logging
@@ -75,7 +82,8 @@ from ..ops import medoids as medoid_ops
 from ..ops import pairwise
 from ..ops.density import dbscan
 from ..ops.exact_knn import exact_banded_topk
-from ..ops.knn import _pow2_at_least, knn_banded
+from ..ops.ivf import IVFIndex
+from ..ops.knn import NEG, _pow2_at_least, knn_banded
 from ..ops.matching import f32_tolerance
 from ..ops.rerank import rerank_exact
 from ..ops.vectorize import SpectrumHasher, normalize_rows
@@ -154,6 +162,7 @@ def generate_clusters(
     low_dim: int = 400,
     n_neighbors: int = 64,
     n_neighbors_ann: int = 128,
+    n_probe: int = 32,
     hash_seed: int = 0,
     min_mz: float = 101.0,
     max_mz: float = 1500.0,
@@ -175,11 +184,12 @@ def generate_clusters(
     hashed vectors (the scan's, the pruned linkage bound's and, under
     ``rerank="off"``, the scan's cosines and the medoids');
     ``n_neighbors_ann`` is the scan's retrieval width before widening;
+    ``n_probe`` the lists each IVF query scans (``ann_index="ivf"``);
     ``device``: see ``falcon_tpu_torch.device.resolve_device``.
     """
-    if ann_index not in ("auto", "brute", "exact"):
-        raise NotImplementedError(
-            f"--ann_index {ann_index} is not yet ported to falcon_tpu_torch")
+    if ann_index not in ("auto", "brute", "exact", "ivf"):
+        raise ValueError(f"ann_index must be 'auto', 'brute', 'exact' or "
+                         f"'ivf', got {ann_index!r}")
     if rerank not in ("exact", "off"):
         raise ValueError(f"rerank must be 'exact' or 'off', got {rerank!r}")
     if cluster_method not in ("linkage", "dbscan"):
@@ -227,7 +237,7 @@ def generate_clusters(
             offsets, mz_flat, int_flat, order[b0:b1], mz_sorted[b0:b1],
             rt_sorted[b0:b1], hasher, pad_to, eps, min_samples, min_matches,
             precursor_tol_mass, precursor_tol_mode, rt_tol, fragment_tol,
-            n_neighbors, n_neighbors_ann, ann_index == "exact", rerank,
+            n_neighbors, n_neighbors_ann, n_probe, ann_index, rerank,
             cluster_method, linkage, batch_size, dev)
         mask = final_b >= 0
         final_b = final_b.astype(np.int32)
@@ -253,8 +263,9 @@ def generate_clusters(
 def _cluster_range(offsets, mz_flat, int_flat, order, mz_sorted, rt_sorted,
                    hasher, pad_to, eps, min_samples, min_matches,
                    precursor_tol_mass, precursor_tol_mode, rt_tol,
-                   fragment_tol, n_neighbors, n_neighbors_ann, exact_index,
-                   rerank, cluster_method, linkage, batch_size, dev):
+                   fragment_tol, n_neighbors, n_neighbors_ann, n_probe,
+                   ann_index, rerank, cluster_method, linkage, batch_size,
+                   dev):
     """Cluster one device block (a sorted precursor-m/z range).
 
     Returns (labels in sorted-range order, -1 = noise, numbered from 0;
@@ -266,6 +277,7 @@ def _cluster_range(offsets, mz_flat, int_flat, order, mz_sorted, rt_sorted,
     if cluster_method == "linkage":
         min_samples = 1
     k_final = min(n_neighbors, max(n - 1, 1))
+    exact_index = ann_index == "exact"
     do_rerank = rerank == "exact" and not exact_index
     with profiler.phase("ann: upload"):
         mz_pad, int_pad = upload_padded_peaks(
@@ -280,6 +292,11 @@ def _cluster_range(offsets, mz_flat, int_flat, order, mz_sorted, rt_sorted,
                 rts=rt_sorted if rt_tol is not None else None,
                 rt_tol=rt_tol, min_matches=min_matches)
             synchronize(dev)
+    elif ann_index == "ivf":
+        sims, neigh, unit = _ivf_lists(
+            mz_pad, int_pad, mz_sorted, rt_sorted, hasher, min_matches,
+            precursor_tol_mass, precursor_tol_mode, rt_tol, fragment_tol,
+            k_final, n_neighbors_ann, n_probe, do_rerank, dev)
     elif do_rerank:
         sims, neigh = _prefilter_rerank(
             mz_pad, int_pad, mz_sorted, rt_sorted, hasher, eps, min_matches,
@@ -333,21 +350,27 @@ def _cluster_range(offsets, mz_flat, int_flat, order, mz_sorted, rt_sorted,
                                rt_tol, min_samples, medoid_scores)
 
 
-def scan_width(mz_sorted: np.ndarray, tol_mass: float, tol_mode: str,
-               k_final: int, n_neighbors_ann: int) -> int:
-    """Candidates per row of the upper-bound scan: the JAX package's
-    ``k_ann`` (``n_neighbors_ann``, widened in powers of two for dense
-    bands up to its per-pass cap) times its boundary-continued passes,
-    with its log lines, at most ``n - 1``."""
-    n = len(mz_sorted)
-    k_ann = min(max(n_neighbors_ann, k_final), max(n - 1, 1))
+def band_spans(mz_sorted: np.ndarray, tol_mass: float,
+               tol_mode: str) -> np.ndarray:
+    """Spectra in each row's precursor band (itself included), the JAX
+    package's host estimate."""
     if tol_mode == "Da":
         lo_vals, hi_vals = mz_sorted - tol_mass, mz_sorted + tol_mass
     else:
         lo_vals = mz_sorted / (1 + tol_mass / 1e6)
         hi_vals = mz_sorted / (1 - tol_mass / 1e6)
-    spans = (np.searchsorted(mz_sorted, hi_vals, side="right")
-             - np.searchsorted(mz_sorted, lo_vals, side="left"))
+    return (np.searchsorted(mz_sorted, hi_vals, side="right")
+            - np.searchsorted(mz_sorted, lo_vals, side="left"))
+
+
+def widened_k(spans: np.ndarray, k_final: int,
+              n_neighbors_ann: int) -> int:
+    """The JAX package's ``k_ann`` of a rerank path: ``n_neighbors_ann``
+    (at least ``k_final``, at most ``n - 1``), widened in powers of two for
+    dense bands up to its per-pass cap, with its log line.  ``spans``:
+    ``band_spans`` of the ``n`` rows."""
+    n = len(spans)
+    k_ann = min(max(n_neighbors_ann, k_final), max(n - 1, 1))
     span_max = int(spans.max(initial=1)) - 1  # candidates excl. self
     if span_max <= k_ann:
         return k_ann
@@ -367,11 +390,21 @@ def scan_width(mz_sorted: np.ndarray, tol_mass: float, tol_mode: str,
             "(per-pass budget %d)", span_max,
             100.0 * float((spans - 1 > k_ann).mean()), k_ann, new_k,
             per_pass)
-        k_ann = new_k
-    passes = 1
-    if span_max > k_ann:
-        passes = max(1, -(-min(MAX_NEIGHBORS, span_max, max(n - 1, 1))
-                          // k_ann))
+    return new_k
+
+
+def scan_width(mz_sorted: np.ndarray, tol_mass: float, tol_mode: str,
+               k_final: int, n_neighbors_ann: int) -> int:
+    """Candidates per row of the upper-bound scan: ``widened_k`` times the
+    JAX package's boundary-continued passes, with its log lines, at most
+    ``n - 1``."""
+    n = len(mz_sorted)
+    spans = band_spans(mz_sorted, tol_mass, tol_mode)
+    k_ann = widened_k(spans, k_final, n_neighbors_ann)
+    span_max = int(spans.max(initial=1)) - 1
+    if span_max <= k_ann:
+        return k_ann
+    passes = max(1, -(-min(MAX_NEIGHBORS, span_max, max(n - 1, 1)) // k_ann))
     if span_max > k_ann * passes:
         logger.warning(
             "%.1f%% of rows have more in-band candidates (max %d) than the "
@@ -380,6 +413,19 @@ def scan_width(mz_sorted: np.ndarray, tol_mass: float, tol_mode: str,
             100.0 * float((spans - 1 > k_ann * passes).mean()), span_max,
             k_ann * passes)
     return min(k_ann * passes, max(n - 1, 1))
+
+
+def ivf_widths(spans: np.ndarray, k_final: int, n_neighbors_ann: int,
+               do_rerank: bool) -> Tuple[int, int]:
+    """``--ann_index ivf``'s (k_ann, k_ivf): the width its lists are cut
+    to (``widened_k``, without the scan's pass multiplier, under the
+    rerank; else ``k_final``) and the k it searches (at least
+    ``n_neighbors_ann``, at most ``n - 1``).  ``spans``: ``band_spans``
+    of the ``n`` rows."""
+    n = len(spans)
+    k_ann = (widened_k(spans, k_final, n_neighbors_ann) if do_rerank
+             else k_final)
+    return k_ann, min(max(n_neighbors_ann, k_ann), max(n - 1, 1))
 
 
 def compact_candidates(bounds: torch.Tensor, neigh: torch.Tensor,
@@ -426,6 +472,68 @@ def _prefilter_rerank(mz_pad, int_pad, mz_sorted, rt_sorted, hasher, eps,
                                sims)
         synchronize(dev)
     return sims, neigh
+
+
+def _ivf_lists(mz_pad, int_pad, mz_sorted, rt_sorted, hasher, min_matches,
+               precursor_tol_mass, precursor_tol_mode, rt_tol, fragment_tol,
+               k_final, n_neighbors_ann, n_probe, do_rerank, dev):
+    """``--ann_index ivf`` (``falcon_tpu/cluster/ann_engine.py``,
+    :830-912 and the rerank's compaction at :1082-1092): (scores, ids,
+    unit vectors or None), the lists as the other indexes return them.
+
+    The quantizer trains on the normalised spread vectors.  With the
+    rerank, the index holds the unnormalised plain vectors in bfloat16 and
+    ranks the upper bounds ``spread_i . plain_j``; the lists, cut to
+    ``k_ann`` and filtered by RT, are scored exactly in their first
+    power-of-two (at least 16) columns covering the widest band.  Without
+    it, the index holds the normalised plain vectors in float32 and its
+    cosines, cut to ``k_final``, are the lists (and the unit vectors are
+    returned for the medoids)."""
+    n = len(mz_sorted)
+    spans = band_spans(mz_sorted, precursor_tol_mass, precursor_tol_mode)
+    k_ann, k_ivf = ivf_widths(spans, k_final, n_neighbors_ann, do_rerank)
+    with profiler.phase("ann: vectorize"):
+        plain, spread = hasher.vectorize_pair(mz_pad, int_pad)
+        coarse = normalize_rows(spread)
+        unit = None if do_rerank else normalize_rows(plain)
+        synchronize(dev)
+    with profiler.phase("ann: knn"):
+        vectors, rank = (plain, spread) if do_rerank else (unit, None)
+        index = IVFIndex(vectors, mz_sorted, n_lists=None, seed=42,
+                         precise=not do_rerank, coarse_vectors=coarse,
+                         rank_vectors=rank)
+        del coarse, spread, rank
+        sims, neigh = index.search(
+            vectors, mz_sorted, np.arange(n, dtype=np.int32), k_ivf,
+            n_probe=n_probe, tol_mass=precursor_tol_mass,
+            tol_mode=precursor_tol_mode, precise=not do_rerank)
+        del index, vectors, plain
+        sims, neigh = sims[:, :k_ann], neigh[:, :k_ann]
+        if rt_tol is not None:
+            neigh_rt = np.where(
+                neigh >= 0, rt_sorted[np.clip(neigh, 0, n - 1)], np.inf)
+            bad = np.abs(neigh_rt - rt_sorted[:, None]) > rt_tol
+            sims = np.where(bad, float(NEG), sims)
+            neigh = np.where(bad, -1, neigh)
+        synchronize(dev)
+    if not do_rerank:
+        return (torch.from_numpy(np.ascontiguousarray(sims)).to(dev),
+                torch.from_numpy(neigh.astype(np.int64)).to(dev), unit)
+    with profiler.phase("ann: rerank"):
+        # The lists are sorted by bound with -1 at the tail: score the
+        # columns that the widest band can fill.
+        real_k = max(min(int(spans.max(initial=1)) - 1, k_ann), 1)
+        width = min(_pow2_at_least(real_k, 16), neigh.shape[1])
+        ids = np.full((mz_pad.shape[0], width), -1, np.int64)
+        ids[:n] = neigh[:, :width]
+        sims, neigh, n_match = rerank_exact(
+            mz_pad, int_pad, torch.from_numpy(ids).to(dev), fragment_tol,
+            k_final)
+        if min_matches > 0:
+            sims = torch.where((neigh >= 0) & (n_match < min_matches), 0.0,
+                               sims)
+        synchronize(dev)
+    return sims, neigh, None
 
 
 def _linkage_refine_and_medoids(

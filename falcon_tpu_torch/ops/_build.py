@@ -73,6 +73,10 @@ _SIGNATURES = {
     # keys_out, int_sum, mzint_sum, members, stream
     "falcon_consensus_compact": [_p, _p, _i, _p, _p, _p, _p, _p, _p, _p, _p,
                                  _p],
+    # q, c, qmz, qrow, cmz, crow, probe_ids, qlb, lb, dim, n_probe, c0,
+    # chunk, tol, tol_is_da, bf16, out, stream
+    "falcon_ivf_probe_scan": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
+                              _i, _f, _i, _i, _p, _p],
 }
 
 

@@ -225,6 +225,20 @@ def _cluster_rows(seg: torch.Tensor, spill: int, stream: int):
     return off, items
 
 
+def cluster_sums(vectors: torch.Tensor, seg: torch.Tensor, spill: int,
+                 sums: torch.Tensor, stream: int) -> torch.Tensor:
+    """On the card, inside the caller's ``torch.cuda.device`` and without
+    waiting for it: ``sums`` (spill, dim) filled with each cluster's sum of
+    its rows of ``vectors`` in ascending row order (the group-by, then a
+    block per cluster); the rows in ``spill`` are dropped.  Returns the
+    group-by's offsets (spill + 1,), int32."""
+    off, items = _cluster_rows(seg, spill, stream)
+    _check_launch("cluster_sums", _build.library().falcon_hashed_medoid_sums(
+        vectors.data_ptr(), vectors.shape[1], items.data_ptr(),
+        off.data_ptr(), spill, sums.data_ptr(), stream))
+    return off
+
+
 def hashed_medoid_scores(vectors: torch.Tensor, seg: torch.Tensor,
                          spill: int) -> torch.Tensor:
     """(n,) float32 scores ``v_i . s_C`` for the first ``n = len(seg)``
@@ -245,10 +259,7 @@ def hashed_medoid_scores(vectors: torch.Tensor, seg: torch.Tensor,
     out = torch.empty(n, dtype=torch.float32, device=dev)
     stream = _stream(dev)
     with torch.cuda.device(dev):
-        off, items = _cluster_rows(seg, spill, stream)
-        _check_launch("hashed_medoid_scores", lib.falcon_hashed_medoid_sums(
-            vectors.data_ptr(), dim, items.data_ptr(), off.data_ptr(),
-            spill, sums.data_ptr(), stream))
+        cluster_sums(vectors, seg, spill, sums, stream)
         _check_launch("hashed_medoid_scores", lib.falcon_hashed_medoid_dot(
             vectors.data_ptr(), dim, seg.data_ptr(), n, spill,
             sums.data_ptr(), out.data_ptr(), stream))
@@ -266,15 +277,9 @@ def hashed_medoid_scores_plain(vectors: torch.Tensor, seg: torch.Tensor,
     XLA's CPU order: the first 8 products rounded and added in order (XLA's
     first GEMV tile), then one fused multiply-add per dimension."""
     n = seg.shape[0]
-    dev = vectors.device
     dim = vectors.shape[1]
-    rows, off = _segments(seg, spill)
-    sizes = off[1:] - off[:-1]
-    sums = torch.zeros((spill + 1, dim), dtype=torch.float32, device=dev)
-    segs = torch.arange(spill, device=dev)
-    for p in range(int(sizes.max()) if spill else 0):
-        has = sizes > p
-        sums[segs[has]] = sums[segs[has]] + vectors[rows[off[:-1][has] + p]]
+    sums = torch.cat([segment_sums_plain(vectors, seg, spill),
+                      vectors.new_zeros((1, dim))])
     v = vectors[:n]
     s = sums[seg.long()]
     acc = v[:, 0] * s[:, 0]
@@ -283,3 +288,20 @@ def hashed_medoid_scores_plain(vectors: torch.Tensor, seg: torch.Tensor,
     for d in range(8, dim):
         acc = _fma(v[:, d], s[:, d], acc)
     return torch.where(seg == spill, 0.0, acc)
+
+
+def segment_sums_plain(vectors: torch.Tensor, seg: torch.Tensor,
+                       spill: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`cluster_sums` (any device): the
+    (spill, dim) float32 sums of each segment's rows of ``vectors``, added
+    one row after another in ascending row order from zero; empty segments
+    sum to zero and the rows in ``spill`` are dropped."""
+    rows, off = _segments(seg, spill)
+    sizes = off[1:] - off[:-1]
+    sums = torch.zeros((spill, vectors.shape[1]), dtype=torch.float32,
+                       device=vectors.device)
+    segs = torch.arange(spill, device=vectors.device)
+    for p in range(int(sizes.max()) if spill else 0):
+        has = sizes > p
+        sums[segs[has]] = sums[segs[has]] + vectors[rows[off[:-1][has] + p]]
+    return sums

@@ -244,12 +244,14 @@ def test_ann_engine_matches_jax(dataset, case, monkeypatch):
 
 
 def test_unported_engine_options_raise(dataset, monkeypatch):
-    # --rerank off and dbscan mode are ported (tests/test_torch_dbscan.py
-    # holds them against the JAX package); the IVF index and several GPUs
-    # are not.  The multi-GPU refusal is reached without a GPU: the engine
+    # --rerank off, dbscan mode (tests/test_torch_dbscan.py) and the IVF
+    # index (tests/test_torch_ivf.py) are ported: the IVF index runs and
+    # gives the JAX package's labels and medoids.  Several GPUs are not
+    # ported.  The multi-GPU refusal is reached without a GPU: the engine
     # only counts the visible cards before it clusters.
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        _generate(ann_engine, dataset, ann_index="ivf")
+    for got, want in zip(_generate(ann_engine, dataset, ann_index="ivf"),
+                         _generate(jax_engine, dataset, ann_index="ivf")):
+        np.testing.assert_array_equal(got, want)
     monkeypatch.setattr(ann_engine, "resolve_device",
                         lambda device: torch.device("cuda"))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)

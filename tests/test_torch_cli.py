@@ -2,10 +2,10 @@
 package's on the CPU: the same corpus gives the same CSV bytes (apart from
 the ``# work_dir`` line) and the same representative MGF, with the exact
 backend, with ``--backend ann`` (the default index, and ``brute``), with
-``--backend ann --ann_index exact``, in dbscan mode, under ``--rerank off``
-and with consensus representatives; a work_dir ingested by one package
-resumes under the other, only ``--ann_index ivf`` is refused, and the port
-never imports JAX.
+``--backend ann --ann_index exact``, with ``--ann_index ivf``, in dbscan
+mode, under ``--rerank off`` and with consensus representatives; a work_dir
+ingested by one package resumes under the other, and the port never
+imports JAX.
 """
 
 import os
@@ -193,8 +193,13 @@ def test_api_matches_jax_api(mgf_inputs):
     assert (result.cluster == ref.cluster).all()
     assert ([s.identifier for s in result.representatives]
             == [s.identifier for s in ref.representatives])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        api.cluster(files, backend="ann", ann_index="ivf")
+    options = dict(backend="ann", ann_index="ivf", n_probe=4,
+                   export_representatives=True)
+    result = api.cluster(files, **options)
+    ref = jax_api.cluster(files, **options)
+    assert (result.cluster == ref.cluster).all()
+    assert ([s.identifier for s in result.representatives]
+            == [s.identifier for s in ref.representatives])
 
 
 def test_api_passes_ann_options_through(mgf_inputs):
@@ -277,6 +282,7 @@ def test_cuda_without_gpu_raises(monkeypatch):
 
 
 CONSENSUS = ["--representative_method", "consensus"]
+IVF = ["--backend", "ann", "--ann_index", "ivf"]
 
 
 @pytest.mark.parametrize("flags", [
@@ -290,13 +296,19 @@ CONSENSUS = ["--representative_method", "consensus"]
      "--rt_tol", "30", "--min_matched_peaks", "3"],
     ["--backend", "ann"] + CONSENSUS,
     ANN + ["--cluster_method", "dbscan"] + CONSENSUS,
+    IVF,
+    IVF + ["--n_probe", "4"],
+    IVF + ["--cluster_method", "dbscan"],
+    IVF + ["--rerank", "off"],
+    IVF + CONSENSUS,
 ], ids=["ann", "consensus", "ann_dbscan", "ann_brute_rerank_off",
         "ann_auto_dbscan", "ann_rerank_off_dbscan",
         "ann_dbscan_min_samples_rt_min_matches", "ann_consensus",
-        "ann_exact_dbscan_consensus"])
+        "ann_exact_dbscan_consensus", "ivf", "ivf_n_probe_4", "ivf_dbscan",
+        "ivf_rerank_off", "ivf_consensus"])
 def test_ported_options_csv_and_mgf_identical_to_jax(mgf_inputs, flags):
-    # The options earlier slices refused: dbscan mode, --rerank off and
-    # consensus representatives.
+    # dbscan mode, --rerank off, consensus representatives and the IVF
+    # index, alone and with each of them.
     tmp_path, files = mgf_inputs
     flags = ["--export_representatives"] + flags
     assert jax_cli.main(files + [str(tmp_path / "jax"), "--work_dir",
@@ -312,12 +324,18 @@ def test_ported_options_csv_and_mgf_identical_to_jax(mgf_inputs, flags):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--backend", "ann", "--ann_index", "ivf"],
+    IVF + ["--cluster_method", "dbscan", "--rerank", "off", "--n_probe", "4",
+           "--rt_tol", "30", "--min_matched_peaks", "3"],
 ], ids=["ann_ivf"])
 def test_unported_options_exit_1(mgf_inputs, flags, caplog):
+    # The port once refused --ann_index ivf with exit code 1; it runs now,
+    # logs no refusal and writes the JAX package's CSV.
     tmp_path, files = mgf_inputs
-    out = str(tmp_path / "out")
+    assert jax_cli.main(files + [str(tmp_path / "jax"), "--work_dir",
+                                 str(tmp_path / "w_jax")] + flags) == 0
     with caplog.at_level("ERROR", logger="falcon_tpu"):
-        assert cli.main(files + [out] + flags) == 1
-    assert "not yet ported to falcon_tpu_torch" in caplog.text
-    assert not os.path.exists(out + ".csv")
+        assert cli.main(files + [str(tmp_path / "torch"), "--work_dir",
+                                 str(tmp_path / "w_torch")] + flags) == 0
+    assert "not yet ported" not in caplog.text
+    assert (_csv_without_work_dir(str(tmp_path / "torch.csv"))
+            == _csv_without_work_dir(str(tmp_path / "jax.csv")))

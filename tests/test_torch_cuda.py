@@ -17,7 +17,10 @@ kernel (and its fused plain + spread call), the two medoid-score kernels
 and the consensus kernel sum in their plain versions' order, so each
 agrees with its plain version, on the card and on the CPU, bit for bit,
 and so do two launches; the scan, the rerank and dbscan mode built on the
-kernels agree with their CPU versions.
+kernels agree with their CPU versions.  The IVF probe scan (IVF.1) and the
+k-means update (IVF.2) agree with their plain versions bit for bit, on the
+card and on the CPU, at 20 ppm and at an infinite tolerance, and the ann
+engine's ``--ann_index ivf`` gives the CPU's labels and medoids.
 """
 
 import numpy as np
@@ -659,3 +662,111 @@ def test_consensus_spectra_gpu_equals_cpu(cuda, rows):
     for label in want:
         for g, w in zip(got[label], want[label]):
             np.testing.assert_array_equal(g, w)
+
+
+@pytest.fixture(scope="module")
+def ivf_block():
+    """A 4,096-spectrum block of one charge sorted by precursor m/z: its
+    peaks and precursor m/z (on the host)."""
+    spectra, _ = make_clustered_spectra(
+        n_clusters=300, cluster_size=8, n_noise=1800, seed=17, charges=(2,),
+        precursor_mz_range=(500.0, 520.0))
+    out = [process_spectrum(s, 5, 250, 101.0, 1500.0, 1.5, 0.01, 50, None)
+           for s in spectra]
+    rows = sorted((r for r in out if r is not None),
+                  key=lambda r: r["precursor_mz"])[:4096]
+    return rows, np.asarray([r["precursor_mz"] for r in rows])
+
+
+def _ivf_index(cuda, ivf_block, precise):
+    from falcon_tpu_torch.ops import ivf
+
+    rows, pmz = ivf_block
+    mz, intensity = _padded(rows, cuda)
+    plain, spread = vz.SpectrumHasher(101.0, 1500.0, TOL).vectorize_pair(
+        mz, intensity)
+    if precise:
+        return ivf.IVFIndex(vz.normalize_rows(plain), pmz, precise=True,
+                            coarse_vectors=vz.normalize_rows(spread)), pmz
+    return ivf.IVFIndex(plain, pmz, coarse_vectors=vz.normalize_rows(spread),
+                        rank_vectors=spread), pmz
+
+
+@pytest.mark.parametrize("precise,tol,da", [
+    (False, 20.0, False), (False, np.inf, True), (True, 0.05, True),
+    (True, np.inf, False)], ids=["bf16_20ppm", "bf16_inf", "f32_0.05Da",
+                                 "f32_inf"])
+def test_ivf_probe_scan_bit_identical_to_plain(cuda, ivf_block, precise, tol,
+                                               da):
+    from falcon_tpu_torch.ops import ivf
+
+    index, _ = _ivf_index(cuda, ivf_block, precise)
+    q3d = index._corpus3d if index._query3d is None else index._query3d
+    layout = (q3d, index._mz3d, index._row3d, index._corpus3d, index._mz3d,
+              index._row3d)
+    probe_ids = torch.from_numpy(index._probe_ids(8)).to(cuda)
+    chunk = min(8, index.n_lists)
+    before = ivf.probe_scan.launches
+    for c0 in range(0, index.n_lists, chunk):
+        args = layout + (probe_ids, tol, da, c0, chunk)
+        got, again = ivf.probe_scan(*args), ivf.probe_scan(*args)
+        want = ivf.probe_scan_plain(*args)
+        assert torch.equal(got, want) and torch.equal(got, again)
+        if c0 == 0:
+            cpu = ivf.probe_scan_plain(*(
+                a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+            assert torch.equal(got.cpu(), cpu)
+    assert ivf.probe_scan.launches == before + 2 * (index.n_lists // chunk)
+
+
+@pytest.mark.parametrize("skew", [False, True])
+def test_ivf_kmeans_update_bit_identical_to_plain(cuda, ivf_block, skew):
+    from falcon_tpu_torch.ops import ivf
+
+    rows, _ = ivf_block
+    mz, intensity = _padded(rows, cuda)
+    vecs = vz.normalize_rows(vz.SpectrumHasher(101.0, 1500.0, TOL).vectorize(
+        mz, intensity, norm=False, spread=True))
+    rng = np.random.default_rng(3)
+    assign = rng.integers(0, 64, vecs.shape[0]).astype(np.int32)
+    assign[assign == 7] = 8  # an empty list keeps its centroid
+    if skew:
+        assign[:3000] = 0  # a list of over 3,000 rows: a block's group-by
+    assign = torch.from_numpy(assign).to(cuda)
+    centroids = vecs[torch.arange(64, device=cuda) * 61]
+    before = ivf.kmeans_update.launches
+    got = ivf.kmeans_update(vecs, assign, centroids)
+    again = ivf.kmeans_update(vecs, assign, centroids)
+    assert ivf.kmeans_update.launches == before + 2
+    want = ivf.kmeans_update_plain(vecs, assign, centroids)
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert torch.equal(got.cpu(), ivf.kmeans_update_plain(
+        vecs.cpu(), assign.cpu(), centroids.cpu()))
+    assert torch.equal(got[7], centroids[7])
+
+
+@pytest.mark.parametrize("case", ["linkage", "dbscan", "rerank_off_dbscan",
+                                  "pruned"])
+def test_ivf_engine_gpu_equals_cpu(cuda, rows, tmp_path, case):
+    from falcon_tpu_torch.ops import ivf
+
+    store = SpectrumStore(str(tmp_path / "spectra"))
+    writer = store.writer()
+    writer.add_many(rows)
+    writer.close()
+    kw = dict(ann_index="ivf")
+    if case != "linkage":
+        kw.update(cluster_method="dbscan")
+    if case == "rerank_off_dbscan":
+        kw.update(rerank="off")
+    if case == "pruned":
+        kw.update(n_probe=4)
+    args = (store.dataset(2), 0.2, 2, 0, 20.0, "ppm", None, TOL, 2**15)
+    before = (ivf.probe_scan.launches, ivf.kmeans_update.launches)
+    labels, medoids = ann_engine.generate_clusters(*args, device=cuda, **kw)
+    assert ivf.probe_scan.launches > before[0]
+    assert ivf.kmeans_update.launches == before[1] + 10
+    ref_labels, ref_medoids = ann_engine.generate_clusters(
+        *args, device="cpu", **kw)
+    np.testing.assert_array_equal(labels, ref_labels)
+    np.testing.assert_array_equal(medoids, ref_medoids)

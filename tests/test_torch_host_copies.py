@@ -3,10 +3,10 @@ originals, on the CPU.
 
 ``falcon_tpu_torch`` imports nothing of ``falcon_tpu``: it carries its own
 copies of the readers, preprocessing, store, ingest, interval splits,
-post-processing, hashing tables, native library, export, configuration
-and metrics.  Each case runs one piece through both packages on the same
-inputs, made from a seed, and requires equal results (bytes, for the
-CSV).
+post-processing, hashing tables, native library, export, configuration,
+metrics and the IVF index's host layout.  Each case runs one piece through
+both packages on the same inputs, made from a seed, and requires equal
+results (bytes, for the CSV).
 """
 
 import base64
@@ -26,6 +26,7 @@ import falcon_tpu.metrics as j_metrics
 import falcon_tpu.ms_io.ms_io as j_ms_io
 import falcon_tpu.native as j_native
 import falcon_tpu.ops.hashing as j_hashing
+import falcon_tpu.ops.ivf as j_ivf
 import falcon_tpu.preprocess as j_prep
 import falcon_tpu.store.store as j_store
 import falcon_tpu.utils.natsort as j_natsort
@@ -44,6 +45,7 @@ import falcon_tpu_torch.metrics as t_metrics
 import falcon_tpu_torch.ms_io.ms_io as t_ms_io
 import falcon_tpu_torch.native as t_native
 import falcon_tpu_torch.ops.hashing as t_hashing
+import falcon_tpu_torch.ops.ivf as t_ivf
 import falcon_tpu_torch.preprocess as t_prep
 import falcon_tpu_torch.simulate as t_simulate
 import falcon_tpu_torch.store.store as t_store
@@ -233,6 +235,56 @@ def case_hashing(tmp_path, spectra):
         np.testing.assert_array_equal(
             t_hashing.hash_bin_mapping(dims[0], low_dim, seed),
             j_hashing.hash_bin_mapping(dims[0], low_dim, seed))
+
+
+def case_ivf_balanced_placement(tmp_path, spectra):
+    # Skewed choices that fill lists and spill, and uniform ones.
+    rng = np.random.default_rng(12)
+    for n, n_lists, k, cap in ((3000, 16, 8, 256), (700, 8, 3, 128),
+                               (50, 4, 2, 16)):
+        skew = rng.zipf(1.5, (n, k)) % n_lists
+        uniform = np.stack([rng.permutation(n_lists)[:k] for _ in range(n)])
+        for choices in (skew, uniform):
+            for g, w in zip(t_ivf._balanced_placement(choices, n_lists, cap),
+                            j_ivf._balanced_placement(choices, n_lists, cap)):
+                np.testing.assert_array_equal(g, w)
+
+
+def case_ivf_bucket(tmp_path, spectra):
+    for n in (0, 1, 127, 128, 129, 1000, 2**20 + 1):
+        for minimum in (16, 128, 512, 1024):
+            assert (t_ivf._bucket(n, minimum)
+                    == j_ivf._bucket(n, minimum))
+
+
+def case_ivf_pack_layout(tmp_path, spectra):
+    rng = np.random.default_rng(13)
+    for n, n_lists, lb in ((300, 8, 128), (1000, 16, 128), (40, 4, 16)):
+        counts = np.bincount(rng.integers(0, n_lists, n), minlength=n_lists)
+        lb = max(lb, int(counts.max()))
+        order = rng.permutation(n)
+        mzs = np.sort(rng.uniform(400.0, 1200.0, n))
+        got = t_ivf.IVFIndex._pack_layout(order, mzs, counts, lb, n)
+        want = j_ivf.IVFIndex._pack_layout(order, mzs, counts, lb, n)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+
+
+def case_ivf_probe_ids(tmp_path, spectra):
+    rng = np.random.default_rng(14)
+    centroids = rng.normal(size=(32, 24)).astype(np.float32)
+    # Duplicate centroids tie in the similarities: the stable order decides.
+    centroids[5] = centroids[9]
+    sims = centroids @ centroids.T
+    t_index, j_index = (object.__new__(m.IVFIndex) for m in (t_ivf, j_ivf))
+    for index in (t_index, j_index):
+        index._centroid_sims, index._probe_cache = sims, {}
+    for n_probe in (1, 4, 32, 4):
+        got = t_ivf.IVFIndex._probe_ids(t_index, n_probe)
+        want = j_ivf.IVFIndex._probe_ids(j_index, n_probe)
+        assert got.dtype == want.dtype and got.flags.c_contiguous
+        np.testing.assert_array_equal(got, want)
 
 
 def case_native_linkage_fcluster(tmp_path, spectra):
