@@ -4,11 +4,14 @@
 Run from the repository root on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit::
 
-    python3 chip_smoke.py [--report PATH] [--root CHECKOUT]
+    python3 chip_smoke.py [--report PATH] [--root CHECKOUT] [--kernels-only]
 
 ``--root`` runs the same phases on the ``falcon_tpu_torch`` of another
 checkout (a parent commit unpacked with ``git archive``), so that runs of
 two commits, taken in turns on one card, time the same calls.
+``--kernels-only`` stops after phase 2 and writes the report, for such
+timings of the kernels alone; it prints no result line, since no main path
+ran.
 
 It builds the port's CUDA kernels from ``falcon_tpu_torch/csrc`` and then:
 
@@ -69,9 +72,10 @@ split by ``torch.profiler`` into the group-by and the walk (B.2: the
 cluster sums and the row dots), which must hold no sort or search
 kernel; phase 2 also holds the IVF probe scan (IVF.1) at the bench
 corpus's charge-2 block and at a dense block, and the IVF k-means update
-(IVF.2) at the bench block's training sample, against their plain versions
-bit for bit, timed beside a gather + einsum + mask and a one-hot product,
-with a torch.profiler split into the kernel, the sorts and the group-by;
+(IVF.2) at the bench block's training sample and with one list of 20,000
+of its rows, against their plain versions bit for bit, timed beside a
+gather + einsum + mask and a one-hot product, with a torch.profiler split
+into the kernels, the sorts and the group-by (none in IVF.2);
 phase 5 also runs the default index, dbscan mode, ``--rerank off``, the
 consensus spectra and the IVF index through the kernels and through the
 plain versions.
@@ -95,7 +99,9 @@ import time
 import numpy as np
 
 TOL = 0.05            # the CLI's default --fragment_tol
-ATOL = 1e-6           # kernel vs plain scores (same summation order)
+# Permuted peaks against the originals: the same matching, its weights
+# summed in another order (the 32 x 32 blocks hold other entries).
+PERMUTED_ATOL = 1e-6
 WIDE_TOLS = (0.5, 2.0)  # fragment tolerances at which columns have many edges
 PANEL_ROWS = 2048     # condensed_distances' default row panel
 K1_COLS = (4096, 16384)  # K1 parity shapes: PANEL_ROWS x each
@@ -127,7 +133,7 @@ SOURCES = {K1: "falcon_tpu_torch/csrc/pairwise.cu",
            B2: "falcon_tpu_torch/csrc/medoids.cu",
            B3: "falcon_tpu_torch/csrc/consensus.cu",
            IVF1: "falcon_tpu_torch/csrc/ivf.cu",
-           IVF2: "falcon_tpu_torch/csrc/medoids.cu"}
+           IVF2: "falcon_tpu_torch/csrc/ivf.cu"}
 # The bound of a kernel's call: the larger of its bytes (each input read
 # once, each output written once) over the HBM rate and its operations over
 # the float32 rate outside the tensor cores (H100 SXM data sheet, 700 W).
@@ -257,27 +263,35 @@ def plain_ms(fn):
 
 
 class Parity:
-    """Largest kernel-vs-plain score difference per kernel; raises on a
-    score beyond ``ATOL`` or any differing match count."""
+    """Largest kernel-vs-plain score difference per kernel; raises unless
+    the scores are the plain version's bits (both add in XLA's CPU order,
+    ``ops/matching.py``) and the match counts equal, and, given ``again``
+    (a second launch's result), unless it is the same bits."""
 
     def __init__(self):
         self.err = {}
 
-    def check(self, name, what, got, want):
+    def check(self, name, what, got, want, again=None):
         import torch
 
         s, m = got
         ws, wm = want
         err = float((s - ws).abs().max()) if s.numel() else 0.0
         self.err[name] = max(self.err.get(name, 0.0), err)
-        if err > ATOL:
-            raise AssertionError(f"{name} {what}: max |score diff| {err:.3g}"
-                                 f" > {ATOL}")
+        if not torch.equal(s, ws):
+            raise AssertionError(f"{name} {what}: scores not bit-identical "
+                                 f"to the plain version's (max |diff| "
+                                 f"{err:.3g})")
         if (m is None) != (wm is None) or (
                 m is not None and not torch.equal(m, wm)):
             raise AssertionError(f"{name} {what}: match counts differ")
-        log(f"  {name} {what}: max |score diff| {err:.3g}, match counts "
-            f"{'equal' if m is not None else 'not requested'}")
+        if again is not None and not (
+                torch.equal(again[0], s)
+                and (m is None or torch.equal(again[1], m))):
+            raise AssertionError(f"{name} {what}: a second launch differs")
+        log(f"  {name} {what}: scores bit-identical"
+            f"{' (and to a second launch)' if again is not None else ''}, "
+            f"match counts {'equal' if m is not None else 'not requested'}")
 
 
 def tie_heavy(n: int, seed: int):
@@ -388,11 +402,11 @@ def permuted(mz, intensity, seed):
 
 def check_permutation(name, what, got, original):
     """Scores of permuted spectra against those of the originals: the same
-    matching, summed over the columns in another order."""
+    matching, summed in another order."""
     import torch
 
     err = float((got[0] - original[0]).abs().max())
-    if err > ATOL or not torch.equal(got[1], original[1]):
+    if err > PERMUTED_ATOL or not torch.equal(got[1], original[1]):
         raise AssertionError(f"{name} {what}: permuted peaks change the "
                              f"scores by {err:.3g} or the match counts")
     log(f"  {name} {what}: permuted vs original peaks: max |score diff| "
@@ -439,13 +453,13 @@ def phase_kernels(dev, dense_rows, bench_rows, bench_all, chain_rows,
                 def run():
                     return pw.panel_scores(*args, upper_only=upper_only,
                                            with_matches=with_matches)
-                got = run()
+                got, again = run(), run()
                 torch.cuda.synchronize()
                 ref = want_upper if upper_only else want
                 ref = ref if with_matches else (ref[0], None)
                 what = (f"{shape} row_offset={r0} upper_only={upper_only} "
                         f"with_matches={with_matches}")
-                parity.check(k1, what, got, ref)
+                parity.check(k1, what, got, ref, again)
                 ms = kernel_ms(run, reps=3)
                 detail[(k1, shape, upper_only, with_matches)] = ms
                 log(f"  {k1} {what}: kernel {ms:.2f} ms")
@@ -572,10 +586,11 @@ def phase_grouped(dev, parity, times, detail, report, bench_rows):
         want, t_plain = plain_ms(lambda: pw.batched_block_scores_plain(
             mz, intensity, starts, TOL))
         for with_matches in (True, False):
-            got = pw.batched_block_scores(mz, intensity, starts, TOL,
-                                          with_matches=with_matches)
+            got, again = (pw.batched_block_scores(
+                mz, intensity, starts, TOL, with_matches=with_matches)
+                for _ in range(2))
             parity.check(K4, f"{shape} with_matches={with_matches}", got,
-                         want if with_matches else (want[0], None))
+                         want if with_matches else (want[0], None), again)
         # The wrapper's call (input checks with their host syncs, the
         # table of intervals, the sort pre-pass and the pair kernel) by
         # round cap, and the device time of each kernel alone.
@@ -699,10 +714,11 @@ def phase_banded(dev, parity, times, detail, report, rows_by_name,
         want, t_plain = plain_ms(lambda: ex.banded_panel_scores_plain(*args))
         detail[(K2, name, "plain")] = t_plain
         for with_matches in (True, False):
-            got = ex.banded_panel_scores(*args, with_matches=with_matches)
+            got, again = (ex.banded_panel_scores(
+                *args, with_matches=with_matches) for _ in range(2))
             torch.cuda.synchronize()
             parity.check(K2, f"{shape} with_matches={with_matches}", got,
-                         want if with_matches else (want[0], None))
+                         want if with_matches else (want[0], None), again)
         # The main path asks for match counts only with min_matches > 0.
         ms = kernel_ms(lambda: ex.banded_panel_scores(
             *args, with_matches=False), reps=5)
@@ -747,10 +763,11 @@ def phase_banded(dev, parity, times, detail, report, rows_by_name,
              f"{n_pairs} pairs")
     want, t_plain = plain_ms(lambda: pw.pair_list_scores_plain(*args, 4))
     for with_matches in (True, False):
-        got = pw.pair_list_scores(*args, 4, with_matches=with_matches)
+        got, again = (pw.pair_list_scores(*args, 4, with_matches=with_matches)
+                      for _ in range(2))
         torch.cuda.synchronize()
         parity.check(PL, f"{shape} with_matches={with_matches}", got,
-                     want if with_matches else (want[0], None))
+                     want if with_matches else (want[0], None), again)
     # The wrapper's call by round cap (the pruned linkage runs 4 rounds; the
     # id check syncs once with the host), and the kernel's device time.
     for rounds in (0, 1, 4):
@@ -1478,10 +1495,11 @@ def ivf_index(mz, intensity, pmz, dev):
 def phase_ivf_kernels(dev, parity, times, report, bench_all, dense_rows):
     """Phase 2, continued: the IVF probe scan (IVF.1) at the bench corpus's
     charge-2 block and at a dense block, and the k-means update (IVF.2) at
-    the bench block's training sample, each bit for bit against its plain
-    version and its own second launch, timed beside a PyTorch computation
-    of the same function (gather + einsum + mask; a one-hot product), with
-    its bound and a torch.profiler split."""
+    the bench block's training sample and with one list of 20,000 of its
+    rows, each bit for bit against its plain version and its own second
+    launch, timed beside a PyTorch computation of the same function
+    (gather + einsum + mask; a one-hot product), with its bound and a
+    torch.profiler split (IVF.2's must hold no sort or search kernel)."""
     import torch
 
     from falcon_tpu_torch.cluster import ann_engine
@@ -1602,22 +1620,39 @@ def phase_ivf_kernels(dev, parity, times, report, bench_all, dense_rows):
     lib_err = float((kmeans_update_library(*args) - got).abs().max())
     n_bytes = (train.numel() * 4 + assign.numel() * 4
                + 2 * centroids.numel() * 4)
-    split = kernel_split(IVF2, lambda: ivf.kmeans_update(*args),
-                         "hashed_medoid_sums", reps=10)
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    split = kernel_split(IVF2, lambda: ivf.kmeans_update(*args), "kmeans",
+                         reps=10)
     fit_ms = kernel_ms(lambda: ivf._kmeans_fit(train, centroids, n_lists,
                                                10), reps=2)
     times[IVF2] = dict(ms=ms, plain_ms=t_plain, library_ms=library,
-                       bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3,
-                       bound_by="bytes")
+                       bound_ms=bound_ms, bound_by="bytes")
+    device_ms = split.get("device_ms")
+    # One list of 20,000 of the sample's rows: one block adds them all.
+    n_hot = min(20000, sample)
+    hot = assign.clone()
+    hot[torch.from_numpy(np.random.default_rng(7).choice(
+        sample, n_hot, replace=False)).to(dev)] = 1
+    hot_args = (train, hot, centroids)
+    check_bits(IVF2, f"{shape}, one list of {n_hot} rows",
+               ivf.kmeans_update(*hot_args), ivf.kmeans_update(*hot_args),
+               ivf.kmeans_update_plain(*hot_args))
+    hot_ms = kernel_ms(lambda: ivf.kmeans_update(*hot_args), reps=5)
     report[IVF2] = dict(times[IVF2], split=split, fit_10_steps_ms=fit_ms,
-                        rows=sample, lists=n_lists)
+                        rows=sample, lists=n_lists, hot_list_rows=n_hot,
+                        hot_list_ms=hot_ms,
+                        device_ms=device_ms, bound_share_of_device=(
+                            bound_ms / device_ms if device_ms else None))
     parity.err[IVF2] = 0.0
-    log(f"  {IVF2} {shape}: wrapper {ms:.4f} ms (group-by, sums, "
-        f"renormalisation), bit-identical to the plain version and across "
-        f"two launches; plain version {t_plain:.1f} ms; one-hot product "
-        f"{library:.4f} ms (max |diff| {lib_err:.3g}); bound "
-        f"{times[IVF2]['bound_ms']:.5f} ms (bytes); 10 Lloyd steps "
-        f"{fit_ms:.3f} ms")
+    log(f"  {IVF2} {shape}: wrapper {ms:.4f} ms (counts, scan, fill, sums "
+        f"and renormalisation), bit-identical to the plain version and "
+        f"across two launches; plain version {t_plain:.1f} ms; one-hot "
+        f"product {library:.4f} ms (max |diff| {lib_err:.3g}); bound "
+        f"{bound_ms:.5f} ms (bytes)"
+        + (f", {100 * bound_ms / device_ms:.1f}% of the device time "
+           f"{device_ms:.4f} ms" if device_ms else "")
+        + f"; 10 Lloyd steps {fit_ms:.3f} ms; one list of {n_hot} rows "
+        f"{hot_ms:.4f} ms")
 
 
 def read_labels(csv_path: str):
@@ -1986,6 +2021,13 @@ def phase_ivf_paths(bench_spectra, bench_truth, dense_spectra, dense_truth,
     return launches
 
 
+def write_report(path, report) -> None:
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(report, f, indent=1, default=str)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--report", help="also write the results as JSON")
@@ -1993,6 +2035,9 @@ def main() -> int:
         "--root", help="import falcon_tpu_torch from this checkout instead "
         "of the one beside this script (another commit, timed by the same "
         "phases)")
+    parser.add_argument(
+        "--kernels-only", action="store_true",
+        help="stop after phase 2 (the kernels), print no result line")
     args = parser.parse_args()
     if args.root:
         sys.path.insert(0, os.path.abspath(args.root))
@@ -2049,6 +2094,9 @@ def main() -> int:
     dev = torch.device("cuda")
     errs, times = phase_kernels(dev, charge2, bench_rows, bench_all,
                                 chain_rows, report)
+    if args.kernels_only:
+        write_report(args.report, report)
+        return 0
 
     launches = []
     with tempfile.TemporaryDirectory(prefix="falcon_chip_smoke_") as tmp:
@@ -2123,11 +2171,7 @@ def main() -> int:
         for k in KERNELS
     ]
     report["kernels"] = kernels
-    if args.report:
-        os.makedirs(os.path.dirname(os.path.abspath(args.report)),
-                    exist_ok=True)
-        with open(args.report, "w") as f:
-            json.dump(report, f, indent=1, default=str)
+    write_report(args.report, report)
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -14,9 +14,13 @@
 // in each column; selected weights are added to the score and their rows
 // and columns removed.  The score is clipped to [0, 1] once, at the end.
 //
-// The score is summed in a fixed order (per column, then a butterfly over
-// the warp) with no atomics, so two runs give the same bits, and the plain
-// version (ops/matching.py::match_score) adds in that order too.
+// The score is summed in the order XLA's CPU backend gives the JAX
+// package's match_score, which the plain version (ops/matching.py::
+// match_score) spells out: each round's selection is cut into four 32 x 32
+// blocks (stored row position p / 32, column q / 32), each block is summed
+// from 0 in ascending row position, the round adds (B00 + B01) + (B10 +
+// B11) to the score, and the score is clipped once, at the end.  No
+// atomics take part in it, so two runs give the same bits.
 //
 // The routines work on the edges only: the (row, column) peak pairs within
 // tolerance whose weight is > 0.  With peaks spread over ~1,400 m/z and a
@@ -47,21 +51,6 @@ __device__ __forceinline__ bool bit(uint64_t mask, int i) {
   return (mask >> i) & 1ull;
 }
 
-// The score of one pair from the selected weights (acc[k]: column
-// lane + 32 k's), added per lane, then over the warp by a fixed
-// butterfly, and clipped to [0, 1]; and the match count over the warp.
-__device__ __forceinline__ void warp_total(const float (&acc)[2], int nmatch,
-                                           float& score_out,
-                                           int& matches_out) {
-  float total = acc[0] + acc[1];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    total += __shfl_xor_sync(FULL, total, off);
-  }
-  score_out = fminf(fmaxf(total, 0.f), 1.f);
-  matches_out = __reduce_add_sync(FULL, nmatch);
-}
-
 // One row spectrum sorted by m/z: shared by every warp of a block (K1, K2,
 // the pair lists) or copied from the sort pre-pass for one warp (K4).
 struct SortedRow {
@@ -75,6 +64,7 @@ struct SortedRow {
 struct EdgeScratch {
   unsigned rowmax[P];  // per row: its maximum this round, as float bits
   int rowsel[P];       // per row: the lowest column it chose, P if none
+  float hitw[P];       // per matched row: the weight selected this round
 };
 
 // A lane's two column peaks (lane, lane + 32): their intensities and their
@@ -166,12 +156,17 @@ __device__ __forceinline__ Runs find_runs(const SortedRow& row,
 //   3. each column takes the lowest row that chose it (lane-local), as
 //      _first_true along the column.  Every row that chose a column holds
 //      the column's maximum, so the selected weight is that maximum.
+// A round matches each row and each column at most once, so a matched row
+// leaves its weight in its own slot of s.hitw, and the round's hits are
+// four warp-wide bit masks, one per 32 x 32 block (row half, column half =
+// the lane's k).  Every lane then walks each mask's bits in ascending row
+// position and adds the slots from 0: the block sums of XLA's order.
 __device__ __forceinline__ void match_runs(const SortedRow& row,
                                            const Runs& e, int rounds,
                                            EdgeScratch& s, float& score_out,
                                            int& matches_out) {
   const int lane = threadIdx.x & 31;
-  float acc[2] = {0.f, 0.f};
+  float score = 0.f;
   int nmatch = 0;
   uint64_t alive_r = ~0ull, alive_c = ~0ull;
   for (int round = 0; round < rounds; ++round) {
@@ -216,7 +211,7 @@ __device__ __forceinline__ void match_runs(const SortedRow& row,
     }
     __syncwarp();
 
-    unsigned rows_lo = 0u, rows_hi = 0u;
+    unsigned hits[2][2] = {{0u, 0u}, {0u, 0u}};  // [row half][column half]
     bool hit[2];
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
@@ -229,20 +224,44 @@ __device__ __forceinline__ void match_runs(const SortedRow& row,
       }
       hit[k] = best < P;
       if (hit[k]) {
-        acc[k] += cm[k];
+        s.hitw[best] = cm[k];
         ++nmatch;
-        if (best < 32) rows_lo |= 1u << best;
-        else rows_hi |= 1u << (best - 32);
+        if (best < 32) hits[0][k] = 1u << best;
+        else hits[1][k] = 1u << (best - 32);
       }
     }
-    rows_lo = __reduce_or_sync(FULL, rows_lo);
-    rows_hi = __reduce_or_sync(FULL, rows_hi);
+    float block[2][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        hits[h][k] = __reduce_or_sync(FULL, hits[h][k]);
+      }
+    }
+    __syncwarp();  // every hit's weight is in s.hitw
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        float sum = 0.f;
+        for (unsigned m = hits[h][k]; m; m &= m - 1) {
+          sum = __fadd_rn(sum, s.hitw[32 * h + __ffs(m) - 1]);
+        }
+        block[h][k] = sum;
+      }
+    }
+    score = __fadd_rn(score,
+                      __fadd_rn(__fadd_rn(block[0][0], block[0][1]),
+                                __fadd_rn(block[1][0], block[1][1])));
     const unsigned cols_lo = __ballot_sync(FULL, hit[0]);
     const unsigned cols_hi = __ballot_sync(FULL, hit[1]);
+    const unsigned rows_lo = hits[0][0] | hits[0][1];
+    const unsigned rows_hi = hits[1][0] | hits[1][1];
     alive_r &= ~((uint64_t(rows_hi) << 32) | rows_lo);
     alive_c &= ~((uint64_t(cols_hi) << 32) | cols_lo);
   }
-  warp_total(acc, nmatch, score_out, matches_out);
+  score_out = fminf(fmaxf(score, 0.f), 1.f);
+  matches_out = __reduce_add_sync(FULL, nmatch);
 }
 
 // Scores the sorted row against spectrum b with the calling warp: the runs,

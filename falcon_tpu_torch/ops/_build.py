@@ -77,6 +77,12 @@ _SIGNATURES = {
     # chunk, tol, tol_is_da, bf16, out, stream
     "falcon_ivf_probe_scan": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
                               _i, _f, _i, _i, _p, _p],
+    # assign, n, n_lists, tile, cnt1, stream
+    "falcon_kmeans_count": [_p, _i, _i, _i, _p, _p],
+    # assign, n, n_lists, tile, off, items, stream
+    "falcon_kmeans_fill": [_p, _i, _i, _i, _p, _p, _p],
+    # v, dim, items, off, n_lists, n_tiles, old, out, stream
+    "falcon_kmeans_centroids": [_p, _i, _p, _p, _i, _i, _p, _p, _p],
 }
 
 

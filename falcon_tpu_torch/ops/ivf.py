@@ -5,12 +5,12 @@ Port of ``falcon_tpu/ops/ivf.py``, the index of ``--ann_index ivf``:
 - **Coarse quantizer**: spherical k-means, seeded and deterministic.  The
   assignment is the first maximum of ``V @ C.T`` (a plain ``torch.matmul``
   with TF32 refused, as the JAX package leaves the product to XLA); the
-  update (IVF.2, :func:`kmeans_update`) groups the rows by list with the
-  fixed-order group-by of ``ops/groupby.py``, sums each list's rows in row
-  order with the cluster-sum kernel of ``csrc/medoids.cu`` (no
-  ``torch.sort``, no ``index_add_``: the same bits on every run), keeps an
-  empty list's old centroid and renormalises with
-  ``ops/vectorize.py::normalize_rows``.  The JAX package sums with a
+  update (IVF.2, :func:`kmeans_update`, ``csrc/ivf.cu``) puts each list's
+  rows in row order with a fill that keeps row order (per-tile counts, a
+  ``torch.cumsum``, a warp per tile ranking its rows), then a block per
+  list sums its rows in that order, keeps an empty list's old centroid and
+  renormalises in ``ops/vectorize.py::normalize_rows``' order: no sort, no
+  ``index_add_``, the same bits on every run.  The JAX package sums with a
   one-hot product, whose CPU order is XLA's GEMM's, so centroids agree
   with its to about 1e-7, not bit for bit.
 - **Balanced list layout**: the rows' 8 best lists, capacity-capped
@@ -41,7 +41,7 @@ from . import _build
 from ..device import resolve_device
 from .knn import NEG, refuse_tf32, stable_topk
 from .matching import f32_tolerance
-from .medoids import _fma, cluster_sums, segment_sums_plain
+from .medoids import _fma, segment_sums_plain
 from .pairwise import _check_launch, count_launch
 from .vectorize import normalize_rows
 
@@ -63,6 +63,17 @@ def _on(array, device: torch.device) -> torch.Tensor:
         device)
 
 
+MAX_LISTS = 12288  # csrc/ivf.cu: a tile's count of each list in 48 KB
+MAX_DIM = 8192  # csrc/ivf.cu: a list's sum in shared memory
+
+
+def fill_tile(n_lists: int) -> int:
+    """Rows per tile of the IVF.2 fill, one warp each: ``n_lists`` (so the
+    (n_lists, n_tiles) count table holds about one entry a row), at least
+    256 and at most 2,048, a multiple of 32."""
+    return min(2048, max(256, -(-n_lists // 32) * 32))
+
+
 def _check_update(vectors, assign, centroids):
     dev = vectors.device
     if (vectors.dtype != torch.float32 or vectors.ndim != 2
@@ -74,10 +85,15 @@ def _check_update(vectors, assign, centroids):
         raise ValueError("kmeans_update: vectors (rows, dim) and centroids "
                          "(n_lists, dim) must be float32, assign (rows,) "
                          "int32, contiguous, on one device")
-    if dev.type == "cuda" and (vectors.shape[1] % 4
-                               or vectors.data_ptr() % 16):
-        raise ValueError("kmeans_update: the kernel takes 16-byte aligned "
-                         "rows of a multiple of 4 dimensions")
+    if dev.type == "cuda" and (
+            vectors.shape[1] % 4 or vectors.shape[1] > MAX_DIM
+            or vectors.data_ptr() % 16 or not centroids.is_contiguous()
+            or centroids.data_ptr() % 16
+            or centroids.shape[0] > MAX_LISTS):
+        raise ValueError(f"kmeans_update: the kernel takes contiguous, "
+                         f"16-byte aligned rows of a multiple of 4 "
+                         f"dimensions (at most {MAX_DIM}) and at most "
+                         f"{MAX_LISTS} lists")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"kmeans_update: unsupported device {dev}")
 
@@ -88,20 +104,35 @@ def kmeans_update(vectors: torch.Tensor, assign: torch.Tensor,
     assigned rows (``assign`` in [0, n_lists)), the old centroid where a
     list is empty, renormalised.
 
-    On the card: the group-by (count, fill, order by row) and the cluster
-    sums, a block per list, in ascending row order; no sort, no atomic
-    float add.  The counts are the group-by's offsets."""
+    On the card, four calls and no host synchronisation: the per-tile list
+    counts, their ``torch.cumsum``, the fill that puts each list's rows in
+    ascending row order, and a block per list that sums them in that order
+    and renormalises (``csrc/ivf.cu``)."""
     _check_update(vectors, assign, centroids)
     if vectors.device.type == "cpu":
         return kmeans_update_plain(vectors, assign, centroids)
     dev = vectors.device
-    n_lists, dim = centroids.shape
-    sums = torch.empty((n_lists, dim), dtype=torch.float32, device=dev)
+    (n_lists, dim), n = centroids.shape, vectors.shape[0]
+    tile = fill_tile(n_lists)
+    n_tiles = -(-n // tile)
+    lib = _build.library()
     with torch.cuda.device(dev):
-        off = cluster_sums(vectors, assign, n_lists, sums, _stream(dev))
+        stream = _stream(dev)
+        cnt1 = torch.empty(1 + n_lists * n_tiles, dtype=torch.int32,
+                           device=dev)
+        _check_launch("kmeans_update", lib.falcon_kmeans_count(
+            assign.data_ptr(), n, n_lists, tile, cnt1.data_ptr(), stream))
+        off = torch.cumsum(cnt1, 0, dtype=torch.int32)
+        items = torch.empty(n, dtype=torch.int32, device=dev)
+        _check_launch("kmeans_update", lib.falcon_kmeans_fill(
+            assign.data_ptr(), n, n_lists, tile, off.data_ptr(),
+            items.data_ptr(), stream))
+        out = torch.empty_like(centroids)
+        _check_launch("kmeans_update", lib.falcon_kmeans_centroids(
+            vectors.data_ptr(), dim, items.data_ptr(), off.data_ptr(),
+            n_lists, n_tiles, centroids.data_ptr(), out.data_ptr(), stream))
     count_launch(kmeans_update)
-    counts = off[1:] - off[:-1]
-    return normalize_rows(torch.where(counts[:, None] > 0, sums, centroids))
+    return out
 
 
 kmeans_update.launches = 0

@@ -10,12 +10,19 @@ This module is the plain version of both CUDA kernels of
 ``ops/pairwise.py`` and the oracle the tests and ``chip_smoke.py`` hold
 them against.  It runs on any device.
 
-One deliberate detail: ``match_score`` sums the selected weights per
-column first (a column is selected at most once over all rounds, so this is
-exact) and then adds the columns in a fixed halving tree.  That is the
-order the CUDA kernel adds them in (one value per column, two columns per
-lane, then a butterfly over the warp), so kernel and plain version agree
-bit for bit; against the JAX package they agree to float rounding.
+``match_score`` adds the selected weights in the order XLA's CPU backend
+gives the JAX package's ``match_score``, so scores are bit for bit the
+JAX package's and a tie between two duplicate spectra breaks the same way.
+Each round's (P, P) selection is cut into 32 x 32 blocks (XLA's reduction
+window), and each block is summed from zero in row-major order of the
+stored peak positions.  The block sums are then added as LLVM compiles
+XLA's loop over them: at P = 64, 128 and 256 it vectorises the loop into
+each row of blocks from zero, left to right, then the rows in a halving
+tree (``_tree_sum``; at P = 64, (B00 + B01) + (B10 + B11)); at other
+widths (P = 192, 512, ...) it adds every block from zero in row-major
+order.  The round's total is added to the running score, which is
+clipped to [0, 1] once, at the end.  The CUDA kernels
+(``csrc/matching.cuh``, P = 64) add in the same order.
 """
 
 from typing import Tuple
@@ -80,7 +87,7 @@ def pair_weights(
 
 
 def _tree_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum the last axis by repeated halving (the kernel's order)."""
+    """Sum the last axis by repeated halving."""
     while x.shape[-1] > 1:
         if x.shape[-1] % 2:
             x = torch.nn.functional.pad(x, (0, 1))
@@ -89,22 +96,59 @@ def _tree_sum(x: torch.Tensor) -> torch.Tensor:
     return x[..., 0]
 
 
+BLOCK = 32  # XLA's CPU reduction window: the tile is summed in 32 x 32 blocks
+# Block rows for which LLVM vectorises XLA's loop over the block sums into
+# per-row sums and a halving tree (P = 64, 128, 256); at other widths
+# (P = 192, 320, 384, 512 were checked) the loop adds them in order.
+VECTORISED_BLOCK_ROWS = (2, 4, 8)
+
+
+def round_total(selected: torch.Tensor) -> torch.Tensor:
+    """The sum of one round's (..., P, P) selection in XLA's CPU order
+    (see the module docstring); P a multiple of 32.
+
+    A round selects at most one entry per row, so a row's part of a block
+    is that entry or 0, exact in any order, and the block's row-major sum
+    is the sum over its rows in ascending order."""
+    p = selected.shape[-1]
+    if p % BLOCK or selected.shape[-2] != p:
+        raise ValueError(f"match_score: the tile must be (P, P) with P a "
+                         f"multiple of {BLOCK}, got {tuple(selected.shape)}")
+    nb = p // BLOCK
+    lead = selected.shape[:-2]
+    rows = selected.reshape(lead + (nb, BLOCK, nb, BLOCK)).sum(dim=-1)
+    blocks = torch.zeros(lead + (nb, nb), dtype=selected.dtype,
+                         device=selected.device)
+    for r in range(BLOCK):
+        blocks = blocks + rows[..., r, :]
+    if nb not in VECTORISED_BLOCK_ROWS:  # the blocks in row-major order
+        total = torch.zeros(lead, dtype=selected.dtype,
+                            device=selected.device)
+        for b in range(nb * nb):
+            total = total + blocks[..., b // nb, b % nb]
+        return total
+    block_rows = torch.zeros(lead + (nb,), dtype=selected.dtype,
+                             device=selected.device)
+    for bj in range(nb):
+        block_rows = block_rows + blocks[..., bj]
+    return _tree_sum(block_rows)
+
+
 def match_score(
     w: torch.Tensor, rounds: int = DEFAULT_ROUNDS
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Up to ``rounds`` matching rounds on ``w``, stopping early once every
     weight is consumed.  Returns (score clipped to [0, 1], n_matches) over
     the trailing two axes."""
-    col_score = torch.zeros(w.shape[:-2] + w.shape[-1:], dtype=w.dtype,
-                            device=w.device)
+    score = torch.zeros(w.shape[:-2], dtype=w.dtype, device=w.device)
     matches = torch.zeros(w.shape[:-2], dtype=torch.int32, device=w.device)
     r = 0
     while r < rounds and w.numel() and bool(w.max() > 0):
         w, selected, cand = match_rounds_body(w)
-        col_score = col_score + selected.sum(dim=-2)
+        score = score + round_total(selected)
         matches = matches + cand.sum(dim=(-2, -1), dtype=torch.int32)
         r += 1
-    return _tree_sum(col_score).clamp(0.0, 1.0), matches
+    return score.clamp(0.0, 1.0), matches
 
 
 def pair_scores(

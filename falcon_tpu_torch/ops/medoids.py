@@ -225,20 +225,6 @@ def _cluster_rows(seg: torch.Tensor, spill: int, stream: int):
     return off, items
 
 
-def cluster_sums(vectors: torch.Tensor, seg: torch.Tensor, spill: int,
-                 sums: torch.Tensor, stream: int) -> torch.Tensor:
-    """On the card, inside the caller's ``torch.cuda.device`` and without
-    waiting for it: ``sums`` (spill, dim) filled with each cluster's sum of
-    its rows of ``vectors`` in ascending row order (the group-by, then a
-    block per cluster); the rows in ``spill`` are dropped.  Returns the
-    group-by's offsets (spill + 1,), int32."""
-    off, items = _cluster_rows(seg, spill, stream)
-    _check_launch("cluster_sums", _build.library().falcon_hashed_medoid_sums(
-        vectors.data_ptr(), vectors.shape[1], items.data_ptr(),
-        off.data_ptr(), spill, sums.data_ptr(), stream))
-    return off
-
-
 def hashed_medoid_scores(vectors: torch.Tensor, seg: torch.Tensor,
                          spill: int) -> torch.Tensor:
     """(n,) float32 scores ``v_i . s_C`` for the first ``n = len(seg)``
@@ -259,7 +245,10 @@ def hashed_medoid_scores(vectors: torch.Tensor, seg: torch.Tensor,
     out = torch.empty(n, dtype=torch.float32, device=dev)
     stream = _stream(dev)
     with torch.cuda.device(dev):
-        cluster_sums(vectors, seg, spill, sums, stream)
+        off, items = _cluster_rows(seg, spill, stream)
+        _check_launch("hashed_medoid_scores", lib.falcon_hashed_medoid_sums(
+            vectors.data_ptr(), dim, items.data_ptr(), off.data_ptr(), spill,
+            sums.data_ptr(), stream))
         _check_launch("hashed_medoid_scores", lib.falcon_hashed_medoid_dot(
             vectors.data_ptr(), dim, seg.data_ptr(), n, spill,
             sums.data_ptr(), out.data_ptr(), stream))
@@ -292,7 +281,7 @@ def hashed_medoid_scores_plain(vectors: torch.Tensor, seg: torch.Tensor,
 
 def segment_sums_plain(vectors: torch.Tensor, seg: torch.Tensor,
                        spill: int) -> torch.Tensor:
-    """Plain PyTorch version of :func:`cluster_sums` (any device): the
+    """Plain PyTorch version of B.2's cluster sums (any device): the
     (spill, dim) float32 sums of each segment's rows of ``vectors``, added
     one row after another in ascending row order from zero; empty segments
     sum to zero and the rows in ``spill`` are dropped."""

@@ -3,11 +3,13 @@ package's on the CPU: the same corpus gives the same CSV bytes (apart from
 the ``# work_dir`` line) and the same representative MGF, with the exact
 backend, with ``--backend ann`` (the default index, and ``brute``), with
 ``--backend ann --ann_index exact``, with ``--ann_index ivf``, in dbscan
-mode, under ``--rerank off`` and with consensus representatives; a work_dir
+mode (also on a corpus that holds copies of spectra, whose medoids tie),
+under ``--rerank off`` and with consensus representatives; a work_dir
 ingested by one package resumes under the other, and the port never
 imports JAX.
 """
 
+import dataclasses
 import os
 import pathlib
 import re
@@ -321,6 +323,33 @@ def test_ported_options_csv_and_mgf_identical_to_jax(mgf_inputs, flags):
     assert mgf == _read(str(tmp_path / "jax.mgf"))
     if CONSENSUS[1] in flags:
         assert b"consensus_cluster" in mgf
+
+
+@pytest.mark.parametrize("index", ["auto", "exact"])
+def test_dbscan_medoids_of_copies_identical_to_jax(tmp_path, monkeypatch,
+                                                   index):
+    # A corpus in which 24 spectra appear twice (same peaks, precursor and
+    # RT, new titles): each pair of copies ties for medoid up to the last
+    # bit of the exact scores, and the medoid MGF must name the JAX
+    # package's copy.
+    monkeypatch.setenv(DEVICE_ENV, "cpu")
+    spectra, _ = make_clustered_spectra(
+        n_clusters=10, cluster_size=5, n_noise=15, seed=9, charges=(2, 3),
+    )
+    spectra += [dataclasses.replace(s, identifier=s.identifier + "_copy")
+                for s in spectra[1::2][:24]]
+    files = [write_mgf(str(tmp_path / "run.mgf"), spectra)]
+    flags = ["--export_representatives", "--backend", "ann", "--ann_index",
+             index, "--cluster_method", "dbscan"]
+    assert jax_cli.main(files + [str(tmp_path / "jax"), "--work_dir",
+                                 str(tmp_path / "w_jax")] + flags) == 0
+    assert cli.main(files + [str(tmp_path / "torch"), "--work_dir",
+                             str(tmp_path / "w_torch")] + flags) == 0
+    assert (_csv_without_work_dir(str(tmp_path / "torch.csv"))
+            == _csv_without_work_dir(str(tmp_path / "jax.csv")))
+    mgf = _read(str(tmp_path / "torch.mgf"))
+    assert mgf == _read(str(tmp_path / "jax.mgf"))
+    assert b"_copy" in _read(str(tmp_path / "torch.csv"))
 
 
 @pytest.mark.parametrize("flags", [

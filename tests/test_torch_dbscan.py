@@ -15,12 +15,12 @@ labels and medoids.
 - ``generate_clusters`` labels and medoids identical to the JAX package's
   in dbscan mode (``auto``, ``brute`` and ``exact`` index, ``min_samples``
   2 and 3, with ``rt_tol``, with ``min_matches > 0``, in device blocks) and
-  under ``--rerank off`` (linkage and dbscan).  The corpus holds no
-  duplicate spectra: their medoid scores tie up to the last bit of the
-  exact similarities, which agree with the JAX package's to 1e-6, not bit
-  for bit, so a tie there may break the other way (duplicates are covered
-  by the score tests above, on the same inputs).  Inputs are made from
-  seeds with numpy.
+  under ``--rerank off`` (linkage and dbscan).  The corpus repeats 30 of
+  its spectra (same peaks, precursor and RT, new identifiers): the medoid
+  scores of two copies tie up to the last bit of the exact similarities,
+  which are the JAX package's bit for bit, so every tie breaks the same
+  way.  Two more seeds' corpora with copies are held in ``auto`` and
+  ``exact`` index.  Inputs are made from seeds with numpy.
 """
 
 import jax.numpy as jnp
@@ -162,22 +162,33 @@ def test_medoid_wrappers_reject_bad_inputs():
                                      torch.zeros(40, dtype=torch.int64), 3)
 
 
-def _rows():
+N_COPIES = 30  # spectra repeated in each corpus
+
+
+def _rows(seed=33):
     spectra, _ = make_clustered_spectra(
-        n_clusters=20, cluster_size=6, n_noise=40, seed=33, charges=(2,),
+        n_clusters=20, cluster_size=6, n_noise=40, seed=seed, charges=(2,),
         precursor_mz_range=(600.0, 601.0))
     rows = [process_spectrum(s, 5, 250, 101.0, 1500.0, 1.5, 0.01, 50, None)
             for s in spectra]
-    return [r for r in rows if r is not None]
+    rows = [r for r in rows if r is not None]
+    picked = np.random.default_rng(seed).choice(len(rows), N_COPIES,
+                                                replace=False)
+    return rows + [dict(rows[i], identifier=rows[i]["identifier"] + "_copy")
+                   for i in sorted(picked)]
+
+
+def _store(tmp_path_factory, seed=33):
+    store = SpectrumStore(str(tmp_path_factory.mktemp("dbscan_spectra")))
+    writer = store.writer(batch_size=37)
+    writer.add_many(_rows(seed))
+    writer.close()
+    return store.dataset(2)
 
 
 @pytest.fixture(scope="module")
 def dataset(tmp_path_factory):
-    store = SpectrumStore(str(tmp_path_factory.mktemp("dbscan_spectra")))
-    writer = store.writer(batch_size=37)
-    writer.add_many(_rows())
-    writer.close()
-    return store.dataset(2)
+    return _store(tmp_path_factory)
 
 
 def _generate(module, dataset, **kw):
@@ -233,6 +244,19 @@ def test_engine_matches_jax(dataset, case, monkeypatch, caplog):
     assert len(medoid_rows) == len(np.unique(labels))
     if case.endswith("device_blocks"):
         assert "device blocks (cap 64)" in caplog.text
+
+
+@pytest.mark.parametrize("seed", [5, 11])
+@pytest.mark.parametrize("index", ["auto", "exact"])
+def test_engine_medoids_with_copies_match_jax(tmp_path_factory, seed, index):
+    # Copies of one spectrum fall in one cluster with equal medoid scores
+    # up to the last bit; the medoid is the JAX package's copy.
+    dataset = _store(tmp_path_factory, seed)
+    labels, medoid_rows = _generate(ann_engine, dataset, ann_index=index)
+    ref_labels, ref_medoids = _generate(jax_engine, dataset, ann_index=index)
+    np.testing.assert_array_equal(labels, ref_labels)
+    np.testing.assert_array_equal(medoid_rows, ref_medoids)
+    assert len(medoid_rows) == len(np.unique(labels)) < len(labels)
 
 
 def test_engine_medoids_route(dataset, monkeypatch):

@@ -13,13 +13,20 @@ whose end nothing moves), with the kernels' own comparator indices.  The
 mirror must give the stable sort's output exactly, on seeded inputs that
 reach every tier; ``tests/test_torch_cuda.py`` holds the kernels to the
 same plain version on the card.
+
+The k-means update (IVF.2, ``csrc/ivf.cu``) groups its rows by list with
+another fill, one that keeps row order and needs no sort: per-tile counts
+of each list, their list-major scan, and a warp per tile that walks its
+rows 32 at a time, ranking each row by the lower lanes of its list
+(``__match_any_sync``) after the tile's running count of the list.  Its
+mirror must give the stable sort's output too.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from falcon_tpu_torch.ops import consensus, groupby, medoids
+from falcon_tpu_torch.ops import consensus, groupby, ivf, medoids
 from torch_cases import GROUPBY_CASES, groupby_keys, tiers_reached
 
 TOP = (2**63 - 1, 2**31 - 1)  # above every (order key, position)
@@ -195,3 +202,78 @@ def test_group_by_rejects_bad_inputs():
         groupby.group_by(key.int(), 4, shift=32)
     with pytest.raises(ValueError, match="n_groups"):
         groupby.group_by(key.int(), 0)
+
+
+def _kmeans_fill_mirror(assign, n_lists):
+    """csrc/ivf.cu's IVF.2 order in numpy: (list offsets, rows).  The count
+    and fill kernels walk each tile alike; the fill writes each row to its
+    (list, tile) start from the scanned counts plus its rank."""
+    n = len(assign)
+    tile = ivf.fill_tile(n_lists)
+    n_tiles = -(-n // tile)
+    lanes = np.arange(32)
+
+    def walk(t, visit):
+        run = np.zeros(n_lists, np.int64)  # the tile's counts in shared
+        end = min(t * tile + tile, n)
+        for r in range(t * tile, end, 32):  # 32 rows, one per lane
+            rows = np.arange(r, min(r + 32, end))
+            lists = assign[rows]
+            same = lists[:, None] == lists[None, :]
+            rank = (same & (lanes[None, :len(rows)]
+                            < lanes[:len(rows), None])).sum(1)
+            visit(rows, lists, run[lists] + rank)  # each leader's read
+            np.add.at(run, lists, 1)  # ... and its group's advance
+        return run
+
+    cnt1 = np.zeros(1 + n_lists * n_tiles, np.int64)
+    for t in range(n_tiles):
+        cnt1[1 + np.arange(n_lists) * n_tiles + t] = walk(
+            t, lambda *_: None)
+    off = np.cumsum(cnt1)
+    items = np.full(n, -1, np.int64)
+    for t in range(n_tiles):
+        def visit(rows, lists, rank, t=t):
+            items[off[lists * n_tiles + t] + rank] = rows
+        walk(t, visit)
+    return off[np.arange(n_lists + 1) * n_tiles], items
+
+
+def _kmeans_assign(case):
+    rng = np.random.default_rng(len(case))
+    if case == "16_lists_many_tiles":
+        return rng.integers(0, 16, 5000), 16  # 20 tiles, the last short
+    if case == "1024_lists_some_empty":
+        a = rng.integers(0, 1024, 131072)
+        a[np.isin(a, rng.choice(1024, 40, replace=False))] = 5
+        return a, 1024
+    if case == "one_list_every_row":
+        return np.full(3 * 256 + 17, 3), 16
+    # Runs of one list, longer than a tile, beside scattered rows.
+    a = rng.integers(0, 64, 9000)
+    a[1000:4000] = 63
+    return a, 64
+
+
+KMEANS_FILL_CASES = ["16_lists_many_tiles", "1024_lists_some_empty",
+                     "one_list_every_row", "runs_longer_than_a_tile"]
+
+
+@pytest.mark.parametrize("case", KMEANS_FILL_CASES)
+def test_kmeans_fill_mirror_equals_stable_sort(case):
+    assign, n_lists = _kmeans_assign(case)
+    off, items = _kmeans_fill_mirror(assign, n_lists)
+    counts = np.bincount(assign, minlength=n_lists)
+    np.testing.assert_array_equal(off, np.concatenate([[0],
+                                                       np.cumsum(counts)]))
+    np.testing.assert_array_equal(items, np.argsort(assign, kind="stable"))
+    assert len(assign) > 2 * ivf.fill_tile(n_lists)  # several tiles
+    has_empty = case in ("1024_lists_some_empty", "one_list_every_row")
+    assert (counts == 0).any() == has_empty
+
+
+@pytest.mark.parametrize("n_lists,tile", [(1, 256), (16, 256), (256, 256),
+                                          (300, 320), (1024, 1024),
+                                          (12288, 2048)])
+def test_kmeans_fill_tile(n_lists, tile):
+    assert ivf.fill_tile(n_lists) == tile and tile % 32 == 0

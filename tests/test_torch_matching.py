@@ -2,8 +2,9 @@
 against the JAX package's (``falcon_tpu.ops.matching``) on the CPU.
 
 Inputs are made with numpy from a seed and handed to both.  Weights,
-selections and match counts must agree exactly; scores to 1e-6, since the
-two packages add the selected weights in different orders.
+selections, match counts and scores must agree bit for bit: the port adds
+the selected weights in the order XLA's CPU backend gives the JAX
+package's ``match_score`` (``falcon_tpu_torch/ops/matching.py``).
 """
 
 import jax.numpy as jnp
@@ -18,7 +19,9 @@ from falcon_tpu.store.store import padded_peaks
 from falcon_tpu_torch.ops import matching as tm
 
 TOL = 0.05
-ATOL = 1e-6
+# Symmetry of the port's own block scores: (i, j) and (j, i) add the
+# blocks in another order.
+SYM_ATOL = 1e-6
 
 
 @pytest.fixture(scope="module")
@@ -141,8 +144,7 @@ def test_match_score_and_pair_scores(kind, rounds):
     s_t, m_t = tm.match_score(torch.from_numpy(w), rounds)
     s_j, m_j = jm.match_score(jnp.asarray(w), rounds)
     np.testing.assert_array_equal(m_t.numpy(), np.asarray(m_j))
-    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), atol=ATOL,
-                               rtol=0)
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
     assert s_t.dtype == torch.float32 and m_t.dtype == torch.int32
 
     p_t, pm_t = tm.pair_scores(_t(mz_a), _t(int_a), _t(mz_b), _t(int_b),
@@ -151,8 +153,7 @@ def test_match_score_and_pair_scores(kind, rounds):
                                jnp.asarray(mz_b), jnp.asarray(int_b), TOL,
                                rounds)
     np.testing.assert_array_equal(pm_t.numpy(), np.asarray(pm_j))
-    np.testing.assert_allclose(p_t.numpy(), np.asarray(p_j), atol=ATOL,
-                               rtol=0)
+    np.testing.assert_array_equal(p_t.numpy(), np.asarray(p_j))
 
 
 def test_match_score_stops_at_the_round_cap():
@@ -166,8 +167,7 @@ def test_match_score_stops_at_the_round_cap():
         s_t, m_t = tm.match_score(torch.from_numpy(w), rounds)
         s_j, m_j = jm.match_score(jnp.asarray(w), rounds)
         np.testing.assert_array_equal(m_t.numpy(), np.asarray(m_j))
-        np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), atol=ATOL,
-                                   rtol=0)
+        np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
         counts.append(int(m_t[0]))
     assert counts == [0, 1, 3, 6]
 
@@ -180,8 +180,104 @@ def test_block_scores_vs_xla(padded_dataset):
     s_j, m_j = jm.block_scores_xla(jnp.asarray(mz[:sub]),
                                    jnp.asarray(intensity[:sub]), TOL)
     np.testing.assert_array_equal(m_t.numpy(), np.asarray(m_j))
-    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), atol=ATOL,
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+    # Symmetric up to the order in which the blocks are added.
+    np.testing.assert_allclose(s_t.numpy(), s_t.numpy().T, atol=SYM_ATOL,
                                rtol=0)
-    # Symmetric up to the order in which the columns are added.
-    np.testing.assert_allclose(s_t.numpy(), s_t.numpy().T, atol=ATOL,
-                               rtol=0)
+
+
+def _one_round(p: int, entries):
+    """(1, p, p) weights holding ``entries`` ((row, col, value), one per row
+    and per column), so the first round selects every one of them."""
+    w = np.zeros((1, p, p), np.float32)
+    for r, c, v in entries:
+        w[0, r, c] = v
+    return w
+
+
+def _sequential(values):
+    acc = np.float32(0)
+    for v in values:
+        acc = np.float32(acc + np.float32(v))
+    return acc
+
+
+_A, _B, _C, _D = (np.float32(v) for v in (0.375, 2.0**-25, 1.5 * 2.0**-25,
+                                          2.0**-26))
+# Each case: the entries of one round, and the scores that other summation
+# orders would give (each must differ from the JAX package's, or the case
+# would not tell the orders apart).
+ORDER_CASES = {
+    # One entry in each 32 x 32 block of a 64-wide tile: XLA adds
+    # (B00 + B01) + (B10 + B11), neither block order from zero.
+    "blocks_64": (64, [(3, 7, _A), (5, 40, _B), (36, 2, _C), (50, 60, _D)],
+                  [_sequential([_A, _B, _C, _D]),
+                   _sequential([_A, _C, _B, _D])]),
+    # Three entries of one block whose row order is not their column
+    # order: the block is summed in row-major order.
+    "within_block": (64, [(0, 5, 0.5), (3, 1, 2.0**-25), (7, 0, 2.0**-25)],
+                     [_sequential([2.0**-25, 2.0**-25, 0.5])]),
+    # 16 blocks at a padded width of 128: each row of blocks from zero,
+    # then the rows in a halving tree, (R0 + R2) + (R1 + R3).
+    "blocks_128": (128, [(3, 7, _A), (40, 45, _B), (70, 80, _C),
+                         (100, 120, _D)],
+                   [_sequential([_A, _B, _C, _D]),
+                    np.float32(np.float32(_A + _B) + np.float32(_C + _D))]),
+    # 256 blocks at 512: XLA's loop adds them in row-major order, not in
+    # the halving tree of the narrower tiles.
+    "blocks_512": (512, [(3, 7, _A), (40, 45, _B), (70, 80, _C),
+                         (100, 120, _D)],
+                   [np.float32(np.float32(_A + _C) + np.float32(_B + _D))]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ORDER_CASES))
+def test_round_sum_takes_xla_order(case):
+    p, entries, other_orders = ORDER_CASES[case]
+    w = _one_round(p, entries)
+    s_t, m_t = tm.match_score(torch.from_numpy(w))
+    s_j, m_j = jm.match_score(jnp.asarray(w))
+    assert int(m_t[0]) == int(m_j[0]) == len(entries)
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+    for other in other_orders:
+        assert np.float32(s_j[0]) != other
+
+
+def _wide_pairs(seed: int, permute: bool):
+    """Pairs of spectra with up to 100 peaks, padded to 128 as the ann
+    engine pads ``max_peaks`` above 64, half of them near-duplicates."""
+    spectra, _ = make_clustered_spectra(
+        n_clusters=8, cluster_size=4, n_noise=8, seed=seed, n_peaks=(60, 120)
+    )
+    rows = [process_spectrum(s, 5, 250, 101.0, 1500.0, 1.5, 0.01, 100,
+                             None) for s in spectra]
+    rows = [r for r in rows if r is not None]
+    offsets = np.zeros(len(rows) + 1, np.int64)
+    offsets[1:] = np.cumsum([len(r["mz"]) for r in rows])
+    mz, intensity, _ = padded_peaks(
+        offsets, np.concatenate([r["mz"] for r in rows]),
+        np.concatenate([r["intensity"] for r in rows]), 128)
+    if permute:
+        rng = np.random.default_rng(seed)
+        perm = np.argsort(rng.random(mz.shape), axis=1)
+        mz = np.take_along_axis(mz, perm, 1)
+        intensity = np.take_along_axis(intensity, perm, 1)
+    rng = np.random.default_rng(seed + 1)
+    idx = rng.integers(0, mz.shape[0], size=(64, 2))
+    idx[::2, 1] = idx[::2, 0] ^ 1  # cluster neighbours
+    idx[:6, 1] = idx[:6, 0]  # a spectrum against itself
+    idx = np.minimum(idx, mz.shape[0] - 1)
+    return (mz[idx[:, 0]], intensity[idx[:, 0]], mz[idx[:, 1]],
+            intensity[idx[:, 1]])
+
+
+@pytest.mark.parametrize("permute", [False, True], ids=["stored", "permuted"])
+def test_pair_scores_at_padded_width_128(permute):
+    mz_a, int_a, mz_b, int_b = _wide_pairs(21, permute)
+    assert mz_a.shape[1] == 128 and (int_a[:, 64:] > 0).any()
+    s_t, m_t = tm.pair_scores(_t(mz_a), _t(int_a), _t(mz_b), _t(int_b), TOL)
+    s_j, m_j = jm.pair_scores(jnp.asarray(mz_a), jnp.asarray(int_a),
+                              jnp.asarray(mz_b), jnp.asarray(int_b), TOL)
+    np.testing.assert_array_equal(m_t.numpy(), np.asarray(m_j))
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+    assert (m_t > 10).any()

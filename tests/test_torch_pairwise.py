@@ -1,11 +1,12 @@
 """The port's pair scorers (``falcon_tpu_torch.ops.pairwise``) against the
 JAX package's on the CPU.
 
-On a CPU tensor each wrapper runs its kernel's plain version; the JAX side
-runs the Pallas panel kernel in interpret mode, as the JAX package's own
-tests do, and its XLA ``batched_block_scores``.  Distances and scores agree
-to 1e-6 (the packages add the selected weights in different orders); match
-counts exactly.
+On a CPU tensor each wrapper runs its kernel's plain version.  The JAX
+package's CPU path (its XLA ``block_scores_xla`` and
+``batched_block_scores``) is the reference: scores and match counts agree
+bit for bit.  The Pallas panel kernel, run in interpret mode as the JAX
+package's own tests run it, adds each row's weights first, the TPU's
+order, so against it scores agree to 1e-6 and match counts exactly.
 """
 
 import jax.numpy as jnp
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from falcon_tpu.ops import matching as jm
 from falcon_tpu.ops import pairwise as jp
 from falcon_tpu.preprocess import process_spectrum
 from falcon_tpu.simulate import make_clustered_spectra
@@ -21,7 +23,8 @@ from falcon_tpu_torch.ops import pairwise as tp
 from torch_cases import permuted, tie_heavy
 
 TOL = 0.05
-ATOL = 1e-6
+# Against the Pallas body, which sums in the TPU's order.
+PALLAS_ATOL = 1e-6
 
 
 @pytest.fixture(scope="module")
@@ -58,7 +61,10 @@ def test_condensed_distances_vs_pallas_interpret(padded_dataset,
                                  min_matches=min_matches,
                                  backend="pallas_interpret", panel_rows=16)
     assert ours.dtype == np.float32 and ours.shape == ref.shape
-    np.testing.assert_allclose(ours, ref, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(ours, ref, atol=PALLAS_ATOL, rtol=0)
+    xla = jp.condensed_distances(mz[:sub], intensity[:sub], TOL,
+                                 min_matches=min_matches, backend="xla")
+    np.testing.assert_array_equal(ours, xla)
 
 
 @pytest.mark.parametrize("upper_only", [False, True])
@@ -84,8 +90,15 @@ def test_panel_scores_row_offset_vs_pallas_interpret(padded_dataset,
     ours, ours_m = ours.numpy(), ours_m.numpy()
     upper = (np.arange(n)[None, :] > (r0 + np.arange(r1 - r0))[:, None])
     keep = upper if upper_only else np.ones_like(upper)
-    np.testing.assert_allclose(ours[keep], ref[keep], atol=ATOL, rtol=0)
+    np.testing.assert_allclose(ours[keep], ref[keep], atol=PALLAS_ATOL,
+                               rtol=0)
     np.testing.assert_array_equal(ours_m[keep], ref_m[keep])
+    # The JAX package's CPU path, row spectrum first as in the panel.
+    xla, xla_m = jm.block_scores_xla(jnp.asarray(mz[:n]),
+                                     jnp.asarray(intensity[:n]), TOL)
+    np.testing.assert_array_equal(ours[keep], np.asarray(xla)[r0:r1][keep])
+    np.testing.assert_array_equal(ours_m[keep],
+                                  np.asarray(xla_m)[r0:r1][keep])
     # Pairs outside the requested triangle are never scored.
     assert (ours[~keep] == 0).all() and (ours_m[~keep] == 0).all()
 
@@ -137,7 +150,7 @@ def test_grouped_condensed_distances_vs_jax(min_matches):
     for k, m in enumerate(SIZES):
         assert ours[k].dtype == np.float32
         assert ours[k].shape == ref[k].shape == (m * (m - 1) // 2,)
-        np.testing.assert_allclose(ours[k], ref[k], atol=ATOL, rtol=0)
+        np.testing.assert_array_equal(ours[k], ref[k])
 
 
 # K4's cases: spectra as the store keeps them, tie-heavy ones, peaks in no
@@ -179,7 +192,7 @@ def test_batched_block_scores_vs_jax(case):
                              for g, m in enumerate(sizes)])
     want_m = np.concatenate([ref_m[g][np.triu_indices(m, 1)]
                              for g, m in enumerate(sizes)])
-    np.testing.assert_allclose(ours_s.numpy(), want_s, atol=ATOL, rtol=0)
+    np.testing.assert_array_equal(ours_s.numpy(), want_s)
     np.testing.assert_array_equal(ours_m.numpy(), want_m)
     assert (want_m > 0).any()
 

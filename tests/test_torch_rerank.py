@@ -1,6 +1,6 @@
 """The port's exact rerank (``ops/rerank.py``) against the JAX package's
 ``rerank_exact(..., as_device=True)`` on the CPU: the same candidate lists
-give identical ids and match counts and scores within 1e-6, through the
+give identical ids, match counts and scores (bit for bit), through the
 pair-list scorer and a stable top-k.
 
 The lists hold -1 holes, rows with no candidate, fewer or more slots than
@@ -23,7 +23,6 @@ from falcon_tpu_torch.ops.knn import NEG
 from torch_cases import PAD_MZ, tie_heavy
 
 TOL = 0.05
-ATOL = 1e-6
 
 
 def _clustered(n_pad):
@@ -78,7 +77,7 @@ def test_rerank_exact_matches_jax(case, width, k_out):
     ref_scores, ref_ids, ref_matches = (np.asarray(a) for a in ref)
     assert scores.shape == ref_scores.shape == (512, min(k_out, width))
     assert ids.dtype == np.int64 and matches.dtype == np.int32
-    np.testing.assert_allclose(scores, ref_scores, atol=ATOL, rtol=0)
+    np.testing.assert_array_equal(scores, ref_scores)
     np.testing.assert_array_equal(ids, ref_ids)
     # The JAX package leaves a missing slot's count at whatever its
     # placeholder pair gave; the port's is 0.
