@@ -70,12 +70,15 @@ function on ``index_add_``; B.1, B.2 and B.3 also on a skewed input each
 (hub targets, a cluster of 3,000 rows, a hot key), with their device time
 split by ``torch.profiler`` into the group-by and the walk (B.2: the
 cluster sums and the row dots), which must hold no sort or search
-kernel; phase 2 also holds the IVF probe scan (IVF.1) at the bench
-corpus's charge-2 block and at a dense block, and the IVF k-means update
-(IVF.2) at the bench block's training sample and with one list of 20,000
-of its rows, against their plain versions bit for bit, timed beside a
-gather + einsum + mask and a one-hot product, with a torch.profiler split
-into the kernels, the sorts and the group-by (none in IVF.2);
+kernel; phase 2 also holds the IVF probe scan's chunk step (IVF.1: mask,
+dots and stable top-k) at the bench corpus's charge-2 block and at a dense
+block, and the IVF k-means update (IVF.2) at the bench block's training
+sample and with one list of 20,000 of its rows, against their plain
+versions bit for bit, timed beside a gather + einsum + mask + stable sort
+and a one-hot product, with a torch.profiler split of the index's
+self-search and of IVF.2 that must hold no sort or top-k kernel, and times
+the self-search (lists kept on the card) and ``search`` (copied to the
+host);
 phase 5 also runs the default index, dbscan mode, ``--rerank off``, the
 consensus spectra and the IVF index through the kernels and through the
 plain versions.
@@ -122,7 +125,7 @@ K1, K2, K4, PL, VEC = ("K1 panel_scores", "K2 banded_panel_scores",
                        "vectorize")
 B1, B2, B3 = ("B.1 sparse_medoid_scores", "B.2 hashed_medoid_scores",
               "B.3 consensus aggregate")
-IVF1, IVF2 = "IVF.1 probe_scan", "IVF.2 kmeans_update"
+IVF1, IVF2 = "IVF.1 probe_topk", "IVF.2 kmeans_update"
 KERNELS = (K1, K2, K4, PL, VEC, B1, B2, B3, IVF1, IVF2)
 SOURCES = {K1: "falcon_tpu_torch/csrc/pairwise.cu",
            K2: "falcon_tpu_torch/csrc/exact_knn.cu",
@@ -156,7 +159,7 @@ REPLACES = {
     B1: "falcon_tpu/cluster/ann_engine.py:180",
     B2: "falcon_tpu/cluster/ann_engine.py:138",
     B3: "falcon_tpu/ops/consensus.py:34",
-    IVF1: "falcon_tpu/ops/ivf.py:543",
+    IVF1: "falcon_tpu/ops/ivf.py:550",
     IVF2: "falcon_tpu/ops/ivf.py:63",
 }
 DBSCAN = ANN_DEFAULT + ["--cluster_method", "dbscan"]
@@ -350,7 +353,7 @@ def wrappers():
             VEC: [(vz, "vectorize"), (vz, "vectorize_pair")],
             B1: [(md, "sparse_medoid_scores")],
             B2: [(md, "hashed_medoid_scores")], B3: [(cs, "aggregate")],
-            IVF1: [(ivf, "probe_scan")], IVF2: [(ivf, "kmeans_update")]}
+            IVF1: [(ivf, "probe_topk")], IVF2: [(ivf, "kmeans_update")]}
 
 
 def launch_counts():
@@ -1403,24 +1406,43 @@ def phase_dbscan_kernels(dev, parity, times, report, bench_all):
         report["B.3 skewed"] = skewed_consensus(inputs, kw)
 
 
-def probe_scan_library(q3d, qmz3d, qrow3d, corpus3d, cmz3d, crow3d,
-                       probe_ids, tol, tol_is_da, c0, chunk):
-    """IVF.1 as PyTorch computes it: the probed slabs gathered into a
-    (chunk, n_probe, lb, D) copy, one einsum (bf16 operands give a bf16
-    result, widened), and the same mask."""
+def probe_topk_library(q3d, qmz3d, qrow3d, corpus3d, cmz3d, crow3d,
+                       probe_ids, tol, tol_is_da, k, c0, chunk):
+    """IVF.1's chunk step as PyTorch computes it: the probed slabs gathered
+    into a (chunk, n_probe, lb, D) copy, one einsum (bf16 operands give a
+    bf16 result, widened), the same mask, ``stable_topk`` (``torch.sort``)
+    over each row's n_probe * lb scores and the slot of each position."""
     import torch
 
+    from falcon_tpu_torch.ops import knn
+
+    qlb, lb = q3d.shape[1], corpus3d.shape[1]
     probes = probe_ids[c0:c0 + chunk].long()
     sims = torch.einsum("cqd,cpbd->cqpb", q3d[c0:c0 + chunk],
                         corpus3d[probes]).float()
+    valid = probe_mask(qmz3d, qrow3d, cmz3d, crow3d, probes, tol, tol_is_da,
+                       c0, chunk)
+    top, pos = knn.stable_topk(torch.where(valid, sims, -2.0).view(
+        chunk * qlb, -1), k)
+    slot = torch.gather(probes.repeat_interleave(qlb, 0), 1,
+                        pos // lb) * lb + pos % lb
+    return (top.view(chunk, qlb, k),
+            torch.where(top > -2.0, slot, -1).int().view(chunk, qlb, k))
+
+
+def probe_mask(qmz3d, qrow3d, cmz3d, crow3d, probes, tol, tol_is_da, c0,
+               chunk):
+    """The (chunk, qlb, n_probe, lb) pairs of the lists [c0, c0 + chunk)
+    that IVF.1 scores (in band, real, not the self pair)."""
+    import torch
+
     qm = qmz3d[c0:c0 + chunk][:, :, None, None]
     sm = cmz3d[probes][:, None]
     diff = qm - sm
     mass = diff.abs() if tol_is_da else (diff / sm * 1e6).abs()
-    valid = (torch.isfinite(qm) & torch.isfinite(sm) & (mass <= tol)
-             & (qrow3d[c0:c0 + chunk][:, :, None, None]
-                != crow3d[probes][:, None]))
-    return torch.where(valid, sims, -2.0).flatten(2)
+    return (torch.isfinite(qm) & torch.isfinite(sm) & (mass <= tol)
+            & (qrow3d[c0:c0 + chunk][:, :, None, None]
+               != crow3d[probes][:, None]))
 
 
 def kmeans_update_library(vectors, assign, centroids):
@@ -1482,10 +1504,7 @@ def ivf_index(mz, intensity, pmz, dev):
     index = ivf.IVFIndex(plain, pmz, coarse_vectors=vz.normalize_rows(spread),
                          rank_vectors=spread)
     n_probe, lb = min(32, index.n_lists), index._lb
-    chunk = 1
-    while (chunk * 2 * lb * n_probe * lb * 4 <= 256 * 2**20
-           and chunk * 2 <= index.n_lists):
-        chunk *= 2
+    chunk = ivf.scan_chunk(index.n_lists, lb, n_probe, lb)
     args = (index._query3d, index._mz3d, index._row3d, index._corpus3d,
             index._mz3d, index._row3d,
             torch.from_numpy(index._probe_ids(n_probe)).to(dev))
@@ -1493,13 +1512,16 @@ def ivf_index(mz, intensity, pmz, dev):
 
 
 def phase_ivf_kernels(dev, parity, times, report, bench_all, dense_rows):
-    """Phase 2, continued: the IVF probe scan (IVF.1) at the bench corpus's
-    charge-2 block and at a dense block, and the k-means update (IVF.2) at
-    the bench block's training sample and with one list of 20,000 of its
-    rows, each bit for bit against its plain version and its own second
-    launch, timed beside a PyTorch computation of the same function
-    (gather + einsum + mask; a one-hot product), with its bound and a
-    torch.profiler split (IVF.2's must hold no sort or search kernel)."""
+    """Phase 2, continued: the IVF probe scan's chunk step (IVF.1) at the
+    bench corpus's charge-2 block and at a dense block, at the engine's k
+    and chunks, and the k-means update (IVF.2) at the bench block's
+    training sample and with one list of 20,000 of its rows, each bit for
+    bit against its plain version and its own second launch, timed beside
+    a PyTorch computation of the same function (gather + einsum + mask +
+    stable sort; a one-hot product), with its bound and a torch.profiler
+    split (the self-search's must hold no sort or top-k kernel, IVF.2's no
+    sort or search kernel); and the index's self-search and ``search``
+    timed."""
     import torch
 
     from falcon_tpu_torch.cluster import ann_engine
@@ -1524,73 +1546,126 @@ def phase_ivf_kernels(dev, parity, times, report, bench_all, dense_rows):
         build_s = time.perf_counter() - t0
         n, lb, n_lists = len(pmz), index._lb, index.n_lists
         n_probe, dim = args[-1].shape[1], plain.shape[1]
-        calls = [args + (20.0, False, c0, chunk)
-                 for c0 in range(0, n_lists, chunk)]
-        n_valid = n_out = 0
-        for call in calls:
-            got, again = ivf.probe_scan(*call), ivf.probe_scan(*call)
-            want = ivf.probe_scan_plain(*call)
-            check_bits(IVF1, f"{name} block, lists {call[-2]}+{chunk}", got,
-                       again, want)
-            n_valid += int((want > -2.0).sum())
-            n_out += want.numel()
-        shape = (f"{name} block: {n} spectra, {n_lists} lists of {lb} slots,"
-                 f" {n_probe} probes, chunks of {chunk} lists, 20 ppm, "
-                 f"{n_valid} unmasked of {n_out} pairs")
-        ms = kernel_ms(lambda: [ivf.probe_scan(*c) for c in calls],
-                       reps=3) / len(calls)
-        _, t_plain = plain_ms(lambda: [ivf.probe_scan_plain(*c)
-                                       for c in calls])
-        library = kernel_ms(lambda: [probe_scan_library(*c) for c in calls],
-                            reps=3) / len(calls)
-        lib_err = max(float((probe_scan_library(*c) - ivf.probe_scan(*c))
-                            .abs().max()) for c in calls)
-        # Bytes: each chunk's queries, the probed slabs and the slots' m/z
-        # and rows read once, the scores written; operations: a dot of
-        # bf16 operands per unmasked pair, and the mask's few per pair.
-        probed = sum(int(torch.unique(c[6][c[-2]:c[-2] + chunk]).numel())
-                     for c in calls)
-        n_bytes = (n_out * 4 + n_lists * lb * (dim * 2 + 8)
-                   + probed * lb * (dim * 2 + 8) + args[-1].numel() * 4)
-        op_ms = (n_valid * 2 * dim / BF16_OPS_PER_S
-                 + n_out * 6 / F32_OPS_PER_S) * 1e3 / len(calls)
-        byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3 / len(calls)
-        bound_ms, bound_by = max((byte_ms, "bytes"), (op_ms, "operations"))
+        if name == "bench":
+            n_lists_bench = n_lists
         # The engine's search width at the CLI's defaults (n_neighbors 64,
         # n_neighbors_ann 128, 20 ppm).
         _, k_ivf = ann_engine.ivf_widths(
             ann_engine.band_spans(pmz, 20.0, "ppm"), 64, 128, True)
+        k = min(k_ivf, n_probe * lb)
+
+        def self_search():
+            return index.self_search(k_ivf, n_probe=32, tol_mass=20.0,
+                                     tol_mode="ppm")
 
         def search():
             return index.search(plain, pmz, np.arange(n, dtype=np.int32),
                                 k_ivf, n_probe=32, tol_mass=20.0,
                                 tol_mode="ppm")
 
-        t0 = time.perf_counter()
+        # The engine's step over the whole block (every chunk, with the
+        # casts and the concatenation), and search's NumPy contract (the
+        # lists copied to the host), each after a warm-up.
+        step_ms = kernel_ms(lambda: ivf._chunk_scan(
+            *args, 20.0, k, False, chunk, lb, lb, n_probe), reps=3)
         search()
-        search_s = time.perf_counter() - t0
-        split = kernel_split(f"{IVF1} {name} search", search,
-                             "ivf_probe_scan", banned=(), reps=2)
+        search_s = plain_ms(search)[1] / 1e3
+        log(f"  {IVF1} {name} block: the engine's chunk step over "
+            f"{n_lists} lists (chunks of {chunk}) {step_ms:.4f} ms; search "
+            f"(k={k_ivf}) {search_s:.4f} s")
+        report[f"{IVF1} {name} step"] = dict(step_ms=step_ms, chunk=chunk,
+                                             search_s=search_s)
+        calls = [args + (20.0, False, k, c0, chunk)
+                 for c0 in range(0, n_lists, chunk)]
+        n_valid = 0
+        most = 0  # the most in-band pairs of a row
+        # Bytes the chunk step must move: each query slot's m/z and row,
+        # the vector of each query slot with a pair in band, each distinct
+        # probed slab slot's m/z and row, the vector of each distinct slab
+        # slot with a pair in band, the probe ids, and the (qlb, k) scores
+        # and slots written; counted a chunk, from this run's mask.
+        n_bytes = 0
+        for call in calls:
+            c0 = call[-2]
+            got, again = ivf.probe_topk(*call), ivf.probe_topk(*call)
+            want = ivf.probe_topk_plain(*call)
+            check_bits(IVF1, f"{name} block, lists {c0}+{chunk}, "
+                       f"k = {k}", got, again, want)
+            probes = args[6][c0:c0 + chunk].long()
+            valid = probe_mask(*args[1:3], *args[4:6], probes, 20.0, False,
+                               c0, chunk)
+            n_valid += int(valid.sum())
+            per_row = valid.flatten(2).sum(-1)
+            most = max(most, int(per_row.max()))
+            hit = torch.zeros((n_lists, lb), dtype=torch.int32, device=dev)
+            hit.index_put_((probes.flatten(),),
+                           valid.any(1).flatten(0, 1).int(), accumulate=True)
+            n_bytes += (chunk * lb * 8 + int((per_row > 0).sum()) * dim * 2
+                        + int(torch.unique(probes).numel()) * lb * 8
+                        + int((hit > 0).sum()) * dim * 2
+                        + probes.numel() * 4 + chunk * lb * k * 8)
+        n_pairs = n_lists * lb * n_probe * lb
+        shape = (f"{name} block: {n} spectra, {n_lists} lists of {lb} slots,"
+                 f" {n_probe} probes, k = {k}, chunks of {chunk} lists, "
+                 f"20 ppm, {n_valid} of {n_pairs} pairs in band (at most "
+                 f"{most} a row)")
+        ms = kernel_ms(lambda: [ivf.probe_topk(*c) for c in calls],
+                       reps=5) / len(calls)
+        _, t_plain = plain_ms(lambda: [ivf.probe_topk_plain(*c)
+                                       for c in calls])
+        library = kernel_ms(lambda: [probe_topk_library(*c) for c in calls],
+                            reps=3) / len(calls)
+        lib_err = max(float((probe_topk_library(*c)[0] - ivf.probe_topk(*c)
+                             [0]).abs().max()) for c in calls)
+        # Operations: a dot of bf16 operands per pair in band, and the
+        # mask's few per pair.
+        op_ms = (n_valid * 2 * dim / BF16_OPS_PER_S
+                 + n_pairs * 6 / F32_OPS_PER_S) * 1e3 / len(calls)
+        byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3 / len(calls)
+        bound_ms, bound_by = max((byte_ms, "bytes"), (op_ms, "operations"))
+
+        # The engine's call: the lists stay on the card.
+        self_search()
+        self_search_s = plain_ms(self_search)[1] / 1e3
+        split = kernel_split(f"{IVF1} {name} self-search", self_search,
+                             "ivf_", banned=("sort", "topk", "radixselect"),
+                             reps=2)
         entry = dict(ms=ms, plain_ms=t_plain / len(calls),
                      library_ms=library, bound_ms=bound_ms,
-                     bound_by=bound_by, chunks=len(calls),
-                     unmasked_pairs=n_valid, pairs=n_out, lists=n_lists,
-                     lb=lb, build_s=build_s, search_s=search_s, k=k_ivf,
-                     split=split)
+                     bound_by=bound_by, chunks=len(calls), chunk=chunk,
+                     in_band_pairs=n_valid, most_in_band=most, pairs=n_pairs,
+                     lists=n_lists, lb=lb, k=k, build_s=build_s,
+                     step_ms=step_ms, self_search_s=self_search_s,
+                     search_s=search_s, split=split)
         report[f"{IVF1} {name}"] = entry
         if name == "bench":
             times[IVF1] = {k: entry[k] for k in ("ms", "plain_ms",
                                                  "library_ms", "bound_ms",
                                                  "bound_by")}
-        log(f"  {IVF1} {shape}: {ms:.4f} ms a chunk, bit-identical to the "
-            f"plain version and across two launches; plain version "
-            f"{t_plain / len(calls):.1f} ms a chunk; gather + einsum + mask "
-            f"{library:.4f} ms (max |diff| {lib_err:.3g}); bound "
-            f"{bound_ms:.5f} ms ({bound_by}); index built in {build_s:.2f} s,"
-            f" search (k={k_ivf}) {search_s:.3f} s")
+        log(f"  {IVF1} {shape}: {ms:.4f} ms a chunk ({ms * len(calls):.3f} "
+            f"ms the block), bit-identical to the plain version and across "
+            f"two launches; plain version {t_plain / len(calls):.1f} ms a "
+            f"chunk; gather + einsum + mask + stable_topk {library:.4f} ms "
+            f"(max |diff| {lib_err:.3g}); bound {bound_ms:.5f} ms "
+            f"({bound_by}, {100 * bound_ms / ms:.1f}%); index built in "
+            f"{build_s:.2f} s, self-search (k={k_ivf}) {self_search_s:.4f} "
+            f"s, search with the host copy {search_s:.4f} s")
         if name == "bench":
-            n_lists_bench = index.n_lists
-        del index, plain, args, calls, got, again, want
+            # Every pair in band (tol = inf), one chunk: each row's 8,192
+            # pairs take the block's radix select.
+            call = args + (float("inf"), True, k, 0, chunk)
+            got, again = ivf.probe_topk(*call), ivf.probe_topk(*call)
+            check_bits(IVF1, f"{name} block, every pair in band, lists "
+                       f"0+{chunk}, k = {k}", got, again,
+                       ivf.probe_topk_plain(*call))
+            inf_ms = kernel_ms(lambda: ivf.probe_topk(*call), reps=2)
+            inf_library = kernel_ms(lambda: probe_topk_library(*call), reps=2)
+            entry.update(every_pair_ms=inf_ms,
+                         every_pair_library_ms=inf_library)
+            log(f"  {IVF1} {name} block, every pair in band: {inf_ms:.4f} ms"
+                f" a chunk; gather + einsum + mask + stable_topk "
+                f"{inf_library:.4f} ms")
+        del calls, got, again, want, valid
     parity.err[IVF1] = 0.0
 
     # IVF.2 at the bench block's training sample, from its initial rows,

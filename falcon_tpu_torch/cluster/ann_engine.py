@@ -503,32 +503,32 @@ def _ivf_lists(mz_pad, int_pad, mz_sorted, rt_sorted, hasher, min_matches,
                          precise=not do_rerank, coarse_vectors=coarse,
                          rank_vectors=rank)
         del coarse, spread, rank
-        sims, neigh = index.search(
-            vectors, mz_sorted, np.arange(n, dtype=np.int32), k_ivf,
-            n_probe=n_probe, tol_mass=precursor_tol_mass,
+        sims, neigh = index.self_search(
+            k_ivf, n_probe=n_probe, tol_mass=precursor_tol_mass,
             tol_mode=precursor_tol_mode, precise=not do_rerank)
         del index, vectors, plain
-        sims, neigh = sims[:, :k_ann], neigh[:, :k_ann]
+        sims, neigh = sims[:, :k_ann], neigh[:, :k_ann].long()
         if rt_tol is not None:
-            neigh_rt = np.where(
-                neigh >= 0, rt_sorted[np.clip(neigh, 0, n - 1)], np.inf)
-            bad = np.abs(neigh_rt - rt_sorted[:, None]) > rt_tol
-            sims = np.where(bad, float(NEG), sims)
-            neigh = np.where(bad, -1, neigh)
+            # In float64, as the JAX package's NumPy filter.
+            rts = torch.as_tensor(rt_sorted, dtype=torch.float64, device=dev)
+            neigh_rt = torch.where(neigh >= 0, rts[neigh.clamp(0, n - 1)],
+                                   torch.inf)
+            bad = (neigh_rt - rts[:, None]).abs() > rt_tol
+            sims = torch.where(bad, NEG, sims)
+            neigh = torch.where(bad, -1, neigh)
         synchronize(dev)
     if not do_rerank:
-        return (torch.from_numpy(np.ascontiguousarray(sims)).to(dev),
-                torch.from_numpy(neigh.astype(np.int64)).to(dev), unit)
+        return sims.contiguous(), neigh, unit
     with profiler.phase("ann: rerank"):
         # The lists are sorted by bound with -1 at the tail: score the
         # columns that the widest band can fill.
         real_k = max(min(int(spans.max(initial=1)) - 1, k_ann), 1)
         width = min(_pow2_at_least(real_k, 16), neigh.shape[1])
-        ids = np.full((mz_pad.shape[0], width), -1, np.int64)
+        ids = torch.full((mz_pad.shape[0], width), -1, dtype=torch.int64,
+                         device=dev)
         ids[:n] = neigh[:, :width]
         sims, neigh, n_match = rerank_exact(
-            mz_pad, int_pad, torch.from_numpy(ids).to(dev), fragment_tol,
-            k_final)
+            mz_pad, int_pad, ids, fragment_tol, k_final)
         if min_matches > 0:
             sims = torch.where((neigh >= 0) & (n_match < min_matches), 0.0,
                                sims)

@@ -3,38 +3,72 @@
 // the given stream, does not synchronise, allocates nothing and returns
 // cudaGetLastError() of its launch.
 //
-// IVF.1, falcon_ivf_probe_scan: the probe scan.  Replaces the block gather
-// and the einsum of _chunk_scan in
-// falcon_tpu/ops/ivf.py (:543-630): for each list l of the chunk
-// [c0, c0 + chunk), each of its query slots i < qlb and each probe p with
-// slab slot b < lb, the score of the pair is q[l, i] . c[s, b], s =
-// probe_ids[l, p], written to out[l - c0, i, p * lb + b], or NEG = -2 where
-// _chunk_scan masks the pair:
+// IVF.1, falcon_ivf_probe_topk: the whole chunk step of the probe scan.
+// Replaces falcon_tpu/ops/ivf.py::_chunk_scan's step (:550, :585-620): the
+// block gather, the einsum, the mask and lax.top_k.  For each list l of the
+// chunk [c0, c0 + chunk) and each of its query slots i < qlb, the pairs are
+// (p, b), p < n_probe, b < lb, at position p * lb + b; the pair scores
+// q[l, i] . c[s, b], s = probe_ids[l, p], unless _chunk_scan masks it:
 // - the query slot is padding (its m/z is not finite);
 // - the slab slot is padding (its m/z is not finite);
 // - the pair is out of the precursor tolerance: |qm - sm| <= tol (Da) or
 //   |(qm - sm) / sm * 1e6| <= tol (ppm), in float32 with an IEEE division,
 //   as XLA computes it (tol = inf admits every real pair);
 // - the two slots hold the same row (the self pair).
-// JAX does not mask a padded query slot at tol = inf; those rows score
-// zero vectors and are dropped by the caller, so the results do not change.
+// Each row keeps its k best pairs, by descending score, ties to the lower
+// position (lax.top_k's and torch.sort(stable=True)'s order), written as
+// (chunk, qlb, k) scores and slots probe_ids[l, p] * lb + b; a row with
+// fewer than k pairs in band ends in NEG = -2 and slot -1 (masked pairs
+// score NEG, and in-band scores lie above it: cosines, and the dots of the
+// non-negative hashed vectors).  JAX does not mask a padded query slot at
+// tol = inf; those rows score zero vectors and are dropped by the caller.
 //
-// Bound: bytes.  The whole (chunk, qlb, n_probe * lb) float32 buffer is
-// written (the stable top-k reads it), 256 MB a chunk at the engine's
-// sizes, while the probed slabs are read in place from the (n_lists, lb, D)
-// layout: no (chunk, n_probe, lb, D) gathered copy is built.  On real
-// corpora a precursor band holds a few hundred spectra of the thousands of
-// probed slots, so nearly every pair is masked, and the mask is tested
-// before the dot: a masked pair costs its metadata reads and one store.
+// Bound: bytes.  The chunk's query slots and the probed slabs are read, the
+// (chunk, qlb, k) lists written; on real corpora a precursor band holds a
+// few hundred spectra of the thousands of probed slots (0.06% of the pairs
+// at 20 ppm on the bench corpus), so no per-pair buffer is written and no
+// sort runs over one.
 //
-// Design: one block per (list, probe) pair; its threads walk the qlb x lb
-// pairs with consecutive threads on consecutive slab slots, so the m/z and
-// row reads of the slab and the score stores coalesce and the query's
-// metadata is one broadcast read a warp.  A valid pair's dot is one
-// thread's: operands widened to float32 (bf16 widening is exact), four
-// dimensions loaded at a time, summed in dimension order with __fmaf_rn,
-// which is the plain version's order (falcon_tpu_torch/ops/ivf.py), so the
-// two agree bit for bit.  No tensor cores: their sums have another order.
+// Design: two kernels and a memset, no host synchronisation.
+// - ivf_probe_append_kernel, the mask: one block per (list, probe) pair; a
+//   thread owns a slab slot b and walks the list's query slots, 32 at a
+//   time (one coalesced read of their m/z and rows, then a shuffle each),
+//   so the warp shares the query and its lanes hold consecutive slab
+//   slots.  Each slot first takes a window of query m/z that holds every
+//   pair the exact test accepts (widened by more than float32 rounding
+//   moves either side), so the IEEE division runs only for the few pairs
+//   near the band, and a tile of 32 queries whose m/z range misses the
+//   warp's window is skipped whole (a self-search's slots are sorted by
+//   m/z within a list, so most tiles are).  An in-band pair's position is
+//   appended to its row's segment of n_probe * lb entries, a warp at a
+//   time: one integer atomicAdd on the row's count, each lane at its rank
+//   in the ballot.  Append order does not matter: every order below is
+//   the key's, and the key holds the position, so no two keys tie.
+// - ivf_rank_kernel, the dots and the order: eight rows a block, one warp
+//   each.  The warp's lanes compute its row's dots, one pair a lane: the
+//   operands widened to float32 (bf16 widening is exact), summed in
+//   dimension order with __fmaf_rn, the plain version's order
+//   (falcon_tpu_torch/ops/ivf.py::probe_scan_plain), so the two agree bit
+//   for bit; no tensor cores (their sums have another order).  The dots
+//   run here, spread over every row of the chunk, because the pairs of a
+//   chunk crowd into few (list, probe) blocks, whose threads would take
+//   them a few at a time: with the dots in its blocks the bench block's
+//   mask kernel took 3.21 ms, without them 0.53 ms (NVIDIA H100 80GB
+//   HBM3, chip_smoke.py phase 2).
+// - The key: the score's bits made order-preserving (-0 folded into +0, as
+//   torch.sort ties them) above the position's complement, so descending
+//   keys are descending scores, ties to the lower position.
+// - A row of at most WARP_CAP pairs is sorted in shared memory by its warp
+//   (a bitonic network over the next power of two, padded with 0, below
+//   every key) and its first k written.  A longer row takes the whole
+//   block, after the warps: its keys are written over its positions; if it
+//   has more than k, an MSB radix select (8 passes of 8 bits over a
+//   256-bin histogram) finds its k-th key and the k keys at or above it
+//   are compacted in place; they are then sorted in runs of RUN keys in
+//   shared memory, and a key's output place is its place in its run plus,
+//   for each other run, the count of that run's keys above it (a binary
+//   search).  So any k up to n_probe * lb is taken with no sort library,
+//   no float atomics and the same bits on every launch.
 //
 // IVF.2, falcon_kmeans_count + falcon_kmeans_fill + falcon_kmeans_centroids:
 // one Lloyd update of the spherical k-means quantizer.  Replaces the one-hot
@@ -72,7 +106,7 @@
 
 namespace falcon {
 
-constexpr int IVF_THREADS = 256;
+constexpr int IVF_THREADS = 128;  // the append block: lb is a multiple of 128
 constexpr float IVF_NEG = -2.0f;
 
 struct F32Row {
@@ -95,53 +129,387 @@ struct Bf16Row {
   }
 };
 
+typedef unsigned long long u64;
+
+constexpr unsigned IVF_FULL = 0xffffffffu;
+constexpr int TOPK_WARPS = 8;  // rows of a rank block, one warp each
+constexpr int TOPK_THREADS = 32 * TOPK_WARPS;
+constexpr int WARP_CAP = 512;  // a warp sorts a row of up to this many keys
+constexpr int RUN = TOPK_WARPS * WARP_CAP;  // the block's sort run, 32 KB
+constexpr int DOT_BATCH = 8;   // words of a dot's rows loaded at once
+
+__device__ __forceinline__ u64 topk_key(float score, int pos) {
+  unsigned bits = __float_as_uint(score);
+  if (bits == 0x80000000u) bits = 0u;  // -0 ties +0
+  const unsigned u = (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
+  return ((u64)u << 32) | (u64)(~(unsigned)pos);
+}
+
+__device__ __forceinline__ float key_score(u64 key) {
+  const unsigned u = (unsigned)(key >> 32);
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+// Sorts s[0, P) descending, P a power of two, with threads t of nt; sync()
+// separates the network's stages.
+template <class Sync>
+__device__ __forceinline__ void bitonic_desc(u64* s, int P, int t, int nt,
+                                             Sync sync) {
+  for (int size = 2; size <= P; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int c = t; c < (P >> 1); c += nt) {
+        const int lo = 2 * c - (c & (stride - 1));
+        const u64 a = s[lo], b = s[lo + stride];
+        if ((a < b) == ((lo & size) == 0)) {
+          s[lo] = b;
+          s[lo + stride] = a;
+        }
+      }
+      sync();
+    }
+  }
+}
+
+// Where a rank kernel writes a row: its k scores and slots, and its list's
+// probe ids.
+struct RowOut {
+  float* s;
+  int* i;
+  const int* probes;
+  int lb;
+  __device__ __forceinline__ void key(int j, u64 key) const {
+    const float score = key_score(key);
+    const int pos = (int)~(unsigned)key;
+    const int p = pos / lb;
+    s[j] = score;
+    i[j] = score > IVF_NEG ? probes[p] * lb + (pos - p * lb) : -1;
+  }
+  __device__ __forceinline__ void none(int j) const {
+    s[j] = IVF_NEG;
+    i[j] = -1;
+  }
+};
+
+// q . v over `words` words of four dimensions, widened to float32 and
+// summed in dimension order, one __fmaf_rn each; eight words of each row
+// are loaded before their products, so the loads overlap.
 template <class Row>
-__global__ void __launch_bounds__(IVF_THREADS) ivf_probe_scan_kernel(
-    const typename Row::Word* __restrict__ q,
-    const typename Row::Word* __restrict__ c, const float* __restrict__ qmz,
-    const int* __restrict__ qrow, const float* __restrict__ cmz,
-    const int* __restrict__ crow, const int* __restrict__ probe_ids,
-    int qlb, int lb, int words, int n_probe, int c0, float tol, int tol_is_da,
-    float* __restrict__ out) {
+__device__ __forceinline__ float row_dot(const typename Row::Word* a,
+                                         const typename Row::Word* v,
+                                         int words) {
+  float acc = 0.f;
+  int w = 0;
+  for (; w + DOT_BATCH <= words; w += DOT_BATCH) {
+    typename Row::Word xa[DOT_BATCH], xv[DOT_BATCH];
+#pragma unroll
+    for (int j = 0; j < DOT_BATCH; ++j) {
+      xa[j] = a[w + j];
+      xv[j] = v[w + j];
+    }
+#pragma unroll
+    for (int j = 0; j < DOT_BATCH; ++j) {
+      float x[4], y[4];
+      Row::widen(xa[j], x);
+      Row::widen(xv[j], y);
+      acc = __fmaf_rn(x[0], y[0], acc);
+      acc = __fmaf_rn(x[1], y[1], acc);
+      acc = __fmaf_rn(x[2], y[2], acc);
+      acc = __fmaf_rn(x[3], y[3], acc);
+    }
+  }
+  for (; w < words; ++w) {
+    float x[4], y[4];
+    Row::widen(a[w], x);
+    Row::widen(v[w], y);
+    acc = __fmaf_rn(x[0], y[0], acc);
+    acc = __fmaf_rn(x[1], y[1], acc);
+    acc = __fmaf_rn(x[2], y[2], acc);
+    acc = __fmaf_rn(x[3], y[3], acc);
+  }
+  return acc;
+}
+
+__global__ void __launch_bounds__(IVF_THREADS) ivf_probe_append_kernel(
+    const float* __restrict__ qmz, const int* __restrict__ qrow,
+    const float* __restrict__ cmz, const int* __restrict__ crow,
+    const int* __restrict__ probe_ids, int qlb, int lb, int n_probe, int c0,
+    float tol, int tol_is_da, int* __restrict__ count, u64* __restrict__ seg) {
   const int local = blockIdx.x / n_probe;
   const int p = blockIdx.x - local * n_probe;
   const int l = c0 + local;
   const int s = probe_ids[(size_t)l * n_probe + p];
-  const int width = n_probe * lb;
+  const size_t width = (size_t)n_probe * lb;
   const float* qm_l = qmz + (size_t)l * qlb;
   const int* qr_l = qrow + (size_t)l * qlb;
-  const float* sm_s = cmz + (size_t)s * lb;
-  const int* sr_s = crow + (size_t)s * lb;
-  const int pairs = qlb * lb;
-  for (int t = threadIdx.x; t < pairs; t += IVF_THREADS) {
-    const int i = t / lb;
-    const int b = t - i * lb;
-    const float qm = qm_l[i];
-    const float sm = sm_s[b];
-    bool valid = isfinite(qm) && isfinite(sm) && qr_l[i] != sr_s[b];
-    if (valid) {
-      const float diff = __fsub_rn(qm, sm);
-      const float mass = tol_is_da
-                             ? fabsf(diff)
-                             : fabsf(__fmul_rn(__fdiv_rn(diff, sm), 1e6f));
-      valid = mass <= tol;
-    }
-    float acc = IVF_NEG;
-    if (valid) {
-      const typename Row::Word* a = q + ((size_t)l * qlb + i) * words;
-      const typename Row::Word* v = c + ((size_t)s * lb + b) * words;
-      acc = 0.f;
-      for (int w = 0; w < words; ++w) {
-        float x[4], y[4];
-        Row::widen(a[w], x);
-        Row::widen(v[w], y);
-        acc = __fmaf_rn(x[0], y[0], acc);
-        acc = __fmaf_rn(x[1], y[1], acc);
-        acc = __fmaf_rn(x[2], y[2], acc);
-        acc = __fmaf_rn(x[3], y[3], acc);
+  const int lane = threadIdx.x & 31;
+  const unsigned lower = (1u << lane) - 1u;
+  for (int b0 = 0; b0 < lb; b0 += IVF_THREADS) {  // uniform in the block
+    const int b = b0 + threadIdx.x;
+    const bool on = b < lb;
+    const float sm = on ? cmz[(size_t)s * lb + b] : 0.f;
+    const int sr = on ? crow[(size_t)s * lb + b] : 0;
+    // A window of query m/z around sm that holds every pair the exact
+    // test below accepts (widened by more than float32 rounding can move
+    // either side); a padded slot's window is empty.
+    float lo = __int_as_float(0x7f800000), hi = -lo;
+    if (on && isfinite(sm)) {
+      if (tol_is_da) {
+        const float w = tol * 1.000001f + fabsf(sm) * 4e-7f;
+        lo = sm - w;
+        hi = sm + w;
+      } else if (sm > 0.f) {
+        const float w = sm * (tol * 1.001e-6f + 4e-7f);
+        lo = sm - w;
+        hi = sm + w;
+      } else {
+        hi = -hi;
+        lo = -lo;
       }
     }
-    out[((size_t)local * qlb + i) * width + (size_t)p * lb + b] = acc;
+    // The warp's window, the union of its lanes' (empty if none).
+    float w_lo = lo, w_hi = hi;
+    for (int d = 16; d > 0; d >>= 1) {
+      w_lo = fminf(w_lo, __shfl_xor_sync(IVF_FULL, w_lo, d));
+      w_hi = fmaxf(w_hi, __shfl_xor_sync(IVF_FULL, w_hi, d));
+    }
+    for (int i0 = 0; i0 < qlb; i0 += 32) {  // uniform: a tile of 32 queries
+      const int iq = i0 + lane;
+      const float qm_lane = iq < qlb ? qm_l[iq] : 0.f;
+      const int qr_lane = iq < qlb ? qr_l[iq] : 0;
+      // The tile's finite m/z range (NaN, never in band, if none): a tile
+      // that misses the warp's window holds no pair in band.
+      const float own = iq < qlb && isfinite(qm_lane)
+                            ? qm_lane
+                            : __int_as_float(0x7fc00000);
+      float t_lo = own, t_hi = own;
+      for (int d = 16; d > 0; d >>= 1) {
+        t_lo = fminf(t_lo, __shfl_xor_sync(IVF_FULL, t_lo, d));
+        t_hi = fmaxf(t_hi, __shfl_xor_sync(IVF_FULL, t_hi, d));
+      }
+      if (!(t_lo <= w_hi && t_hi >= w_lo)) continue;
+      const int n_q = min(32, qlb - i0);
+      for (int j = 0; j < n_q; ++j) {  // uniform: the warp shares query i
+        const float qm = __shfl_sync(IVF_FULL, qm_lane, j);
+        const int qr = __shfl_sync(IVF_FULL, qr_lane, j);
+        bool valid = qm >= lo && qm <= hi;
+        if (valid) {  // the exact test of _chunk_scan
+          valid = isfinite(qm) && qr != sr;
+          if (valid) {
+            const float diff = __fsub_rn(qm, sm);
+            const float mass =
+                tol_is_da ? fabsf(diff)
+                          : fabsf(__fmul_rn(__fdiv_rn(diff, sm), 1e6f));
+            valid = mass <= tol;
+          }
+        }
+        const unsigned hits = __ballot_sync(IVF_FULL, valid);
+        if (hits != 0u) {
+          const size_t row = (size_t)local * qlb + i0 + j;
+          const int first = __ffs(hits) - 1;
+          int base = 0;
+          if (lane == first) base = atomicAdd(count + row, __popc(hits));
+          base = __shfl_sync(IVF_FULL, base, first);
+          if (valid) {
+            seg[row * width + base + __popc(hits & lower)] =
+                (u64)(p * lb + b);
+          }
+        }
+      }
+    }
+  }
+}
+
+// The key of the pair at position pos of a row whose query row is qv.
+template <class Row>
+struct RowKeys {
+  const typename Row::Word* qv;
+  const typename Row::Word* c;
+  const int* probes;
+  int lb, words;
+  __device__ __forceinline__ u64 operator()(u64 entry) const {
+    const int pos = (int)entry;
+    const int p = pos / lb;
+    const typename Row::Word* v =
+        c + ((size_t)probes[p] * lb + (pos - p * lb)) * words;
+    return topk_key(row_dot<Row>(qv, v, words), pos);
+  }
+};
+
+// A row of n <= WARP_CAP positions e, by one warp with s (WARP_CAP keys
+// of shared memory): each position's key, sorted, the first k written.
+template <class Keys>
+__device__ __forceinline__ void warp_topk(const u64* __restrict__ e, int n,
+                                          int k, const Keys& key_of, u64* s,
+                                          const RowOut& out) {
+  const int lane = threadIdx.x & 31;
+  int P = 32;
+  while (P < n) P <<= 1;
+  for (int j = lane; j < P; j += 32) s[j] = j < n ? key_of(e[j]) : 0ull;
+  __syncwarp();
+  if (n > 1) bitonic_desc(s, P, lane, 32, [] { __syncwarp(); });
+  const int m = min(n, k);
+  for (int j = lane; j < k; j += 32) {
+    if (j < m) {
+      out.key(j, s[j]);
+    } else {
+      out.none(j);
+    }
+  }
+}
+
+// Count of the keys of run (descending, len keys) above v (v not in it).
+__device__ __forceinline__ int keys_above(const u64* __restrict__ run,
+                                          int len, u64 v) {
+  int lo = 0, hi = len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (run[mid] > v) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// A row of n > WARP_CAP positions e (its segment, rewritten with their
+// keys), by the whole block with buf (RUN keys of shared memory).
+template <class Keys>
+__device__ void block_topk(u64* __restrict__ e, int n, int k,
+                           const Keys& key_of, u64* buf, int* hist,
+                           int* scalars, const RowOut& out) {
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  for (int x = t; x < n; x += TOPK_THREADS) e[x] = key_of(e[x]);
+  __syncthreads();
+  int m = n;
+  if (n > k) {
+    // The k-th key, 8 bits at a time from the top: want is its rank among
+    // the keys that match the digits chosen so far.
+    u64 prefix = 0ull, mask = 0ull;
+    int want = k;
+    for (int shift = 56; shift >= 0; shift -= 8) {
+      for (int d = t; d < 256; d += TOPK_THREADS) hist[d] = 0;
+      __syncthreads();
+      for (int x = t; x < n; x += TOPK_THREADS) {
+        const u64 v = e[x];
+        if ((v & mask) == prefix) {
+          atomicAdd(hist + (int)((v >> shift) & 255), 1);
+        }
+      }
+      __syncthreads();
+      if (t == 0) {
+        int d = 255;
+        for (; d > 0 && hist[d] < want; --d) want -= hist[d];
+        scalars[0] = d;
+        scalars[1] = want;
+      }
+      __syncthreads();
+      prefix |= (u64)scalars[0] << shift;
+      mask |= 255ull << shift;
+      want = scalars[1];
+    }
+    // Keys are unique, so exactly k are at or above the k-th: compact them
+    // to the front, a tile at a time (a tile is read before any of it is
+    // overwritten, and no write reaches past it).
+    if (t == 0) scalars[2] = 0;
+    __syncthreads();
+    const unsigned lower = (1u << lane) - 1u;
+    for (int x0 = 0; x0 < n; x0 += TOPK_THREADS) {  // uniform
+      const int x = x0 + t;
+      const u64 v = x < n ? e[x] : 0ull;
+      const bool keep = x < n && v >= prefix;
+      __syncthreads();
+      const unsigned hits = __ballot_sync(IVF_FULL, keep);
+      if (hits != 0u) {
+        const int first = __ffs(hits) - 1;
+        int base = 0;
+        if (lane == first) base = atomicAdd(scalars + 2, __popc(hits));
+        base = __shfl_sync(IVF_FULL, base, first);
+        if (keep) e[base + __popc(hits & lower)] = v;
+      }
+    }
+    __syncthreads();
+    m = k;
+  }
+  const int runs = (m + RUN - 1) / RUN;
+  for (int r = 0; r < runs; ++r) {
+    const int len = min(RUN, m - r * RUN);
+    int P = 32;
+    while (P < len) P <<= 1;
+    for (int j = t; j < P; j += TOPK_THREADS) {
+      buf[j] = j < len ? e[(size_t)r * RUN + j] : 0ull;
+    }
+    __syncthreads();
+    bitonic_desc(buf, P, t, TOPK_THREADS, [] { __syncthreads(); });
+    if (runs == 1) {
+      for (int j = t; j < k; j += TOPK_THREADS) {
+        if (j < m) {
+          out.key(j, buf[j]);
+        } else {
+          out.none(j);
+        }
+      }
+    } else {
+      for (int j = t; j < len; j += TOPK_THREADS) {
+        e[(size_t)r * RUN + j] = buf[j];
+      }
+    }
+    __syncthreads();
+  }
+  if (runs > 1) {
+    for (int x = t; x < m; x += TOPK_THREADS) {
+      const u64 v = e[x];
+      const int r = x / RUN;
+      int place = x - r * RUN;
+      for (int o = 0; o < runs; ++o) {
+        if (o != r) {
+          place += keys_above(e + (size_t)o * RUN, min(RUN, m - o * RUN), v);
+        }
+      }
+      out.key(place, v);
+    }
+    for (int j = m + t; j < k; j += TOPK_THREADS) out.none(j);
+    __syncthreads();
+  }
+}
+
+template <class Row>
+__global__ void __launch_bounds__(TOPK_THREADS) ivf_rank_kernel(
+    const typename Row::Word* __restrict__ q,
+    const typename Row::Word* __restrict__ c, int words,
+    const int* __restrict__ count, u64* __restrict__ seg, int rows,
+    int width, int k, const int* __restrict__ probe_ids, int n_probe, int lb,
+    int qlb, int c0, float* __restrict__ out_s, int* __restrict__ out_i) {
+  __shared__ u64 buf[RUN];
+  __shared__ int hist[256];
+  __shared__ int scalars[3];
+  const int warp = threadIdx.x >> 5;
+  const int row0 = blockIdx.x * TOPK_WARPS;
+  auto out_of = [&](int row) {
+    return RowOut{out_s + (size_t)row * k, out_i + (size_t)row * k,
+                  probe_ids + (size_t)(c0 + row / qlb) * n_probe, lb};
+  };
+  auto keys_of = [&](int row) {
+    const int l = c0 + row / qlb;
+    return RowKeys<Row>{q + ((size_t)l * qlb + row % qlb) * words, c,
+                        probe_ids + (size_t)l * n_probe, lb, words};
+  };
+  const int row = row0 + warp;
+  if (row < rows) {
+    const int n = count[row];
+    if (n <= WARP_CAP) {
+      warp_topk(seg + (size_t)row * width, n, k, keys_of(row),
+                buf + warp * WARP_CAP, out_of(row));
+    }
+  }
+  for (int w = 0; w < TOPK_WARPS && row0 + w < rows; ++w) {  // uniform
+    const int n = count[row0 + w];
+    if (n > WARP_CAP) {
+      __syncthreads();  // the warps are done with buf
+      block_topk(seg + (size_t)(row0 + w) * width, n, k, keys_of(row0 + w),
+                 buf, hist, scalars, out_of(row0 + w));
+    }
   }
 }
 
@@ -277,31 +645,47 @@ extern "C" {
 // q (n_lists, qlb, dim) and c (n_lists, lb, dim), both float32 (bf16 = 0)
 // or both bfloat16 (bf16 = 1), rows 16-byte (f32) or 8-byte (bf16) aligned,
 // dim a multiple of 4; qmz, qrow (n_lists, qlb) and cmz, crow (n_lists, lb)
-// float32 / int32 (padding: m/z +inf); probe_ids (n_lists, n_probe) int32.
-// Writes out (chunk, qlb, n_probe * lb) for the lists [c0, c0 + chunk).
-int falcon_ivf_probe_scan(const void* q, const void* c, const float* qmz,
+// float32 / int32 (padding: m/z +inf); probe_ids (n_lists, n_probe) int32;
+// 1 <= k <= n_probe * lb < 2^31.  For the lists [c0, c0 + chunk), writes
+// out_s (chunk, qlb, k) float32 and out_i int32; count (chunk * qlb) int32
+// and seg (chunk * qlb, n_probe * lb) 64-bit keys are scratch.
+int falcon_ivf_probe_topk(const void* q, const void* c, const float* qmz,
                           const int* qrow, const float* cmz, const int* crow,
                           const int* probe_ids, int qlb, int lb, int dim,
                           int n_probe, int c0, int chunk, float tol,
-                          int tol_is_da, int bf16, float* out, void* stream) {
-  if (chunk <= 0 || n_probe <= 0 || qlb <= 0 || lb <= 0) {
-    return (int)cudaGetLastError();
+                          int tol_is_da, int bf16, int k, int* count,
+                          void* seg, float* out_s, int* out_i, void* stream) {
+  if (chunk <= 0 || qlb <= 0) return (int)cudaGetLastError();
+  const long long width = (long long)n_probe * lb;
+  if ((dim & 3) || dim <= 0 || n_probe <= 0 || lb <= 0 || k <= 0 ||
+      k > width || width > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
   }
-  if ((dim & 3) || dim <= 0) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)chunk * (unsigned)n_probe;
   const cudaStream_t s = (cudaStream_t)stream;
+  const int rows = chunk * qlb;
+  cudaError_t err = cudaMemsetAsync(count, 0, (size_t)rows * sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)chunk * (unsigned)n_probe;
+  falcon::u64* keys = static_cast<falcon::u64*>(seg);
+  falcon::ivf_probe_append_kernel<<<blocks, falcon::IVF_THREADS, 0, s>>>(
+      qmz, qrow, cmz, crow, probe_ids, qlb, lb, n_probe, c0, tol, tol_is_da,
+      count, keys);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const unsigned rank_blocks =
+      (rows + falcon::TOPK_WARPS - 1) / falcon::TOPK_WARPS;
   if (bf16) {
-    falcon::ivf_probe_scan_kernel<falcon::Bf16Row>
-        <<<blocks, falcon::IVF_THREADS, 0, s>>>(
-            static_cast<const uint2*>(q), static_cast<const uint2*>(c), qmz,
-            qrow, cmz, crow, probe_ids, qlb, lb, dim >> 2, n_probe, c0, tol,
-            tol_is_da, out);
+    falcon::ivf_rank_kernel<falcon::Bf16Row>
+        <<<rank_blocks, falcon::TOPK_THREADS, 0, s>>>(
+            static_cast<const uint2*>(q), static_cast<const uint2*>(c),
+            dim >> 2, count, keys, rows, (int)width, k, probe_ids, n_probe,
+            lb, qlb, c0, out_s, out_i);
   } else {
-    falcon::ivf_probe_scan_kernel<falcon::F32Row>
-        <<<blocks, falcon::IVF_THREADS, 0, s>>>(
-            static_cast<const float4*>(q), static_cast<const float4*>(c), qmz,
-            qrow, cmz, crow, probe_ids, qlb, lb, dim >> 2, n_probe, c0, tol,
-            tol_is_da, out);
+    falcon::ivf_rank_kernel<falcon::F32Row>
+        <<<rank_blocks, falcon::TOPK_THREADS, 0, s>>>(
+            static_cast<const float4*>(q), static_cast<const float4*>(c),
+            dim >> 2, count, keys, rows, (int)width, k, probe_ids, n_probe,
+            lb, qlb, c0, out_s, out_i);
   }
   return (int)cudaGetLastError();
 }

@@ -74,9 +74,9 @@ _SIGNATURES = {
     "falcon_consensus_compact": [_p, _p, _i, _p, _p, _p, _p, _p, _p, _p, _p,
                                  _p],
     # q, c, qmz, qrow, cmz, crow, probe_ids, qlb, lb, dim, n_probe, c0,
-    # chunk, tol, tol_is_da, bf16, out, stream
-    "falcon_ivf_probe_scan": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
-                              _i, _f, _i, _i, _p, _p],
+    # chunk, tol, tol_is_da, bf16, k, count, seg, out_s, out_i, stream
+    "falcon_ivf_probe_topk": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
+                              _i, _f, _i, _i, _i, _p, _p, _p, _p, _p],
     # assign, n, n_lists, tile, cnt1, stream
     "falcon_kmeans_count": [_p, _i, _i, _i, _p, _p],
     # assign, n, n_lists, tile, off, items, stream

@@ -17,12 +17,15 @@ Port of ``falcon_tpu/ops/ivf.py``, the index of ``--ann_index ivf``:
   placement and the ``(n_lists, lb, D)`` slab layout (bfloat16 unless
   ``precise``), host code copied verbatim (``_balanced_placement``,
   ``_bucket``, ``IVFIndex._pack_layout``, ``IVFIndex._probe_ids``).
-- **Probe scan** (IVF.1, :func:`probe_scan`, ``csrc/ivf.cu``): each query
+- **Probe scan** (IVF.1, :func:`probe_topk`, ``csrc/ivf.cu``): each query
   slot of a list scores the slab slots of the list's ``n_probe``
   centroid-nearest lists in place, with the precursor-tolerance and
-  self-pair mask tested before the dot; then a stable top-k per row
-  (``ops/knn.py::stable_topk``), chunk by chunk as the JAX package's
-  ``_chunk_scan``.
+  self-pair mask tested before the dot, and keeps its stable top k in the
+  same call (each in-band pair appended as a 64-bit key, then a sort or a
+  radix select per row), chunk by chunk as the JAX package's
+  ``_chunk_scan``; no per-pair score buffer.  A self-search
+  (:meth:`IVFIndex.self_search`) maps slots to rows and rows to row order
+  on the device.
 
 Not ported: the ``approx_max_k`` retrieval (``FALCON_TPU_IVF_EXACT_TOPK=0``
 in the JAX package); the port always takes the exact top-k.  The coarse
@@ -332,6 +335,13 @@ class IVFIndex:
             mz3d.reshape(self.n_lists, self._lb)).to(dev)
         self._row3d_host = row3d.reshape(self.n_lists, self._lb)
         self._row3d = torch.from_numpy(self._row3d_host).to(dev)
+        # Each row's layout slot, the inverse of the row map: a
+        # self-search's lists go to row order by one gather.
+        rows_flat = self._row3d_host.reshape(-1)
+        slots = np.flatnonzero(rows_flat >= 0)
+        slot_of_row = np.empty(n, np.int64)
+        slot_of_row[rows_flat[slots]] = slots
+        self._slot_of_row = torch.from_numpy(slot_of_row).to(dev)
         self._source = vectors_dev  # identity marker for self-search
         self._centroid_sims = self.centroids @ self.centroids.T
         self._probe_cache = {}
@@ -362,6 +372,46 @@ class IVFIndex:
             self._probe_cache[n_probe] = cached
         return cached
 
+    def _scan(self, q3d, qmz3d, qrow3d, qlb: int, k: int, n_probe: int,
+              tol_mass: float, tol_mode: str, precise: bool):
+        """The chunked probe scan of a query layout against the index:
+        (n_lists, qlb, k) scores and slots, on the index's device."""
+        lb = self._lb
+        return _chunk_scan(
+            q3d, qmz3d, qrow3d, self._corpus3d, self._mz3d, self._row3d,
+            torch.from_numpy(self._probe_ids(n_probe)).to(self._device),
+            tol_mass, k, tol_mode == "Da",
+            scan_chunk(self.n_lists, qlb, n_probe, lb), int(qlb), int(lb),
+            int(n_probe), bool(precise))
+
+    def self_search(self, k: int, n_probe: int = 32,
+                    tol_mass: float = np.inf, tol_mode: str = "Da",
+                    precise: bool = False) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+        """k-NN of every indexed row among the others (queries == corpus,
+        ranked by ``rank_vectors`` where the index has them): (n, k)
+        float32 similarities and int32 row ids, tensors on the index's
+        device, missing neighbours -2 / -1.  The slots become rows and the
+        layout row order by two gathers on the device; nothing is copied
+        to the host.  ``precise`` as in :meth:`search`."""
+        n_probe = min(n_probe, self.n_lists)
+        lb = self._lb
+        q3d = self._query3d if self._query3d is not None else self._corpus3d
+        k_eff = min(k, n_probe * lb)
+        scores, slots = self._scan(q3d, self._mz3d, self._row3d, lb, k_eff,
+                                   n_probe, tol_mass, tol_mode, precise)
+        rows = torch.where(
+            slots >= 0, self._row3d.view(-1)[slots.clamp_min(0).long()], -1)
+        out_s = scores.view(-1, k_eff)[self._slot_of_row]
+        out_i = rows.view(-1, k_eff)[self._slot_of_row]
+        if k_eff < k:
+            n = out_s.shape[0]
+            out_s = torch.cat([out_s, out_s.new_full((n, k - k_eff), NEG)],
+                              dim=1)
+            out_i = torch.cat([out_i, out_i.new_full((n, k - k_eff), -1)],
+                              dim=1)
+        return out_s, out_i
+
     def search(
         self,
         q_vec,
@@ -381,83 +431,64 @@ class IVFIndex:
         (for runs with no exact rerank, whose eps threshold reads the
         similarities), else in bfloat16 with float32 sums.  ``q_vec`` is
         the index's own ``vectors`` tensor for a self-search (queries ==
-        corpus), else (nq, D) query vectors; ``q_coarse``: their
-        coarse-space vectors, for an index built with ``coarse_vectors``.
+        corpus; :meth:`self_search`, copied to the host), else (nq, D)
+        query vectors; ``q_coarse``: their coarse-space vectors, for an
+        index built with ``coarse_vectors``.
         """
         nq = len(q_mz)
-        n = len(self.mzs)
         n_probe = min(n_probe, self.n_lists)
-        tol_is_da = tol_mode == "Da"
+        if q_vec is self._source and nq == len(self.mzs):
+            scores, rows = self.self_search(k, n_probe, tol_mass, tol_mode,
+                                            precise)
+            return scores.cpu().numpy(), rows.cpu().numpy()
         lb = self._lb
         dev = self._device
-        probe_ids = self._probe_ids(n_probe)
-
-        self_search = q_vec is self._source and nq == n
-        if self_search:
-            q3d = (self._query3d if self._query3d is not None
-                   else self._corpus3d)
-            qmz3d, qrow3d = self._mz3d, self._row3d
-            qlb = lb
-        else:
-            q_vec_dev = _on(q_vec, dev)
-            if self._coarse and q_coarse is None:
-                logger.warning(
-                    "IVF index built on a coarse embedding but the "
-                    "query passed none; assigning queries with the "
-                    "scoring embedding (degraded probe locality)"
-                )
-            q_assign_src = (q_vec_dev if q_coarse is None
-                            else _on(q_coarse, dev))
-            q_assign = _assign(
-                q_assign_src[:nq],
-                torch.from_numpy(self.centroids).to(dev)).cpu().numpy()
-            q_order = np.argsort(q_assign, kind="stable")
-            q_counts = np.bincount(q_assign, minlength=self.n_lists)
-            qlb = _bucket(int(q_counts.max(initial=1)), 128)
-            idx3d, qmz3, qrow3 = self._pack_layout(
-                q_order,
-                np.asarray(q_mz, np.float64)[q_order],
-                q_counts, qlb, nq,
+        q_vec_dev = _on(q_vec, dev)
+        if self._coarse and q_coarse is None:
+            logger.warning(
+                "IVF index built on a coarse embedding but the "
+                "query passed none; assigning queries with the "
+                "scoring embedding (degraded probe locality)"
             )
-            # Query "row ids" in the layout carry the CALLER's row ids
-            # (used for self-pair exclusion when queries overlap the
-            # corpus by id).
-            qrow3 = np.where(
-                qrow3 >= 0,
-                np.asarray(q_rows, np.int32)[np.clip(qrow3, 0, nq - 1)],
-                -2,
-            ).astype(np.int32)
-            q3d = _slabs(q_vec_dev, torch.from_numpy(
-                idx3d.astype(np.int64)).to(dev), torch.from_numpy(
-                    (qmz3 < np.inf).astype(np.float32)).to(dev),
-                torch.float32)
-            qmz3d = torch.from_numpy(qmz3.reshape(self.n_lists, qlb)).to(dev)
-            qrow3d = torch.from_numpy(qrow3.reshape(self.n_lists, qlb)).to(
-                dev)
-            q_slot_pos = np.full(self.n_lists * qlb, -1, np.int64)
-            # Map layout slots back to sorted query positions.
-            pos = 0
-            for lst in range(self.n_lists):
-                c = int(q_counts[lst])
-                base = lst * qlb
-                q_slot_pos[base:base + c] = np.arange(pos, pos + c)
-                pos += c
-
-        # Chunk size: bound the (chunk, qlb, n_probe, lb) f32 score
-        # intermediate to ~256 MB.
-        chunk = 1
-        while (chunk * 2 * qlb * n_probe * lb * 4 <= 256 * 2**20
-               and chunk * 2 <= self.n_lists):
-            chunk *= 2
-        k_eff = min(k if self_search else k + 1, n_probe * lb)
-
-        scores, slots = _chunk_scan(
-            q3d, qmz3d, qrow3d,
-            self._corpus3d, self._mz3d, self._row3d,
-            torch.from_numpy(probe_ids).to(dev),
-            tol_mass, k_eff, tol_is_da, int(chunk), int(qlb), int(lb),
-            int(n_probe), bool(precise),
+        q_assign_src = (q_vec_dev if q_coarse is None
+                        else _on(q_coarse, dev))
+        q_assign = _assign(
+            q_assign_src[:nq],
+            torch.from_numpy(self.centroids).to(dev)).cpu().numpy()
+        q_order = np.argsort(q_assign, kind="stable")
+        q_counts = np.bincount(q_assign, minlength=self.n_lists)
+        qlb = _bucket(int(q_counts.max(initial=1)), 128)
+        idx3d, qmz3, qrow3 = self._pack_layout(
+            q_order,
+            np.asarray(q_mz, np.float64)[q_order],
+            q_counts, qlb, nq,
         )
+        # Query "row ids" in the layout carry the CALLER's row ids
+        # (used for self-pair exclusion when queries overlap the
+        # corpus by id).
+        qrow3 = np.where(
+            qrow3 >= 0,
+            np.asarray(q_rows, np.int32)[np.clip(qrow3, 0, nq - 1)],
+            -2,
+        ).astype(np.int32)
+        q3d = _slabs(q_vec_dev, torch.from_numpy(
+            idx3d.astype(np.int64)).to(dev), torch.from_numpy(
+                (qmz3 < np.inf).astype(np.float32)).to(dev),
+            torch.float32)
+        qmz3d = torch.from_numpy(qmz3.reshape(self.n_lists, qlb)).to(dev)
+        qrow3d = torch.from_numpy(qrow3.reshape(self.n_lists, qlb)).to(dev)
+        q_slot_pos = np.full(self.n_lists * qlb, -1, np.int64)
+        # Map layout slots back to sorted query positions.
+        pos = 0
+        for lst in range(self.n_lists):
+            c = int(q_counts[lst])
+            base = lst * qlb
+            q_slot_pos[base:base + c] = np.arange(pos, pos + c)
+            pos += c
+
+        k_eff = min(k + 1, n_probe * lb)
+        scores, slots = self._scan(q3d, qmz3d, qrow3d, qlb, k_eff, n_probe,
+                                   tol_mass, tol_mode, precise)
         scores_h = scores.reshape(self.n_lists * qlb, -1).cpu().numpy()
         slots_h = slots.reshape(self.n_lists * qlb, -1).cpu().numpy()
         rows_flat = self._row3d_host.reshape(-1)
@@ -467,40 +498,23 @@ class IVFIndex:
             -1,
         ).astype(np.int32)
 
-        out_scores = np.full((nq, k_eff), float(NEG), np.float32)
-        out_idx = np.full((nq, k_eff), -1, np.int32)
-        if self_search:
-            valid = rows_flat >= 0
-            out_scores[rows_flat[valid]] = scores_h[valid]
-            out_idx[rows_flat[valid]] = neigh_rows[valid]
-        else:
-            valid = q_slot_pos >= 0
-            sorted_scores = np.full((nq, k_eff), float(NEG), np.float32)
-            sorted_rows = np.full((nq, k_eff), -1, np.int32)
-            sorted_scores[q_slot_pos[valid]] = scores_h[valid]
-            sorted_rows[q_slot_pos[valid]] = neigh_rows[valid]
-            # Remove self matches by row id, re-compact, trim to k.
-            bad = sorted_rows == np.asarray(q_rows, np.int32)[q_order][
-                :, None]
-            sorted_scores[bad] = float(NEG)
-            sorted_rows[bad] = -1
-            order2 = np.argsort(-sorted_scores, axis=1, kind="stable")
-            sorted_scores = np.take_along_axis(sorted_scores, order2, 1)
-            sorted_rows = np.take_along_axis(sorted_rows, order2, 1)
-            k_eff = min(k, k_eff)
-            out_scores = np.full((nq, k_eff), float(NEG), np.float32)
-            out_idx = np.full((nq, k_eff), -1, np.int32)
-            out_scores[q_order] = sorted_scores[:, :k_eff]
-            out_idx[q_order] = sorted_rows[:, :k_eff]
-        if out_scores.shape[1] < k:
-            pad = k - out_scores.shape[1]
-            out_scores = np.concatenate(
-                [out_scores, np.full((nq, pad), float(NEG), np.float32)],
-                axis=1,
-            )
-            out_idx = np.concatenate(
-                [out_idx, np.full((nq, pad), -1, np.int32)], axis=1
-            )
+        valid = q_slot_pos >= 0
+        sorted_scores = np.full((nq, k_eff), float(NEG), np.float32)
+        sorted_rows = np.full((nq, k_eff), -1, np.int32)
+        sorted_scores[q_slot_pos[valid]] = scores_h[valid]
+        sorted_rows[q_slot_pos[valid]] = neigh_rows[valid]
+        # Remove self matches by row id, re-compact, trim to k.
+        bad = sorted_rows == np.asarray(q_rows, np.int32)[q_order][:, None]
+        sorted_scores[bad] = float(NEG)
+        sorted_rows[bad] = -1
+        order2 = np.argsort(-sorted_scores, axis=1, kind="stable")
+        sorted_scores = np.take_along_axis(sorted_scores, order2, 1)
+        sorted_rows = np.take_along_axis(sorted_rows, order2, 1)
+        k_eff = min(k, k_eff)
+        out_scores = np.full((nq, k), float(NEG), np.float32)
+        out_idx = np.full((nq, k), -1, np.int32)
+        out_scores[q_order, :k_eff] = sorted_scores[:, :k_eff]
+        out_idx[q_order, :k_eff] = sorted_rows[:, :k_eff]
         return out_scores, out_idx
 
 
@@ -525,8 +539,8 @@ def _slabs(source: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
 def _chunk_scan(q3d, qmz3d, qrow3d, corpus3d, cmz3d, crow3d, probe_ids,
                 tol_mass: float, k: int, tol_is_da: bool, chunk: int,
                 qlb: int, lb: int, n_probe: int, precise: bool = False):
-    """Chunked probe scan: per chunk of lists, one probe-scan launch
-    (IVF.1) and each row's stable top ``k``.  Returns (scores, SLOT ids
+    """Chunked probe scan: per chunk of lists, one :func:`probe_topk` (IVF.1:
+    each row's mask, dots and stable top ``k``).  Returns (scores, SLOT ids
     into the flattened (n_lists * lb) layout; -1 missing), each
     (n_lists, qlb, k).
 
@@ -537,19 +551,22 @@ def _chunk_scan(q3d, qmz3d, qrow3d, corpus3d, cmz3d, crow3d, probe_ids,
     q16 = q3d.to(scan_dtype).contiguous()
     n_lists = corpus3d.shape[0]
     tol = f32_tolerance(tol_mass)
-    parts_s, parts_i = [], []
-    for c0 in range(0, n_lists, chunk):
-        scores = probe_scan(q16, qmz3d, qrow3d, c16, cmz3d, crow3d,
-                            probe_ids, tol, tol_is_da, c0, chunk)
-        top, pos = stable_topk(scores.view(chunk * qlb, n_probe * lb), k)
-        del scores
-        probes = probe_ids[c0:c0 + chunk].long().repeat_interleave(qlb, 0)
-        slot = torch.gather(probes, 1, pos // lb) * lb + pos % lb
-        parts_s.append(top)
-        # int32, as the JAX package's slots: half the bytes to the host.
-        parts_i.append(torch.where(top > NEG, slot, -1).int())
-    return (torch.cat(parts_s).view(n_lists, qlb, k),
-            torch.cat(parts_i).view(n_lists, qlb, k))
+    parts = [probe_topk(q16, qmz3d, qrow3d, c16, cmz3d, crow3d, probe_ids,
+                        tol, tol_is_da, k, c0, chunk)
+             for c0 in range(0, n_lists, chunk)]
+    return (torch.cat([s for s, _ in parts]).view(n_lists, qlb, k),
+            torch.cat([i for _, i in parts]).view(n_lists, qlb, k))
+
+
+def scan_chunk(n_lists: int, qlb: int, n_probe: int, lb: int) -> int:
+    """Lists per :func:`probe_topk` call: the largest power of two (at most
+    ``n_lists``) whose per-row key segments, (chunk * qlb, n_probe * lb)
+    64-bit keys, fit in 256 MB, or 1."""
+    chunk = 1
+    while (chunk * 2 * qlb * n_probe * lb * 8 <= 256 * 2**20
+           and chunk * 2 <= n_lists):
+        chunk *= 2
+    return chunk
 
 
 def _check_scan(q3d, qmz3d, qrow3d, corpus3d, cmz3d, crow3d, probe_ids, c0,
@@ -568,69 +585,103 @@ def _check_scan(q3d, qmz3d, qrow3d, corpus3d, cmz3d, crow3d, probe_ids, c0,
         if (not isinstance(t, torch.Tensor) or t.dtype != dtype
                 or tuple(t.shape) != shape or t.device != dev
                 or not t.is_contiguous()):
-            raise ValueError(f"probe_scan: {what} must be a contiguous "
+            raise ValueError(f"probe_topk: {what} must be a contiguous "
                              f"{dtype} {shape} tensor on {dev}")
     if corpus3d.dtype not in (torch.float32, torch.bfloat16) or (
             not corpus3d.is_contiguous()):
-        raise ValueError("probe_scan: the slabs must be contiguous float32 "
+        raise ValueError("probe_topk: the slabs must be contiguous float32 "
                          "or bfloat16")
     if not (0 <= c0 and chunk > 0 and c0 + chunk <= n_lists):
-        raise ValueError(f"probe_scan: lists [{c0}, {c0 + chunk}) outside "
+        raise ValueError(f"probe_topk: lists [{c0}, {c0 + chunk}) outside "
                          f"[0, {n_lists})")
     if dev.type == "cuda" and dim % 4:
-        raise ValueError("probe_scan: the kernel takes a multiple of 4 "
+        raise ValueError("probe_topk: the kernel takes a multiple of 4 "
                          "dimensions")
     if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"probe_scan: unsupported device {dev}")
+        raise ValueError(f"probe_topk: unsupported device {dev}")
 
 
-def probe_scan(q3d: torch.Tensor, qmz3d: torch.Tensor, qrow3d: torch.Tensor,
+def probe_topk(q3d: torch.Tensor, qmz3d: torch.Tensor, qrow3d: torch.Tensor,
                corpus3d: torch.Tensor, cmz3d: torch.Tensor,
                crow3d: torch.Tensor, probe_ids: torch.Tensor, tol: float,
-               tol_is_da: bool, c0: int, chunk: int) -> torch.Tensor:
-    """(chunk, qlb, n_probe * lb) float32 scores of the lists [c0, c0 +
-    chunk) (IVF.1): entry (l - c0, i, p * lb + b) is ``q3d[l, i] .
-    corpus3d[probe_ids[l, p], b]`` summed in dimension order with one fused
-    multiply-add per dimension, or ``NEG`` where the pair is masked (a
-    padded query or slab slot, m/z +inf; outside ``tol``, a float32 value,
-    in Da or ppm; the same row id).
+               tol_is_da: bool, k: int, c0: int,
+               chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each row's ``k`` best probe pairs of the lists [c0, c0 + chunk)
+    (IVF.1): (chunk, qlb, k) float32 scores and int32 slots.
+
+    Row (l - c0, i) scores its pairs at positions p * lb + b, ``q3d[l, i]
+    . corpus3d[probe_ids[l, p], b]`` summed in dimension order with one
+    fused multiply-add per dimension, or ``NEG`` where the pair is masked
+    (a padded query or slab slot, m/z +inf; outside ``tol``, a float32
+    value, in Da or ppm; the same row id), and keeps the ``k`` largest,
+    ties to the lower position, as ``stable_topk``; a kept pair's slot is
+    ``probe_ids[l, p] * lb + b``, -1 where its score is not above ``NEG``.
+    In-band scores are taken to lie above ``NEG`` (cosines; dots of
+    non-negative vectors).
 
     ``q3d`` (n_lists, qlb, D) and ``corpus3d`` (n_lists, lb, D) are both
     float32 or both bfloat16 (widened exactly); ``qmz3d``/``cmz3d``
     float32 and ``qrow3d``/``crow3d`` int32 per slot; ``probe_ids``
-    (n_lists, n_probe) int32.  On the card one launch of
-    ``csrc/ivf.cu``, which reads the probed slabs in place."""
+    (n_lists, n_probe) int32; 1 <= k <= n_probe * lb.  On the card one
+    call of ``csrc/ivf.cu`` (a memset and two kernels), which reads the
+    probed slabs in place and keeps a segment of (n_probe * lb) 64-bit keys
+    per row as scratch, written only for in-band pairs."""
     _check_scan(q3d, qmz3d, qrow3d, corpus3d, cmz3d, crow3d, probe_ids, c0,
                 chunk)
-    dev = corpus3d.device
-    if dev.type == "cpu":
-        return probe_scan_plain(q3d, qmz3d, qrow3d, corpus3d, cmz3d, crow3d,
-                                probe_ids, tol, tol_is_da, c0, chunk)
     n_lists, lb, dim = corpus3d.shape
     qlb, n_probe = q3d.shape[1], probe_ids.shape[1]
-    out = torch.empty((chunk, qlb, n_probe * lb), dtype=torch.float32,
-                      device=dev)
+    if not 1 <= k <= n_probe * lb:
+        raise ValueError(f"probe_topk: k = {k} outside [1, {n_probe * lb}]")
+    dev = corpus3d.device
+    if dev.type == "cpu":
+        return probe_topk_plain(q3d, qmz3d, qrow3d, corpus3d, cmz3d, crow3d,
+                                probe_ids, tol, tol_is_da, k, c0, chunk)
+    rows = chunk * qlb
+    scores = torch.empty((chunk, qlb, k), dtype=torch.float32, device=dev)
+    slots = torch.empty((chunk, qlb, k), dtype=torch.int32, device=dev)
+    count = torch.empty(rows, dtype=torch.int32, device=dev)
+    seg = torch.empty(rows * n_probe * lb, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
-        _check_launch("probe_scan", _build.library().falcon_ivf_probe_scan(
+        _check_launch("probe_topk", _build.library().falcon_ivf_probe_topk(
             q3d.data_ptr(), corpus3d.data_ptr(), qmz3d.data_ptr(),
             qrow3d.data_ptr(), cmz3d.data_ptr(), crow3d.data_ptr(),
             probe_ids.data_ptr(), qlb, lb, dim, n_probe, int(c0), int(chunk),
             float(tol), int(bool(tol_is_da)),
-            int(corpus3d.dtype == torch.bfloat16), out.data_ptr(),
+            int(corpus3d.dtype == torch.bfloat16), int(k), count.data_ptr(),
+            seg.data_ptr(), scores.data_ptr(), slots.data_ptr(),
             _stream(dev)))
-    count_launch(probe_scan)
-    return out
+    count_launch(probe_topk)
+    return scores, slots
 
 
-probe_scan.launches = 0
+probe_topk.launches = 0
+
+
+def probe_topk_plain(q3d, qmz3d, qrow3d, corpus3d, cmz3d, crow3d, probe_ids,
+                     tol: float, tol_is_da: bool, k: int, c0: int,
+                     chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`probe_topk` (any device): the whole
+    (chunk, qlb, n_probe * lb) score buffer (:func:`probe_scan_plain`), its
+    rows' ``stable_topk``, and the slot of each position."""
+    lb = corpus3d.shape[1]
+    qlb, n_probe = q3d.shape[1], probe_ids.shape[1]
+    scores = probe_scan_plain(q3d, qmz3d, qrow3d, corpus3d, cmz3d, crow3d,
+                              probe_ids, tol, tol_is_da, c0, chunk)
+    top, pos = stable_topk(scores.view(chunk * qlb, n_probe * lb), k)
+    probes = probe_ids[c0:c0 + chunk].long().repeat_interleave(qlb, 0)
+    slot = torch.gather(probes, 1, pos // lb) * lb + pos % lb
+    return (top.view(chunk, qlb, k),
+            torch.where(top > NEG, slot, -1).int().view(chunk, qlb, k))
 
 
 def probe_scan_plain(q3d, qmz3d, qrow3d, corpus3d, cmz3d, crow3d, probe_ids,
                      tol: float, tol_is_da: bool, c0: int,
                      chunk: int) -> torch.Tensor:
-    """Plain PyTorch version of :func:`probe_scan` (any device): the mask
-    of the whole chunk, then a gather of the unmasked pairs' operands and
-    the same float32 sum, one fused multiply-add per dimension in order
+    """The (chunk, qlb, n_probe * lb) float32 scores of :func:`probe_topk`
+    (any device), entry (l - c0, i, p * lb + b) for the pair at position
+    p * lb + b, ``NEG`` where it is masked: the mask of the whole chunk,
+    then a gather of the unmasked pairs' operands and the same float32 sum,
+    one fused multiply-add per dimension in order
     (``ops/medoids.py::_fma``), ``PLAIN_PAIRS`` pairs at a time."""
     lb = corpus3d.shape[1]
     qlb, n_probe = q3d.shape[1], probe_ids.shape[1]

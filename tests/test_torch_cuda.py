@@ -18,12 +18,15 @@ kernel (and its fused plain + spread call), the two medoid-score kernels
 and the consensus kernel sum in their plain versions' order, so each
 agrees with its plain version, on the card and on the CPU, bit for bit,
 and so do two launches; the scan, the rerank and dbscan mode built on the
-kernels agree with their CPU versions.  The IVF probe scan (IVF.1) and the
-k-means update (IVF.2) agree with their plain versions bit for bit, on the
-card and on the CPU, the probe scan at 20 ppm and at an infinite
-tolerance, the update on the bench block's and the largest block's
+kernels agree with their CPU versions.  The IVF probe scan's chunk step
+(IVF.1: mask, dots and stable top k) and the k-means update (IVF.2) agree
+with their plain versions bit for bit, on the card and on the CPU, the
+step at 20 ppm, 0.05 Da and an infinite tolerance, at k = 1, 256 and every
+pair, on a block with exact copies (score ties) and on rows longer than
+one sort run, the update on the bench block's and the largest block's
 training shapes and on one list of 20,000 rows, and the ann engine's
-``--ann_index ivf`` gives the CPU's labels and medoids.
+``--ann_index ivf`` gives the CPU's labels and medoids, with no list of
+the index copied to the host between its search and its rerank.
 """
 
 import numpy as np
@@ -708,31 +711,102 @@ def _ivf_index(cuda, ivf_block, precise):
                         rank_vectors=spread), pmz
 
 
+@pytest.fixture(scope="module")
+def ivf_block_copies(ivf_block):
+    """``ivf_block`` with exact copies: 3,072 of its spectra and 1,024
+    copies of some of them, sorted by precursor m/z (copies score ties)."""
+    rows, _ = ivf_block
+    picks = np.random.default_rng(23).choice(3072, 1024, replace=False)
+    out = sorted(rows[:3072] + [dict(rows[i]) for i in picks],
+                 key=lambda r: r["precursor_mz"])
+    return out, np.asarray([r["precursor_mz"] for r in out])
+
+
+def _probe_layout(index, dev, n_probe):
+    q3d = index._corpus3d if index._query3d is None else index._query3d
+    # The hashed vectors are non-negative, so no in-band score reaches NEG.
+    assert (q3d >= 0).all() and (index._corpus3d >= 0).all()
+    return (q3d, index._mz3d, index._row3d, index._corpus3d, index._mz3d,
+            index._row3d, torch.from_numpy(index._probe_ids(n_probe)).to(dev))
+
+
+def _check_probe_topk(dev, index, n_probe, tol, da, k, chunk, lists=None):
+    from falcon_tpu_torch.ops import ivf
+
+    layout = _probe_layout(index, dev, n_probe)
+    before = ivf.probe_topk.launches
+    starts = range(0, index.n_lists, chunk) if lists is None else lists
+    ties = 0
+    for c0 in starts:
+        args = layout + (tol, da, k, c0, chunk)
+        got, again = ivf.probe_topk(*args), ivf.probe_topk(*args)
+        want = ivf.probe_topk_plain(*args)
+        for g, a, w in zip(got, again, want):
+            assert torch.equal(g, w) and torch.equal(g, a)
+        if c0 == 0:
+            cpu = ivf.probe_topk_plain(*(
+                a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+            assert all(torch.equal(g.cpu(), c) for g, c in zip(got, cpu))
+        s = got[0].view(-1, k)
+        ties += int(((s[:, 1:] == s[:, :-1]) & (s[:, 1:] > knn.NEG)).sum())
+    assert ivf.probe_topk.launches == before + 2 * len(starts)
+    return ties
+
+
+@pytest.mark.parametrize("k", ["1", "256", "all"])
 @pytest.mark.parametrize("precise,tol,da", [
     (False, 20.0, False), (False, np.inf, True), (True, 0.05, True),
     (True, np.inf, False)], ids=["bf16_20ppm", "bf16_inf", "f32_0.05Da",
                                  "f32_inf"])
-def test_ivf_probe_scan_bit_identical_to_plain(cuda, ivf_block, precise, tol,
+@pytest.mark.parametrize("block", ["distinct", "copies"])
+def test_ivf_probe_topk_bit_identical_to_plain(cuda, ivf_block,
+                                               ivf_block_copies, block,
+                                               precise, tol, da, k):
+    # IVF.1's chunk step: each row's stable top k of its probe pairs, with
+    # their slots, bit for bit the plain version's (the stable sort of
+    # the whole score buffer), its own second launch's and the CPU's; rows
+    # of up to 512 in-band pairs take a warp, longer ones (every pair at
+    # tol = inf) the block, with a radix select where k is smaller.
+    index, _ = _ivf_index(cuda, ivf_block if block == "distinct"
+                          else ivf_block_copies, precise)
+    n_probe, lb = 8, index._lb
+    k = {"1": 1, "256": 256, "all": n_probe * lb}[k]
+    ties = _check_probe_topk(cuda, index, n_probe, tol, da, k,
+                             min(8, index.n_lists))
+    if block == "copies" and k > 1:
+        assert ties > 0
+
+
+@pytest.mark.parametrize("tol,da", [(20.0, False), (0.05, True)])
+def test_ivf_probe_topk_queries_in_no_mz_order(cuda, ivf_block_copies, tol,
                                                da):
+    # External queries fill a list's slots in the caller's order, not by
+    # m/z: the mask's skip of query tiles must hold for any order.
     from falcon_tpu_torch.ops import ivf
 
-    index, _ = _ivf_index(cuda, ivf_block, precise)
-    q3d = index._corpus3d if index._query3d is None else index._query3d
-    layout = (q3d, index._mz3d, index._row3d, index._corpus3d, index._mz3d,
-              index._row3d)
-    probe_ids = torch.from_numpy(index._probe_ids(8)).to(cuda)
-    chunk = min(8, index.n_lists)
-    before = ivf.probe_scan.launches
-    for c0 in range(0, index.n_lists, chunk):
-        args = layout + (probe_ids, tol, da, c0, chunk)
-        got, again = ivf.probe_scan(*args), ivf.probe_scan(*args)
-        want = ivf.probe_scan_plain(*args)
-        assert torch.equal(got, want) and torch.equal(got, again)
-        if c0 == 0:
-            cpu = ivf.probe_scan_plain(*(
-                a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
-            assert torch.equal(got.cpu(), cpu)
-    assert ivf.probe_scan.launches == before + 2 * (index.n_lists // chunk)
+    index, _ = _ivf_index(cuda, ivf_block_copies, False)
+    layout = _probe_layout(index, cuda, 8)
+    perm = torch.from_numpy(np.random.default_rng(5).permutation(
+        index._lb)).to(cuda)
+    queries = tuple(a[:, perm].contiguous() for a in layout[:3])
+    for c0 in range(0, index.n_lists, 16):
+        args = queries + layout[3:] + (tol, da, 64, c0, 16)
+        got, again = ivf.probe_topk(*args), ivf.probe_topk(*args)
+        want = ivf.probe_topk_plain(*args)
+        for g, a, w in zip(got, again, want):
+            assert torch.equal(g, w) and torch.equal(g, a)
+    assert (got[1] >= 0).any()
+
+
+@pytest.mark.parametrize("k", [5000, "all"])
+def test_ivf_probe_topk_rows_longer_than_a_run(cuda, ivf_block_copies, k):
+    # Every list probed at tol = inf: rows of ~8,000 pairs, more than one
+    # sort run (4,096 keys) of the block, with and without the select.
+    index, _ = _ivf_index(cuda, ivf_block_copies, True)
+    n_probe = index.n_lists
+    k = n_probe * index._lb if k == "all" else k
+    _check_probe_topk(cuda, index, n_probe, np.inf, True, k, 2,
+                      lists=[0, index.n_lists - 2])
 
 
 @pytest.mark.parametrize("shape", ["64_lists", "64_lists_skew",
@@ -773,7 +847,8 @@ def test_ivf_kmeans_update_bit_identical_to_plain(cuda, ivf_block, shape):
 
 @pytest.mark.parametrize("case", ["linkage", "dbscan", "rerank_off_dbscan",
                                   "pruned"])
-def test_ivf_engine_gpu_equals_cpu(cuda, rows, tmp_path, case):
+def test_ivf_engine_gpu_equals_cpu(cuda, rows, tmp_path, case,
+                                   monkeypatch):
     from falcon_tpu_torch.ops import ivf
 
     store = SpectrumStore(str(tmp_path / "spectra"))
@@ -788,10 +863,58 @@ def test_ivf_engine_gpu_equals_cpu(cuda, rows, tmp_path, case):
     if case == "pruned":
         kw.update(n_probe=4)
     args = (store.dataset(2), 0.2, 2, 0, 20.0, "ppm", None, TOL, 2**15)
-    before = (ivf.probe_scan.launches, ivf.kmeans_update.launches)
+    # From the search to the rerank (or the return), nothing of the IVF
+    # index is copied to the host: no tensor, list or scalar read.
+    copies, window = [], []
+
+    def to_cpu(a, k):
+        return any(str(x).startswith("cpu") for x in a + tuple(k.values()))
+
+    def from_cuda(a, k):
+        return any(isinstance(x, torch.Tensor) and x.is_cuda
+                   for x in a + tuple(k.values()))
+
+    def watch(name, to_host):
+        original = getattr(torch.Tensor, name)
+
+        def watched(self, *a, **k):
+            if window and to_host(self, a, k):
+                copies.append((name, tuple(self.shape)))
+            return original(self, *a, **k)
+
+        monkeypatch.setattr(torch.Tensor, name, watched)
+
+    for name in ("cpu", "numpy", "tolist", "item", "__array__", "__bool__",
+                 "__int__", "__float__", "__index__"):
+        watch(name, lambda self, a, k: self.is_cuda)
+    watch("to", lambda self, a, k: self.is_cuda and to_cpu(a, k))
+    watch("copy_", lambda self, a, k: not self.is_cuda and from_cuda(a, k))
+    search, lists, rerank_exact = (ivf.IVFIndex.self_search,
+                                   ann_engine._ivf_lists,
+                                   ann_engine.rerank_exact)
+
+    def opened(*a, **k):
+        window.append(True)
+        return search(*a, **k)
+
+    def closed_at_return(*a, **k):
+        try:
+            return lists(*a, **k)
+        finally:
+            window.clear()
+
+    def closed_at_rerank(*a, **k):
+        window.clear()
+        return rerank_exact(*a, **k)
+
+    monkeypatch.setattr(ivf.IVFIndex, "self_search", opened)
+    monkeypatch.setattr(ann_engine, "_ivf_lists", closed_at_return)
+    monkeypatch.setattr(ann_engine, "rerank_exact", closed_at_rerank)
+    before = (ivf.probe_topk.launches, ivf.kmeans_update.launches)
     labels, medoids = ann_engine.generate_clusters(*args, device=cuda, **kw)
-    assert ivf.probe_scan.launches > before[0]
+    assert ivf.probe_topk.launches > before[0]
     assert ivf.kmeans_update.launches == before[1] + 10
+    assert copies == []
     ref_labels, ref_medoids = ann_engine.generate_clusters(
         *args, device="cpu", **kw)
     np.testing.assert_array_equal(labels, ref_labels)

@@ -231,12 +231,12 @@ def test_chunk_scan_matches_jax(clustered_vectors, tol_mode, tol_mass,
         for a in args]
     if not precise:
         t_args[0] = t_args[3] = t_args[0].bfloat16()
-    before = T.probe_scan.launches
+    before = T.probe_topk.launches
     got_s, got_i = (a.numpy() for a in T._chunk_scan(
         *t_args, torch.from_numpy(probe_ids), tol_mass, k, tol_mode == "Da",
         chunk, lb, lb, n_probe, precise))
-    assert T.probe_scan.launches == before  # CPU tensors: plain version
-    real = index._row3d_host >= 0  # padded query slots: see probe_scan
+    assert T.probe_topk.launches == before  # CPU tensors: plain version
+    real = index._row3d_host >= 0  # padded query slots: see probe_topk
     atol = 1e-5 if precise else 2e-5
     np.testing.assert_allclose(got_s[real], want_s[real], atol=atol, rtol=0)
     masked = want_s[real] == float(J.NEG)
@@ -258,8 +258,8 @@ def test_probe_scan_plain_masks(clustered_vectors):
     layout = (index._corpus3d, index._mz3d, index._row3d)
     lb = index._lb
     for tol, da in ((0.5, True), (300.0, False), (np.inf, True)):
-        out = T.probe_scan(*layout, *layout, probe_ids, tol, da, 4,
-                           4).view(4, lb, 3, lb)
+        out = T.probe_scan_plain(*layout, *layout, probe_ids, tol, da, 4,
+                                 4).view(4, lb, 3, lb)
         for lst in range(4, 8):
             for p in range(3):
                 s = int(probe_ids[lst, p])
@@ -273,6 +273,134 @@ def test_probe_scan_plain_masks(clustered_vectors):
                 assert (got[~keep] == T.NEG).all()
                 np.testing.assert_allclose(got[keep].numpy(),
                                            dots[keep].numpy(), atol=1e-5)
+
+
+def _topk_oracle(index, q3d, probe_ids, tol, da, k, c0, chunk):
+    """Each row's k best positions by NumPy's lexsort of (score descending,
+    position ascending) over the plain scan's scores, and their slots."""
+    lb = index._lb
+    layout = (index._mz3d, index._row3d, index._corpus3d, index._mz3d,
+              index._row3d)
+    scores = T.probe_scan_plain(q3d, *layout, probe_ids, tol, da, c0,
+                                chunk).view(chunk * lb, -1).numpy()
+    pos = np.arange(scores.shape[1])
+    order = np.stack([np.lexsort((pos, -row))[:k] for row in scores])
+    top = np.take_along_axis(scores, order, 1)
+    lists = np.repeat(np.arange(c0, c0 + chunk), lb)[:, None]
+    slot = probe_ids.numpy()[lists, order // lb] * lb + order % lb
+    return top, np.where(top > T.NEG, slot, -1), order
+
+
+def _ivf_cpu(vecs, mzs, precise=True):
+    return T.IVFIndex(vecs, mzs, n_lists=16, seed=42, precise=precise,
+                      device="cpu")
+
+
+@pytest.mark.parametrize("k", ["1", "24", "all", "above_band"])
+def test_probe_topk_on_cpu_is_the_plain_top_k(clustered_vectors, k):
+    # CPU tensors take the plain version (no launch), which is the stable
+    # top-k of the plain scan's scores with each position's slot.
+    vecs, mzs = clustered_vectors
+    index = _ivf_cpu(vecs, mzs)
+    n_probe, lb, c0, chunk = 3, index._lb, 4, 4
+    probe_ids = torch.from_numpy(index._probe_ids(n_probe))
+    tol, da = 2.0, True
+    layout = (index._corpus3d, index._mz3d, index._row3d)
+    in_band = (T.probe_scan_plain(*layout, *layout, probe_ids, tol, da, c0,
+                                  chunk) > T.NEG).sum(-1)
+    k = {"1": 1, "24": 24, "all": n_probe * lb,
+         "above_band": int(in_band.max()) + 5}[k]
+    before = T.probe_topk.launches
+    got_s, got_i = T.probe_topk(*layout, *layout, probe_ids, tol, da, k, c0,
+                                chunk)
+    assert T.probe_topk.launches == before
+    assert got_s.shape == got_i.shape == (chunk, lb, k)
+    assert got_s.dtype == torch.float32 and got_i.dtype == torch.int32
+    want_s, want_i, _ = _topk_oracle(index, index._corpus3d, probe_ids, tol,
+                                     da, k, c0, chunk)
+    np.testing.assert_array_equal(got_s.view(chunk * lb, k).numpy(), want_s)
+    np.testing.assert_array_equal(got_i.view(chunk * lb, k).numpy(), want_i)
+    plain = T.probe_topk_plain(*layout, *layout, probe_ids, tol, da, k, c0,
+                               chunk)
+    assert torch.equal(got_s, plain[0]) and torch.equal(got_i, plain[1])
+    # Rows with fewer than k pairs in band end in NEG and -1.
+    short = (in_band < k).view(-1).numpy()
+    assert short.any()
+    tail = got_s.view(chunk * lb, k)[torch.from_numpy(short), -1]
+    assert (tail == T.NEG).all()
+
+
+def test_probe_topk_ties_go_to_the_lower_position(clustered_vectors):
+    # A layout of exact duplicate rows: each score is held by several
+    # pairs, and they are kept in ascending position.
+    vecs, mzs = clustered_vectors
+    dup = np.repeat(vecs[::4], 4, axis=0)[:len(vecs)]
+    index = _ivf_cpu(dup, mzs, precise=False)
+    n_probe, lb, chunk = 4, index._lb, 8
+    probe_ids = torch.from_numpy(index._probe_ids(n_probe))
+    layout = (index._corpus3d, index._mz3d, index._row3d)
+    ties = 0
+    for c0 in range(0, index.n_lists, chunk):
+        got_s, got_i = T.probe_topk(*layout, *layout, probe_ids, np.inf,
+                                    True, 40, c0, chunk)
+        want_s, want_i, pos = _topk_oracle(index, index._corpus3d, probe_ids,
+                                           np.inf, True, 40, c0, chunk)
+        np.testing.assert_array_equal(got_s.view(-1, 40).numpy(), want_s)
+        np.testing.assert_array_equal(got_i.view(-1, 40).numpy(), want_i)
+        same = want_s[:, 1:] == want_s[:, :-1]
+        assert (pos[:, 1:][same] > pos[:, :-1][same]).all()
+        ties += int((same & (want_s[:, 1:] > T.NEG)).sum())
+    assert ties > 1000
+
+
+@pytest.mark.parametrize("precise", [False, True], ids=["bf16", "f32"])
+def test_self_search_is_search_on_the_device(clustered_vectors, precise):
+    # self_search maps slots to rows and the layout to row order by
+    # gathers; the result is the host mapping of the chunk scan's lists,
+    # and search's for the index's own tensor.
+    vecs, mzs = clustered_vectors
+    vt = torch.from_numpy(vecs)
+    index = T.IVFIndex(vt, mzs, n_lists=32, seed=42, precise=precise,
+                       rank_vectors=1.5 * vt)
+    n, k, n_probe = len(mzs), 12, 8
+    s, i = index.self_search(k, n_probe=n_probe, tol_mass=20000.0,
+                             tol_mode="ppm", precise=precise)
+    assert s.shape == i.shape == (n, k)
+    assert s.dtype == torch.float32 and i.dtype == torch.int32
+    scores, slots = index._scan(index._query3d, index._mz3d, index._row3d,
+                                index._lb, k, n_probe, 20000.0, "ppm",
+                                precise)
+    rows_flat = index._row3d_host.reshape(-1)
+    slots_h = slots.reshape(len(rows_flat), k).numpy()
+    want_s = np.empty((n, k), np.float32)
+    want_i = np.empty((n, k), np.int32)
+    real = rows_flat >= 0
+    want_s[rows_flat[real]] = scores.reshape(len(rows_flat), k).numpy()[real]
+    want_i[rows_flat[real]] = np.where(slots_h >= 0, rows_flat[slots_h],
+                                       -1)[real]
+    np.testing.assert_array_equal(s.numpy(), want_s)
+    np.testing.assert_array_equal(i.numpy(), want_i)
+    assert (i >= 0).sum() > n  # neighbours found
+    got = index.search(vt, mzs, np.arange(n, dtype=np.int32), k,
+                       n_probe=n_probe, tol_mass=20000.0, tol_mode="ppm",
+                       precise=precise)
+    np.testing.assert_array_equal(got[0], want_s)
+    np.testing.assert_array_equal(got[1], want_i)
+    # Above n_probe * lb the lists are padded with -2 / -1.
+    wide = index.self_search(n_probe * index._lb + 3, n_probe=n_probe)
+    assert (wide[0][:, -3:] == T.NEG).all() and (wide[1][:, -3:] == -1).all()
+
+
+def test_scan_chunk_bounds_the_key_segments():
+    # 256 lists of 256 slots, 32 probes: 16 lists of 64-bit key segments
+    # in 256 MB; 1,024-slot lists: one; a small index: all its lists.
+    assert T.scan_chunk(256, 256, 32, 256) == 16
+    assert T.scan_chunk(512, 1024, 32, 1024) == 1
+    assert T.scan_chunk(16, 128, 4, 128) == 16
+    for n_lists, lb, n_probe in ((256, 256, 32), (64, 128, 8)):
+        chunk = T.scan_chunk(n_lists, lb, n_probe, lb)
+        assert chunk * lb * n_probe * lb * 8 <= 256 * 2**20
+        assert n_lists % chunk == 0
 
 
 def behaviour_deterministic(vecs, mzs):
@@ -482,13 +610,13 @@ def _generate(module, dataset, **kw):
 def test_engine_matches_jax(dataset, cluster_method, rerank, n_probe,
                             monkeypatch):
     calls = []
-    search = T.IVFIndex.search
+    search = T.IVFIndex.self_search
 
     def counted(self, *a, **k):
         calls.append((self.n_lists, k["n_probe"], k["precise"]))
         return search(self, *a, **k)
 
-    monkeypatch.setattr(T.IVFIndex, "search", counted)
+    monkeypatch.setattr(T.IVFIndex, "self_search", counted)
     kw = dict(cluster_method=cluster_method, rerank=rerank, n_probe=n_probe)
     labels, medoid_rows = _generate(ann_engine, dataset, **kw)
     ref_labels, ref_medoids = _generate(jax_engine, dataset, **kw)
@@ -497,3 +625,30 @@ def test_engine_matches_jax(dataset, cluster_method, rerank, n_probe,
     assert len(np.unique(labels)) < len(labels)  # something clustered
     # n_probe reaches the index: 16 lists at this size, so 32 probes all.
     assert calls == [(16, n_probe, rerank == "off")]
+
+
+@pytest.fixture(scope="module")
+def rt_dataset(tmp_path_factory):
+    """``dataset``'s spectra with retention times drawn from a seed."""
+    rows = _rows()
+    rts = np.random.default_rng(8).uniform(0.0, 100.0, len(rows))
+    for row, rt in zip(rows, rts):
+        row["retention_time"] = float(rt)
+    store = SpectrumStore(str(tmp_path_factory.mktemp("ivf_rt_spectra")))
+    writer = store.writer(batch_size=37)
+    writer.add_many(rows)
+    writer.close()
+    return store.dataset(2)
+
+
+@pytest.mark.parametrize("rerank", ["exact", "off"])
+def test_engine_rt_filter_matches_jax(rt_dataset, rerank):
+    # The RT filter of the IVF lists runs on the device in float64: the
+    # JAX package's labels and medoids, and the filter drops neighbours.
+    kw = dict(rerank=rerank, n_probe=4, rt_tol=20.0)
+    got = _generate(ann_engine, rt_dataset, **kw)
+    want = _generate(jax_engine, rt_dataset, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    unfiltered = _generate(ann_engine, rt_dataset, **dict(kw, rt_tol=None))
+    assert len(np.unique(got[0])) > len(np.unique(unfiltered[0]))
