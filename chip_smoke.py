@@ -5,6 +5,7 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit::
 
     python3 chip_smoke.py [--report PATH] [--root CHECKOUT] [--kernels-only]
+                          [--big-bucket N]
 
 ``--root`` runs the same phases on the ``falcon_tpu_torch`` of another
 checkout (a parent commit unpacked with ``git archive``), so that runs of
@@ -12,6 +13,10 @@ two commits, taken in turns on one card, time the same calls.
 ``--kernels-only`` stops after phase 2 and writes the report, for such
 timings of the kernels alone; it prints no result line, since no main path
 ran.
+``--big-bucket N`` runs phase 1, then only one charge of N spectra (above
+2^19 spectra it splits into several device blocks) through the default ann
+path, its blocks one at a time and two deep in turns, and prints no result
+line either.
 
 It builds the port's CUDA kernels from ``falcon_tpu_torch/csrc`` and then:
 
@@ -57,6 +62,21 @@ It builds the port's CUDA kernels from ``falcon_tpu_torch/csrc`` and then:
    bench corpus, prints spectra/s, purity, completeness and the pair-F1
    against phase 6's labels (recorded, not asserted), and runs the bench
    corpus a second time, which must give the same CSV bytes.
+10. runs ``--devices N`` on N virtual shards of the card
+    (``FALCON_TPU_TORCH_VIRTUAL_DEVICES``): first one shard's pair lists
+    against its halo pool (queries and pool apart) and B.2's sums and dots
+    alone, at the bench corpus's charge-2 block in 4 shards, bit for bit
+    against their plain versions; then the CLI's default ann path on the
+    bench and dense corpora at 2 and 4 shards, dbscan mode and ``--rerank
+    off`` on the bench corpus at 4, each of which must give the labels of
+    the one-device run of its mode (phases 7 and 8), and the 4-shard
+    dbscan run a second time (the same bytes); the bench corpus in blocks
+    of 8,192 spectra, one at a time and two deep in turns (1, 2, 2, 1;
+    ``FALCON_TPU_BLOCK_PIPELINE``), which must write the same CSV bytes
+    with block gauges of 1 and 2, with each run's time and peak device
+    memory; and a ``torch.profiler`` split of one sharded dbscan run, in
+    which the plain pair-list version raises and the pair-list, vectorize
+    and B.2 kernels must run.
 
 Phase 2 also holds the vectorize kernel (one output, and the fused plain +
 spread call) against its plain version at the bench corpus's charge-2 block
@@ -91,9 +111,11 @@ JAX nor the JAX package is ever imported.
 """
 
 import argparse
+import contextlib
 import csv
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -167,6 +189,7 @@ RERANK_OFF = ANN_DEFAULT + ["--rerank", "off"]
 CONSENSUS = ["--export_representatives", "--representative_method",
              "consensus"]
 IVF = ANN_DEFAULT + ["--ann_index", "ivf"]
+BLOCK_CAP = 8192  # phase 10's device blocks: 4 a bench-corpus charge
 GROUPBY_FREE = True  # B.1 and B.3 run no sort (set by phase 2)
 
 
@@ -352,7 +375,11 @@ def wrappers():
             PL: [(pw, "pair_list_scores")],
             VEC: [(vz, "vectorize"), (vz, "vectorize_pair")],
             B1: [(md, "sparse_medoid_scores")],
-            B2: [(md, "hashed_medoid_scores")], B3: [(cs, "aggregate")],
+            # B.2's sums and dots alone (the sharded medoid scores), where
+            # the package (another checkout through --root) has them.
+            B2: [(md, a) for a in ("hashed_medoid_scores", "segment_sums",
+                                   "segment_dots") if hasattr(md, a)],
+            B3: [(cs, "aggregate")],
             IVF1: [(ivf, "probe_topk")], IVF2: [(ivf, "kmeans_update")]}
 
 
@@ -2096,6 +2123,343 @@ def phase_ivf_paths(bench_spectra, bench_truth, dense_spectra, dense_truth,
     return launches
 
 
+@contextlib.contextmanager
+def environ(**values):
+    """Set environment variables for the body, then restore them."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def mesh_kernels(dev, bench_all, report):
+    """Phase 10, first: the kernels of one shard of the sharded chain at
+    the bench corpus's charge-2 block on [card] x 4, against their plain
+    versions, bit for bit and against a second launch: the pair lists
+    against the shard's halo pool (queries and pool apart, the lists of
+    the shard's halo k-NN), and B.2's sums and dots alone (the sharded
+    medoid scores' per-shard sums and row dots).  Returns the largest
+    differences, by kernel."""
+    import torch
+
+    from falcon_tpu_torch.ops import medoids as md
+    from falcon_tpu_torch.ops import pairwise as pw
+    from falcon_tpu_torch.ops.vectorize import SpectrumHasher, normalize_rows
+    from falcon_tpu_torch.parallel import mesh as pm
+    from falcon_tpu_torch.parallel import sharded_knn as sk
+
+    mz, intensity, pmz = bench_block(bench_all, dev)
+    n, n_pad = len(pmz), mz.shape[0]
+    m = pm.Mesh((dev,) * 4)
+    local = n_pad // 4
+    mz_s, int_s = pm.shard_rows(m, mz), pm.shard_rows(m, intensity)
+    pmz_full = np.full(n_pad, np.inf, np.float32)
+    pmz_full[:n] = pmz
+    hasher = SpectrumHasher(101.0, 1500.0, TOL)
+    vectors = [normalize_rows(hasher.vectorize(a, b, norm=False))
+               for a, b in zip(mz_s, int_s)]
+    block = min(1024, local)
+    starts, window = sk._band_windows(pmz, 20.0, False, 4, local, block)
+    _, neigh = sk.local_banded_topk(
+        m, vectors, pm.shard_rows(m, torch.from_numpy(pmz_full).to(dev)),
+        starts, 20.0, 128, False, block, window)
+    pool_mz, pool_int = sk.halo(m, mz_s)[1], sk.halo(m, int_s)[1]
+    # Shard 1's halo starts at global row (1 - 1) * local = 0, so its
+    # global ids are its pool ids.
+    ids = neigh[1].contiguous()
+    parity = Parity()
+    args = (mz_s[1], int_s[1], pool_mz, pool_int, ids, TOL, 4)
+    got, again = pw.pair_list_scores(*args), pw.pair_list_scores(*args)
+    want, t_plain = plain_ms(lambda: pw.pair_list_scores_plain(*args))
+    what = (f"halo pool, shard 1 of 4: {local} queries x {ids.shape[1]} "
+            f"slots ({int((ids >= 0).sum())} pairs) in a pool of "
+            f"{pool_mz.shape[0]}")
+    parity.check(PL, what, got, want, again)
+    ms = kernel_ms(lambda: pw.pair_list_scores(*args), reps=10)
+    valid = ids >= 0
+    ii = torch.arange(local, device=dev)[:, None].expand_as(ids)[valid]
+    edges = edge_counts(mz_s[1], int_s[1], ii, pool_mz, pool_int, ids[valid],
+                        TOL)
+    # Bytes: the queries and the pool read once, the lists read, scores
+    # and match counts written.
+    pl_bound = bound(ii.shape[0], int(edges.sum()),
+                     (local + pool_mz.shape[0]) * 512 + ids.numel() * 16)
+    log(f"  {PL} {what}: kernel {ms:.4f} ms, plain version {t_plain:.1f} "
+        f"ms, bound {pl_bound[0]:.5f} ms ({pl_bound[1]})")
+    out = {"pair_list_halo_ms": ms, "pair_list_halo_plain_ms": t_plain,
+           "pair_list_halo_bound_ms": pl_bound[0],
+           "pair_list_halo_bound_by": pl_bound[1],
+           "pair_list_halo_pairs": int(ii.shape[0]),
+           "pair_list_halo_edges": int(edges.sum())}
+    # B.2's sums and dots on each shard, segments of 10 rows (the bench
+    # corpus's cluster size), padding rows in segment 0.
+    seg = torch.zeros(n_pad, dtype=torch.int32, device=dev)
+    seg[:n] = torch.arange(n, device=dev, dtype=torch.int32) // 10
+    n_seg = int(seg.max()) + 1
+    seg_s = pm.shard_rows(m, seg)
+    for d, (v, s_) in enumerate(zip(vectors, seg_s)):
+        sums, sums2 = (md.segment_sums(v, s_, n_seg) for _ in range(2))
+        dots, dots2 = (md.segment_dots(v, s_, sums, n_seg)
+                       for _ in range(2))
+        torch.cuda.synchronize()
+        for name, a, b, c in (
+                ("segment_sums", sums, sums2,
+                 md.segment_sums_plain(v, s_, n_seg)),
+                ("segment_dots", dots, dots2,
+                 md.segment_dots_plain(v, s_, sums, n_seg))):
+            if not (torch.equal(a, c) and torch.equal(a, b)):
+                raise AssertionError(f"{B2} {name}, shard {d} of 4: not "
+                                     f"bit-identical to the plain version "
+                                     f"and a second launch")
+    log(f"  {B2} segment_sums and segment_dots, 4 shards of {local} rows, "
+        f"{n_seg} segments: bit-identical to their plain versions and to "
+        f"a second launch")
+    v, s1 = vectors[1], seg_s[1]
+    sums = md.segment_sums(v, s1, n_seg)
+    dim = v.shape[1]
+    for name, fn, plain, library, n_bytes in (
+            ("segment_sums", lambda: md.segment_sums(v, s1, n_seg),
+             lambda: md.segment_sums_plain(v, s1, n_seg),
+             lambda: torch.zeros((n_seg, dim), device=dev).index_add_(
+                 0, s1.long(), v),
+             (local * dim + local + n_seg * dim) * 4),
+            ("segment_dots", lambda: md.segment_dots(v, s1, sums, n_seg),
+             lambda: md.segment_dots_plain(v, s1, sums, n_seg),
+             lambda: (v * sums[s1.long()]).sum(dim=1),
+             (local * dim + 2 * local + n_seg * dim) * 4)):
+        out[f"{name}_ms"] = kernel_ms(fn, reps=10)
+        out[f"{name}_plain_ms"] = plain_ms(plain)[1]
+        out[f"{name}_library_ms"] = kernel_ms(library, reps=10)
+        out[f"{name}_bound_ms"] = n_bytes / HBM_BYTES_PER_S * 1e3
+        log(f"  {B2} {name}, shard 1 ({local} rows x {dim}, {n_seg} "
+            f"segments): {out[f'{name}_ms']:.4f} ms, plain version "
+            f"{out[f'{name}_plain_ms']:.1f} ms, library "
+            f"{out[f'{name}_library_ms']:.4f} ms, bound "
+            f"{out[f'{name}_bound_ms']:.5f} ms (bytes)")
+    report["mesh_kernels"] = out
+    return parity.err
+
+
+def sharded_split(dev, bench_all, tmp, report):
+    """Phase 10, last: one sharded run (the bench corpus's charge 2, dbscan
+    mode, on [card] x 4) under torch.profiler, with the plain pair-list
+    version made to raise; fails unless the pair-list, vectorize and B.2
+    kernels ran on the card."""
+    from falcon_tpu_torch.cluster import ann_engine
+    from falcon_tpu_torch.ops import pairwise as pw
+    from falcon_tpu_torch.store.store import SpectrumStore
+
+    store = SpectrumStore(os.path.join(tmp, "sharded_split"))
+    writer = store.writer()
+    writer.add_many([r for r in bench_all if r["precursor_charge"] == 2])
+    writer.close()
+    dataset = store.dataset(2)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the sharded rerank ran the plain pair-list "
+                             "version")
+
+    def run():
+        return ann_engine.generate_clusters(
+            dataset, EPS, 2, 0, 20.0, "ppm", None, TOL, 2**15, devices=4,
+            device=dev, cluster_method="dbscan")
+
+    saved = pw.pair_list_scores_plain
+    pw.pair_list_scores_plain = refuse
+    try:
+        with environ(FALCON_TPU_TORCH_VIRTUAL_DEVICES=4):
+            before = launch_counts()
+            split = device_split(run, reps=1)
+            after = launch_counts()
+    finally:
+        pw.pair_list_scores_plain = saved
+    for k in (VEC, PL, B2):
+        if after[k] <= before[k]:
+            raise AssertionError(f"sharded run: {k} never launched")
+    if not split:
+        log("  sharded run device time: not measured (the profiler saw no "
+            "device time)")
+        return
+    for word in ("pair_list_kernel", "vectorize_kernel",
+                 "hashed_medoid_sums_kernel", "hashed_medoid_dot_kernel"):
+        if not any(word in k for k in split):
+            raise AssertionError(f"sharded run: no {word} in the profile")
+
+    def total(*words):
+        return sum(v for k, v in split.items() if any(w in k for w in words))
+
+    parts = dict(device_ms=sum(split.values()),
+                 pair_lists_ms=total("pair_list_kernel"),
+                 vectorize_ms=total("vectorize_kernel"),
+                 medoids_ms=total("hashed_medoid", "groupby_"),
+                 gemm_ms=total("gemm"), sort_ms=total("Sort", "sort"),
+                 segment_reduce_ms=total("SegmentedReduce"))
+    parts["other_ms"] = parts["device_ms"] - sum(
+        v for k, v in parts.items() if k != "device_ms")
+    log("  sharded dbscan run, bench charge 2, [card] x 4, device time "
+        "(torch.profiler, ms): " + ", ".join(
+            f"{k[:-3]} {v:.4f}" for k, v in parts.items()))
+    top = sorted(split.items(), key=lambda kv: -kv[1])[:6]
+    log("  its largest kernels: " + "; ".join(
+        f"{k.split('(')[0][:60]} {v:.4f} ms" for k, v in top))
+    report["sharded_split"] = dict(parts, kernels=split)
+
+
+def phase_mesh_paths(dev, bench_all, bench_spectra, bench_truth,
+                     dense_spectra, dense_truth, tmp, report):
+    """Phase 10: ``--devices N`` on N virtual shards of the card
+    (``FALCON_TPU_TORCH_VIRTUAL_DEVICES``) and the block pipeline.  The
+    default ann path on the bench and dense corpora at 2 and 4 shards,
+    dbscan mode and ``--rerank off`` at 4 on the bench corpus, each with
+    the one-device run's labels (phases 7 and 8); a second 4-shard dbscan
+    run writes the same bytes.  The bench corpus in blocks of 8,192
+    spectra, one after another and two deep, in turns: the same CSV bytes,
+    gauges of 1 and 2.  Returns (each run's launch counts, the kernels'
+    parity errors)."""
+    import torch
+
+    from falcon_tpu_torch.cluster import ann_engine
+
+    log("== phase 10: --devices N on virtual shards of the card, and the "
+        "block pipeline")
+    errs = mesh_kernels(dev, bench_all, report)
+    launches = []
+    for name, spectra, truth, n_dev, flags, required, ref, floor in (
+            ("mesh2_default_ann_bench_corpus", bench_spectra, bench_truth, 2,
+             ANN_DEFAULT, [VEC, PL, K4], "default_ann_bench_corpus", 0.99),
+            ("mesh4_default_ann_bench_corpus", bench_spectra, bench_truth, 4,
+             ANN_DEFAULT, [VEC, PL, K4], "default_ann_bench_corpus", 0.99),
+            ("mesh2_default_ann_dense_corpus", dense_spectra, dense_truth, 2,
+             ANN_DEFAULT, [VEC, PL, K4], "default_ann_dense_corpus", 0.99),
+            ("mesh4_default_ann_dense_corpus", dense_spectra, dense_truth, 4,
+             ANN_DEFAULT, [VEC, PL, K4], "default_ann_dense_corpus", 0.99),
+            ("mesh4_dbscan_bench_corpus", bench_spectra, bench_truth, 4,
+             DBSCAN, [VEC, PL, B2], "dbscan_bench_corpus", 0.5),
+            ("mesh4_rerank_off_bench_corpus", bench_spectra, bench_truth, 4,
+             RERANK_OFF, [VEC, K4], "rerank_off_bench_corpus", 0.5)):
+        log(f"  {name}")
+        with environ(FALCON_TPU_TORCH_VIRTUAL_DEVICES=n_dev):
+            launches.append(phase_main_path(
+                name, spectra, truth, tmp, report, required,
+                flags + ["--devices", str(n_dev), "--overwrite"],
+                min_completeness=0.0, min_purity=floor))
+        if report["labels"][name] != report["labels"][ref]:
+            raise AssertionError(f"{name}: labels differ from {ref}'s (one "
+                                 f"device)")
+        log(f"  {name}: labels identical to {ref}'s (one device)")
+    with environ(FALCON_TPU_TORCH_VIRTUAL_DEVICES=4):
+        check_repeatable("mesh4_dbscan_bench_corpus", bench_spectra,
+                         bench_truth, tmp, tuple(
+                             DBSCAN + ["--devices", "4", "--overwrite"]))
+
+    # Every run writes the same paths (the CSV names the input file and the
+    # work_dir), each from a fresh work_dir, so each ingests; the depths
+    # take turns (1, 2, 2, 1).
+    runs, name = [], "blocks_default_ann_bench_corpus"
+    for turn, depth in enumerate((1, 2, 2, 1)):
+        log(f"  {name}, blocks of {BLOCK_CAP} spectra, {depth} in flight")
+        shutil.rmtree(os.path.join(tmp, f"{name}_work"), ignore_errors=True)
+        with environ(FALCON_TPU_DEVICE_BLOCK_CAP=BLOCK_CAP,
+                     FALCON_TPU_BLOCK_PIPELINE=depth):
+            ann_engine._block_gauge["max"] = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            launches.append(phase_main_path(
+                name, bench_spectra, bench_truth, tmp, report,
+                [VEC, PL, K4], ANN_DEFAULT + ["--overwrite"],
+                min_completeness=0.0, min_purity=0.99))
+            peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(tmp, f"{name}_out.csv"), "rb") as f:
+            csv_bytes = f.read()
+        run = report.pop(name)
+        run.update(depth=depth, gauge=ann_engine._block_gauge["max"],
+                   peak_bytes=peak)
+        log(f"  depth {depth}: {run['seconds']:.2f} s, block gauge "
+            f"{run['gauge']}, peak device memory {peak / 2**20:.1f} MiB "
+            f"(torch.cuda.max_memory_allocated)")
+        report[f"{name}_turn{turn}_depth{depth}"] = run
+        runs.append((csv_bytes, run))
+    if any(b != runs[0][0] for b, _ in runs):
+        raise AssertionError("two blocks in flight wrote other CSV bytes "
+                             "than one")
+    gauges = [run["gauge"] for _, run in runs]
+    if gauges != [1, 2, 2, 1]:
+        raise AssertionError(f"block gauges {gauges}, not [1, 2, 2, 1]")
+    log(f"  blocks two deep: the serial runs' CSV bytes ({len(runs[0][0])})"
+        f"; serial {runs[0][1]['seconds']:.2f} / {runs[3][1]['seconds']:.2f}"
+        f" s, two deep {runs[1][1]['seconds']:.2f} / "
+        f"{runs[2][1]['seconds']:.2f} s")
+    sharded_split(dev, bench_all, tmp, report)
+    return launches, errs
+
+
+def phase_big_bucket(n_spectra, tmp, report):
+    """``--big-bucket N``: one charge of ``n_spectra`` spectra (above
+    2^19, the default block cap, it splits into several device blocks),
+    through the CLI's default ann path with its blocks one at a time and
+    two deep, in turns (1, 2, 2, 1), from a fresh work_dir each; the CSV
+    bytes must not change, and each run's time, phases, block gauge and
+    peak device memory are printed."""
+    import torch
+
+    from falcon_tpu_torch import cli
+    from falcon_tpu_torch.cluster import ann_engine
+    from falcon_tpu_torch.simulate import make_clustered_spectra, write_mgf
+    from falcon_tpu_torch.utils.profiling import profiler
+
+    log(f"== big bucket: one charge of {n_spectra} spectra, blocks one at a "
+        f"time and two deep")
+    t0 = time.perf_counter()
+    n_clusters = n_spectra // 20
+    spectra, _ = make_clustered_spectra(
+        n_clusters=n_clusters, cluster_size=10,
+        n_noise=n_spectra - 10 * n_clusters, charges=(2,), seed=5)
+    mgf = write_mgf(os.path.join(tmp, "big.mgf"), spectra)
+    del spectra
+    log(f"  corpus made and written in {time.perf_counter() - t0:.1f} s")
+    out, work = os.path.join(tmp, "big_out"), os.path.join(tmp, "big_work")
+    runs = []
+    for turn, depth in enumerate((1, 2, 2, 1)):
+        shutil.rmtree(work, ignore_errors=True)
+        with environ(FALCON_TPU_BLOCK_PIPELINE=depth):
+            ann_engine._block_gauge["max"] = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            rc = cli.main([mgf, out, "--work_dir", work, "--backend", "ann",
+                           "--overwrite"])
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+        if rc != 0:
+            raise RuntimeError(f"big bucket: the CLI exited {rc}")
+        with open(out + ".csv", "rb") as f:
+            csv_bytes = f.read()
+        run = dict(depth=depth, seconds=seconds,
+                   spectra_per_s=n_spectra / seconds,
+                   gauge=ann_engine._block_gauge["max"], peak_bytes=peak,
+                   phases=profiler.summary())
+        log(f"  depth {depth}: {seconds:.2f} s ({n_spectra / seconds:.0f} "
+            f"spectra/s, ingest included), block gauge {run['gauge']}, "
+            f"peak device memory {peak / 2**30:.2f} GiB")
+        log("  phases (s): " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                         run["phases"].items()))
+        report[f"big_bucket_turn{turn}_depth{depth}"] = run
+        runs.append((csv_bytes, run))
+    if any(b != runs[0][0] for b, _ in runs):
+        raise AssertionError("big bucket: two blocks in flight wrote other "
+                             "CSV bytes than one")
+    if [run["gauge"] for _, run in runs] != [1, 2, 2, 1]:
+        raise AssertionError("big bucket: the blocks did not overlap two "
+                             "deep (or one bucket was a single block)")
+    log("  big bucket: the same CSV bytes at depth 1 and 2")
+
+
 def write_report(path, report) -> None:
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -2113,6 +2477,11 @@ def main() -> int:
     parser.add_argument(
         "--kernels-only", action="store_true",
         help="stop after phase 2 (the kernels), print no result line")
+    parser.add_argument(
+        "--big-bucket", type=int, metavar="N",
+        help="after phase 1, only time one charge of N spectra (above 2^19: "
+        "several device blocks) with its blocks one at a time and two deep; "
+        "print no result line")
     args = parser.parse_args()
     if args.root:
         sys.path.insert(0, os.path.abspath(args.root))
@@ -2153,6 +2522,12 @@ def main() -> int:
     report.update(card=card, package=package, torch=torch.__version__,
                   cuda=torch.version.cuda, build_s=_build.build_seconds,
                   build_log=_build.build_log)
+
+    if args.big_bucket:
+        with tempfile.TemporaryDirectory(prefix="falcon_chip_smoke_") as tmp:
+            phase_big_bucket(args.big_bucket, tmp, report)
+        write_report(args.report, report)
+        return 0
 
     bench_spectra, bench_truth = make_clustered_spectra(**BENCH_CORPUS)
     dense_spectra, dense_truth = make_clustered_spectra(**DENSE_CORPUS)
@@ -2233,6 +2608,12 @@ def main() -> int:
         launches.extend(phase_ivf_paths(
             bench_spectra, bench_truth, dense_spectra, dense_truth, tmp,
             report))
+        mesh_launches, mesh_errs = phase_mesh_paths(
+            dev, bench_all, bench_spectra, bench_truth, dense_spectra,
+            dense_truth, tmp, report)
+        launches.extend(mesh_launches)
+        for k, err in mesh_errs.items():
+            errs[k] = max(errs.get(k, 0.0), err)
     report.pop("labels")
 
     kernels = [

@@ -10,9 +10,10 @@ same relative paths, held against the originals by
 ``tests/test_torch_host_copies.py``.
 
 Ported so far: the default exact backend (``cluster/engine.py``), and
-``--backend ann`` with its default index (the hashed upper-bound scan and
-the exact rerank) or ``--ann_index exact`` (``cluster/ann_engine.py``).
-See ``README.md`` for what still raises.
+``--backend ann`` with every index, rerank and cluster method
+(``cluster/ann_engine.py``), with ``--devices N`` for its default index
+over a mesh of devices (``parallel/``).  See ``README.md`` for what still
+raises.
 """
 
 __version__ = "0.1.0"

@@ -16,7 +16,8 @@ options included).  With ``output``
 the CSV/MGF files are written exactly as the CLI writes them; without it
 nothing is written.  Invalid inputs raise (``ValueError``,
 ``FileExistsError``, ``NotImplementedError`` for ``devices`` above 1 where
-that many GPUs are visible: the multi-device engines are not ported yet)
+that many GPUs are visible with the exact backend or ``ann_index`` exact or
+ivf: those multi-device engines are not ported yet)
 instead of returning exit codes.  The configuration is a process-wide
 singleton, so call :func:`cluster` from one thread at a time.
 """

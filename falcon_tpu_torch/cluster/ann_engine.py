@@ -5,7 +5,12 @@ same labels and medoids:
 
 1. sort the bucket by precursor m/z and split it into device blocks of at
    most ``device_block_cap()`` spectra on tolerance gaps (logging every
-   forced cut), clustered one after the other and merged in block order;
+   forced cut); the blocks run ``block_pipeline_depth()`` at a time on one
+   device (default 2, each worker thread on a CUDA stream of its own, so
+   one block's host work overlaps the next one's device work), or
+   round-robin over the devices of ``--devices N``, each block on one
+   device; results merge in block order, so the labels are the serial
+   loop's;
 2. per block: pad and upload the peaks (``ops/xfer.py``) and find each
    row's neighbours in its precursor band:
 
@@ -63,21 +68,41 @@ the JAX package's total coverage, ``k_ann * widen_passes`` (at most
   survivor, which skips passes whose survivors are empty.
 
 ``tests/test_torch_ann.py`` holds this against the JAX package in both of
-its modes (certified, and forced exact multi-pass).  The exact index does
+its modes (certified, and forced exact multi-pass).
+
+**``--devices N``** (``devices``, N of ``device.visible_devices``: N cards,
+or N virtual shards of one): a block of the default and brute indexes
+under ``--rerank exact`` runs the whole chain sharded over the mesh
+(``parallel/sharded_pipeline.py``: vectorize, the halo k-NN of the top
+``n_neighbors_ann`` hashed cosines, the exact rerank against a halo pool,
+DBSCAN merged by ``pmin``), with the JAX package's sharded medoid scores
+in dbscan mode (hashed vectors, not the exact lists); under ``--rerank
+off`` only the k-NN is sharded (``parallel/sharded_knn.py``).  A band
+wider than one shard's halo is logged and takes the one-device chain.
+Linkage mode scores its small components round-robin over the mesh and
+its large ones on a thread a device.  The exact backend and the exact and
+IVF indexes refuse N visible devices (``NotImplementedError``); fewer
+visible than asked is logged and runs on one.  ``tests/test_torch_parallel
+.py`` holds labels, medoids and CLI bytes against the JAX package's
+``devices=N`` at N = 2, 4 and 8.  The exact index does
 not hash: the JAX package's chain hashes every block into vectors that
 index never reads.  The IVF index takes one retrieval in both packages;
 ``tests/test_torch_ivf.py`` holds its labels against the JAX package's.
 """
 
+import contextlib
 import logging
 import os
+import threading
+from concurrent.futures import ThreadPoolExecutor, as_completed
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import native
-from ..device import resolve_device, synchronize
+from ..device import (resolve_device, synchronize, visible_devices,
+                      worker_stream)
 from ..ops import medoids as medoid_ops
 from ..ops import pairwise
 from ..ops.density import dbscan
@@ -88,6 +113,10 @@ from ..ops.matching import f32_tolerance
 from ..ops.rerank import rerank_exact
 from ..ops.vectorize import SpectrumHasher, normalize_rows
 from ..ops.xfer import upload_padded_peaks
+from ..parallel.mesh import Mesh
+from ..parallel.sharded_knn import knn_banded_sharded
+from ..parallel.sharded_pipeline import (ann_cluster_sharded,
+                                         sharded_medoid_scores)
 from ..store.store import ChargeDataset, padded_peaks
 from ..utils.profiling import profiler
 from .intervals import mass_diff, precursor_mz_splits
@@ -116,6 +145,33 @@ def device_block_cap() -> int:
     block.  The value was measured for a 16 GB TPU; the H100's is not
     measured yet."""
     return int(os.environ.get("FALCON_TPU_DEVICE_BLOCK_CAP", 2**19))
+
+
+def block_pipeline_depth() -> int:
+    """Device blocks of one charge in flight on one device
+    (``FALCON_TPU_BLOCK_PIPELINE``, default 2, the JAX package's knob): one
+    block's host refinement overlaps the next block's device work; 1 runs
+    the blocks one after another."""
+    return int(os.environ.get("FALCON_TPU_BLOCK_PIPELINE", "2"))
+
+
+# Gauge of the device blocks running at once (the JAX package's
+# ``_block_gauge``): ``max`` reaches 2 when blocks overlap.
+_block_gauge = {"active": 0, "max": 0}
+_block_gauge_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def _block_gauge_tracked():
+    with _block_gauge_lock:
+        _block_gauge["active"] += 1
+        _block_gauge["max"] = max(_block_gauge["max"],
+                                  _block_gauge["active"])
+    try:
+        yield
+    finally:
+        with _block_gauge_lock:
+            _block_gauge["active"] -= 1
 
 
 def _block_splits(mz_sorted: np.ndarray, tol_mass: float, tol_mode: str,
@@ -196,13 +252,19 @@ def generate_clusters(
         raise ValueError(f"cluster_method must be 'linkage' or 'dbscan', "
                          f"got {cluster_method!r}")
     dev = resolve_device(device)
+    mesh = None
     if devices is not None and devices > 1:
-        visible = torch.cuda.device_count() if dev.type == "cuda" else 1
-        if visible >= devices:
+        visible = visible_devices(dev)
+        if len(visible) < devices:
+            logger.warning("Requested %d devices but only %d visible; using "
+                           "one device", devices, len(visible))
+        elif ann_index in ("exact", "ivf"):
             raise NotImplementedError(
-                "multi-device ann clustering is not ported yet")
-        logger.warning("Requested %d devices but only %d visible; using "
-                       "one device", devices, visible)
+                f"--devices {devices} with --ann_index {ann_index} is not "
+                "ported yet (ROADMAP.md A.7: the sharded exact index and "
+                "the sharded IVF ring)")
+        else:
+            mesh = Mesh(tuple(visible[:devices]))
 
     meta = dataset.read_metadata(columns=("precursor_mz", "retention_time"))
     offsets, mz_flat, int_flat = dataset.read_peaks()
@@ -224,21 +286,55 @@ def generate_clusters(
     splits = _block_splits(mz_sorted, precursor_tol_mass, precursor_tol_mode,
                            device_block_cap())
 
+    block_ranges = [(b0, b1) for b0, b1 in zip(splits[:-1].tolist(),
+                                               splits[1:].tolist())
+                    if b1 > b0]
+    multi_blocks = [b for b in block_ranges if b[1] - b[0] > 1]
+    # Blocks share no state, so they may run at once: round-robin over the
+    # mesh's devices, each block on one device (no collectives), or a
+    # pipeline of block_pipeline_depth() blocks on one device, each worker
+    # on a stream of its own.  Results merge in block order, so the labels
+    # are the serial loop's.
+    block_devices = None
+    n_workers = 1
+    if len(multi_blocks) > 1:
+        if mesh is not None:
+            block_devices = mesh.devices
+            n_workers = min(mesh.size, len(multi_blocks))
+            logger.info("Dispatching %d device blocks round-robin over %d "
+                        "devices", len(multi_blocks), mesh.size)
+        else:
+            n_workers = min(block_pipeline_depth(), len(multi_blocks))
+
+    def run_block(i, b0, b1):
+        d = block_devices[i % len(block_devices)] if block_devices else dev
+        with (worker_stream(d) if n_workers > 1
+              else contextlib.nullcontext()), _block_gauge_tracked():
+            return _cluster_range(
+                offsets, mz_flat, int_flat, order[b0:b1], mz_sorted[b0:b1],
+                rt_sorted[b0:b1], hasher, pad_to, eps, min_samples,
+                min_matches, precursor_tol_mass, precursor_tol_mode, rt_tol,
+                fragment_tol, n_neighbors, n_neighbors_ann, n_probe,
+                ann_index, rerank, cluster_method, linkage, batch_size, d,
+                # Blocks spread over the mesh supersede the sharded chain.
+                None if block_devices is not None else mesh)
+
+    if n_workers > 1:
+        with ThreadPoolExecutor(max_workers=n_workers) as pool:
+            futures = {b: pool.submit(run_block, i, *b)
+                       for i, b in enumerate(multi_blocks)}
+            results = {b: futures[b].result() for b in multi_blocks}
+    else:
+        results = {b: run_block(i, *b) for i, b in enumerate(multi_blocks)}
+
     labels_sorted = np.full(n, -1, np.int32)
     medoids_all = []
     current = 0
-    for b0, b1 in zip(splits[:-1].tolist(), splits[1:].tolist()):
-        if b1 - b0 == 0:
-            continue
+    for b0, b1 in block_ranges:
         if b1 - b0 == 1:
             medoids_all.append(order[b0:b1].astype(np.int64))
             continue
-        final_b, med_b = _cluster_range(
-            offsets, mz_flat, int_flat, order[b0:b1], mz_sorted[b0:b1],
-            rt_sorted[b0:b1], hasher, pad_to, eps, min_samples, min_matches,
-            precursor_tol_mass, precursor_tol_mode, rt_tol, fragment_tol,
-            n_neighbors, n_neighbors_ann, n_probe, ann_index, rerank,
-            cluster_method, linkage, batch_size, dev)
+        final_b, med_b = results[(b0, b1)]
         mask = final_b >= 0
         final_b = final_b.astype(np.int32)
         final_b[mask] += current
@@ -265,8 +361,9 @@ def _cluster_range(offsets, mz_flat, int_flat, order, mz_sorted, rt_sorted,
                    precursor_tol_mass, precursor_tol_mode, rt_tol,
                    fragment_tol, n_neighbors, n_neighbors_ann, n_probe,
                    ann_index, rerank, cluster_method, linkage, batch_size,
-                   dev):
-    """Cluster one device block (a sorted precursor-m/z range).
+                   dev, mesh=None):
+    """Cluster one device block (a sorted precursor-m/z range) on ``dev``,
+    or sharded over ``mesh`` (a ``parallel.mesh.Mesh``, or None).
 
     Returns (labels in sorted-range order, -1 = noise, numbered from 0;
     medoid dataset-row ids, noise singletons first)."""
@@ -279,6 +376,55 @@ def _cluster_range(offsets, mz_flat, int_flat, order, mz_sorted, rt_sorted,
     k_final = min(n_neighbors, max(n - 1, 1))
     exact_index = ann_index == "exact"
     do_rerank = rerank == "exact" and not exact_index
+    labels = None
+    if mesh is not None and do_rerank:
+        # The whole chain sharded over the mesh (the exact and IVF indexes
+        # were refused above); the JAX package's hashed medoid scores.
+        with profiler.phase("ann: sharded pipeline"):
+            mz_host, int_host, _ = padded_peaks(offsets, mz_flat, int_flat,
+                                                pad_to, order)
+            result = ann_cluster_sharded(
+                mz_host, int_host, mz_sorted,
+                rt_sorted if rt_tol is not None else None, hasher,
+                precursor_tol_mass, precursor_tol_mode,
+                min(max(n_neighbors_ann, k_final), max(n - 1, 1)), k_final,
+                fragment_tol, eps, min_samples, min_matches, rt_tol, mesh)
+        if result is None:
+            logger.warning("Precursor band wider than one shard halo; "
+                           "falling back to the single-device pipeline")
+        else:
+            labels, vectors, _ = result
+
+            def medoid_scores(seg, n_seg):
+                return sharded_medoid_scores(vectors, seg, n_seg, mesh)
+    if labels is None:
+        labels, medoid_scores = _single_device_chain(
+            offsets, mz_flat, int_flat, order, mz_sorted, rt_sorted, hasher,
+            pad_to, eps, min_samples, min_matches, precursor_tol_mass,
+            precursor_tol_mode, rt_tol, fragment_tol, k_final,
+            n_neighbors_ann, n_probe, ann_index, do_rerank, dev, mesh)
+    if cluster_method == "linkage":
+        del medoid_scores
+        return _linkage_refine_and_medoids(
+            labels, order, mz_sorted, rt_sorted, n, offsets, mz_flat,
+            int_flat, pad_to, linkage, eps, min_matches, fragment_tol,
+            precursor_tol_mass, precursor_tol_mode, rt_tol, batch_size,
+            hasher, dev, mesh.devices if mesh is not None else None)
+    return _refine_and_medoids(labels, order, mz_sorted, rt_sorted, n,
+                               precursor_tol_mass, precursor_tol_mode,
+                               rt_tol, min_samples, medoid_scores)
+
+
+def _single_device_chain(offsets, mz_flat, int_flat, order, mz_sorted,
+                         rt_sorted, hasher, pad_to, eps, min_samples,
+                         min_matches, precursor_tol_mass, precursor_tol_mode,
+                         rt_tol, fragment_tol, k_final, n_neighbors_ann,
+                         n_probe, ann_index, do_rerank, dev, mesh):
+    """The block's lists on ``dev`` (under ``--rerank off``, the k-NN
+    sharded over ``mesh`` when it is set) and DBSCAN on them: (labels,
+    medoid scores of (seg, n_seg), numpy)."""
+    n = len(order)
+    exact_index = ann_index == "exact"
     with profiler.phase("ann: upload"):
         mz_pad, int_pad = upload_padded_peaks(
             offsets, mz_flat, int_flat, order, pad_to,
@@ -311,20 +457,27 @@ def _cluster_range(offsets, mz_flat, int_flat, order, mz_sorted, rt_sorted,
                                                    norm=False))
             synchronize(dev)
         with profiler.phase("ann: knn"):
-            sims, neigh = knn_banded(
-                unit, mz_sorted, precursor_tol_mass, precursor_tol_mode,
-                k_final, rts=rt_sorted, rt_tol=rt_tol)
+            sims = None
+            if mesh is not None:
+                result = knn_banded_sharded(
+                    unit, mz_sorted, precursor_tol_mass, precursor_tol_mode,
+                    k_final, mesh)
+                if result is None:
+                    logger.warning("Precursor band wider than one shard "
+                                   "halo; falling back to single-device "
+                                   "k-NN")
+                elif rt_tol is not None:
+                    sims, neigh = _rt_filter(*result, rt_sorted, rt_tol)
+                else:
+                    sims, neigh = result
+            if sims is None:
+                sims, neigh = knn_banded(
+                    unit, mz_sorted, precursor_tol_mass, precursor_tol_mode,
+                    k_final, rts=rt_sorted, rt_tol=rt_tol)
             synchronize(dev)
     del mz_pad, int_pad
     with profiler.phase("ann: dbscan"):
         labels = dbscan(sims, neigh, eps, n, min_samples)
-    if cluster_method == "linkage":
-        del sims, neigh, unit
-        return _linkage_refine_and_medoids(
-            labels, order, mz_sorted, rt_sorted, n, offsets, mz_flat,
-            int_flat, pad_to, linkage, eps, min_matches, fragment_tol,
-            precursor_tol_mass, precursor_tol_mode, rt_tol, batch_size,
-            hasher, dev)
 
     def medoid_scores(seg, n_seg):
         """Scores of the rows (numpy, (n,)); ``seg`` puts noise in the
@@ -345,9 +498,18 @@ def _cluster_range(offsets, mz_flat, int_flat, order, mz_sorted, rt_sorted,
                 n_seg - 1)
         return scores[:n].cpu().numpy()
 
-    return _refine_and_medoids(labels, order, mz_sorted, rt_sorted, n,
-                               precursor_tol_mass, precursor_tol_mode,
-                               rt_tol, min_samples, medoid_scores)
+    return labels, medoid_scores
+
+
+def _rt_filter(sims, neigh, rt_sorted, rt_tol):
+    """(n, k) lists with the neighbours more than ``rt_tol`` away in
+    retention time dropped (``NEG`` / -1), compared in float64 as the JAX
+    package's NumPy filter of the IVF and sharded k-NN lists."""
+    n = len(rt_sorted)
+    rts = torch.as_tensor(rt_sorted, dtype=torch.float64, device=sims.device)
+    neigh_rt = torch.where(neigh >= 0, rts[neigh.clamp(0, n - 1)], torch.inf)
+    bad = (neigh_rt - rts[:neigh.shape[0], None]).abs() > rt_tol
+    return torch.where(bad, NEG, sims), torch.where(bad, -1, neigh)
 
 
 def band_spans(mz_sorted: np.ndarray, tol_mass: float,
@@ -509,13 +671,7 @@ def _ivf_lists(mz_pad, int_pad, mz_sorted, rt_sorted, hasher, min_matches,
         del index, vectors, plain
         sims, neigh = sims[:, :k_ann], neigh[:, :k_ann].long()
         if rt_tol is not None:
-            # In float64, as the JAX package's NumPy filter.
-            rts = torch.as_tensor(rt_sorted, dtype=torch.float64, device=dev)
-            neigh_rt = torch.where(neigh >= 0, rts[neigh.clamp(0, n - 1)],
-                                   torch.inf)
-            bad = (neigh_rt - rts[:, None]).abs() > rt_tol
-            sims = torch.where(bad, NEG, sims)
-            neigh = torch.where(bad, -1, neigh)
+            sims, neigh = _rt_filter(sims, neigh, rt_sorted, rt_tol)
         synchronize(dev)
     if not do_rerank:
         return sims.contiguous(), neigh, unit
@@ -539,7 +695,7 @@ def _ivf_lists(mz_pad, int_pad, mz_sorted, rt_sorted, hasher, min_matches,
 def _linkage_refine_and_medoids(
     comp, order, mz_sorted, rt_sorted, n, offsets, mz_flat, int_flat,
     pad_to, linkage, eps, min_matches, fragment_tol, precursor_tol_mass,
-    precursor_tol_mode, rt_tol, batch_size, hasher, dev,
+    precursor_tol_mode, rt_tol, batch_size, hasher, dev, devices=None,
 ):
     """The reference's hierarchical clustering inside eps-components.
 
@@ -549,7 +705,11 @@ def _linkage_refine_and_medoids(
     spectra like a reference interval, is linked, cut at ``eps`` and
     refined, with medoids from its exact distances.  A flat cluster of a
     reducible linkage cut at eps lies inside one single-linkage component
-    at eps, so this gives the full-matrix flat clusters.
+    at eps, so this gives the full-matrix flat clusters.  ``devices`` (a
+    list, or None for ``dev`` alone): the small components' launches go
+    round-robin over them, and one host thread per device scores its share
+    of the large ones; linkage and refinement stay on this thread, and the
+    components are assembled in their order.
     """
     final = np.full(n, -1, np.int32)
     comp = np.asarray(comp, np.int64)
@@ -639,22 +799,35 @@ def _linkage_refine_and_medoids(
     # eps, so large components score only the pairs whose spread bound can
     # reach 1 - eps; average linkage needs every distance.
     prune = linkage in ("complete", "single")
+
+    def large_pdist(i, d):
+        mz_c, int_c = comp_peaks(i)
+        if prune:
+            return pairwise.pruned_condensed_distances(
+                mz_c, int_c, hasher, eps, fragment_tol, min_matches, device=d)
+        return pairwise.condensed_distances(mz_c, int_c, fragment_tol,
+                                            min_matches, device=d)
+
+    def on_device(i, d):
+        with worker_stream(d):
+            return large_pdist(i, d)
+
     with profiler.phase("ann: linkage"):
         if small:
             for local_i, pdist in pairwise.grouped_condensed_distances(
                     [comp_peaks(i) for i in small], fragment_tol,
-                    min_matches, device=dev):
+                    min_matches, device=dev, devices=devices):
                 process(small[local_i], pdist)
-        for i in large:
-            mz_c, int_c = comp_peaks(i)
-            if prune:
-                pdist = pairwise.pruned_condensed_distances(
-                    mz_c, int_c, hasher, eps, fragment_tol, min_matches,
-                    device=dev)
-            else:
-                pdist = pairwise.condensed_distances(
-                    mz_c, int_c, fragment_tol, min_matches, device=dev)
-            process(i, pdist)
+        if large and devices:
+            with ThreadPoolExecutor(len(devices)) as pool:
+                futures = {
+                    pool.submit(on_device, i, devices[j % len(devices)]): i
+                    for j, i in enumerate(large)}
+                for future in as_completed(futures):
+                    process(futures[future], future.result())
+        else:
+            for i in large:
+                process(i, large_pdist(i, dev))
 
     with profiler.phase("ann: refine"):
         # Assemble in component order, so labels do not depend on the

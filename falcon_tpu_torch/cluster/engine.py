@@ -22,10 +22,9 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple
 
 import numpy as np
-import torch
 
 from .. import native
-from ..device import resolve_device
+from ..device import resolve_device, visible_devices
 from ..ops import pairwise
 from ..store.store import ChargeDataset, padded_peaks
 from ..utils.profiling import profiler
@@ -73,10 +72,11 @@ def generate_clusters(
     """
     dev = resolve_device(device)
     if devices is not None and devices > 1:
-        visible = torch.cuda.device_count() if dev.type == "cuda" else 1
+        visible = len(visible_devices(dev))
         if visible >= devices:
             raise NotImplementedError(
-                "multi-device exact scoring is not ported yet")
+                f"--devices {devices} with --backend exact is not ported "
+                "yet (ROADMAP.md A.7: the pair-sharded exact scoring)")
         logger.warning(
             "Requested %d devices but only %d visible; exact panel "
             "scoring stays single-device", devices, visible,

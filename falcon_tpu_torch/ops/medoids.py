@@ -28,7 +28,10 @@ hashed scores put each cluster's rows in ascending order with the same
 group-by's entry points, then sum each cluster in a block and score each
 row in a thread.  Each wrapper launches its kernels for CUDA tensors
 without waiting for the card, counts one launch in its ``launches``
-attribute, and runs its plain version for CPU tensors.  No ``torch.sort``,
+attribute, and runs its plain version for CPU tensors.  B.2's sums and
+dots are also wrappers of their own (``segment_sums``, ``segment_dots``),
+for the sharded medoid scores (``parallel/sharded_pipeline.py``), which
+add each shard's sums across the mesh between the two.  No ``torch.sort``,
 ``index_add_``, ``scatter_add_`` or ``scatter_reduce_`` runs on the card
 here.
 """
@@ -225,6 +228,34 @@ def _cluster_rows(seg: torch.Tensor, spill: int, stream: int):
     return off, items
 
 
+def _launch_sums(vectors, seg, spill):
+    """B.2's sums on the card, inside the caller's ``torch.cuda.device``:
+    the group-by of the rows below ``spill`` and a block per cluster."""
+    dev, spill = vectors.device, int(spill)
+    stream = _stream(dev)
+    sums = torch.empty((spill, vectors.shape[1]), dtype=torch.float32,
+                       device=dev)
+    off, items = _cluster_rows(seg, spill, stream)
+    _check_launch("hashed medoid sums", _build.library()
+                  .falcon_hashed_medoid_sums(
+                      vectors.data_ptr(), vectors.shape[1], items.data_ptr(),
+                      off.data_ptr(), spill, sums.data_ptr(), stream))
+    return sums
+
+
+def _launch_dots(vectors, seg, sums, spill):
+    """B.2's dots on the card, inside the caller's ``torch.cuda.device``: a
+    thread per row of ``seg``."""
+    dev = vectors.device
+    out = torch.empty(seg.shape[0], dtype=torch.float32, device=dev)
+    _check_launch("hashed medoid dots", _build.library()
+                  .falcon_hashed_medoid_dot(
+                      vectors.data_ptr(), vectors.shape[1], seg.data_ptr(),
+                      seg.shape[0], int(spill), sums.data_ptr(),
+                      out.data_ptr(), _stream(dev)))
+    return out
+
+
 def hashed_medoid_scores(vectors: torch.Tensor, seg: torch.Tensor,
                          spill: int) -> torch.Tensor:
     """(n,) float32 scores ``v_i . s_C`` for the first ``n = len(seg)``
@@ -237,21 +268,10 @@ def hashed_medoid_scores(vectors: torch.Tensor, seg: torch.Tensor,
     _check_vectors(vectors, seg)
     if vectors.device.type == "cpu":
         return hashed_medoid_scores_plain(vectors, seg, spill)
-    dev = vectors.device
-    seg, spill = seg.contiguous(), int(spill)
-    n, dim = seg.shape[0], vectors.shape[1]
-    lib = _build.library()
-    sums = torch.empty((spill, dim), dtype=torch.float32, device=dev)
-    out = torch.empty(n, dtype=torch.float32, device=dev)
-    stream = _stream(dev)
-    with torch.cuda.device(dev):
-        off, items = _cluster_rows(seg, spill, stream)
-        _check_launch("hashed_medoid_scores", lib.falcon_hashed_medoid_sums(
-            vectors.data_ptr(), dim, items.data_ptr(), off.data_ptr(), spill,
-            sums.data_ptr(), stream))
-        _check_launch("hashed_medoid_scores", lib.falcon_hashed_medoid_dot(
-            vectors.data_ptr(), dim, seg.data_ptr(), n, spill,
-            sums.data_ptr(), out.data_ptr(), stream))
+    seg = seg.contiguous()
+    with torch.cuda.device(vectors.device):
+        out = _launch_dots(vectors, seg, _launch_sums(vectors, seg, spill),
+                           spill)
     count_launch(hashed_medoid_scores)
     return out
 
@@ -263,14 +283,20 @@ def hashed_medoid_scores_plain(vectors: torch.Tensor, seg: torch.Tensor,
                                spill: int) -> torch.Tensor:
     """Plain PyTorch version of :func:`hashed_medoid_scores` (any
     device): segment sums over the member rows in order, then the dot in
-    XLA's CPU order: the first 8 products rounded and added in order (XLA's
-    first GEMV tile), then one fused multiply-add per dimension."""
+    XLA's CPU order (:func:`segment_dots_plain`)."""
+    return segment_dots_plain(vectors, seg,
+                              segment_sums_plain(vectors, seg, spill), spill)
+
+
+def segment_dots_plain(vectors: torch.Tensor, seg: torch.Tensor,
+                       sums: torch.Tensor, spill: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`segment_dots` (any device): the dot
+    in XLA's CPU order, the first 8 products rounded and added in order
+    (XLA's first GEMV tile), then one fused multiply-add per dimension."""
     n = seg.shape[0]
     dim = vectors.shape[1]
-    sums = torch.cat([segment_sums_plain(vectors, seg, spill),
-                      vectors.new_zeros((1, dim))])
     v = vectors[:n]
-    s = sums[seg.long()]
+    s = sums[torch.where(seg == spill, 0, seg).long()]
     acc = v[:, 0] * s[:, 0]
     for d in range(1, 8):
         acc = acc + v[:, d] * s[:, d]
@@ -294,3 +320,47 @@ def segment_sums_plain(vectors: torch.Tensor, seg: torch.Tensor,
         has = sizes > p
         sums[segs[has]] = sums[segs[has]] + vectors[rows[off[:-1][has] + p]]
     return sums
+
+
+def segment_sums(vectors: torch.Tensor, seg: torch.Tensor,
+                 spill: int) -> torch.Tensor:
+    """B.2's cluster sums alone: the (spill, dim) float32 sums of each
+    segment's rows of ``vectors``, added in ascending row order from zero,
+    for ``seg`` (n,) int32 with ``n <= rows``; rows in ``spill`` (or
+    above) are dropped.  On the card the group-by and the sums kernel of
+    :func:`hashed_medoid_scores`, without waiting for the card; the sharded
+    medoid scores add these per shard (``parallel/sharded_pipeline.py``)."""
+    _check_vectors(vectors, seg)
+    if vectors.device.type == "cpu":
+        return segment_sums_plain(vectors, seg, spill)
+    with torch.cuda.device(vectors.device):
+        sums = _launch_sums(vectors, seg.contiguous(), spill)
+    count_launch(segment_sums)
+    return sums
+
+
+segment_sums.launches = 0
+
+
+def segment_dots(vectors: torch.Tensor, seg: torch.Tensor,
+                 sums: torch.Tensor, spill: int) -> torch.Tensor:
+    """B.2's row dots alone: (n,) float32 ``v_i . sums[seg_i]`` for the
+    first ``n = len(seg)`` rows, 0 where ``seg_i == spill``, in XLA's dot
+    order; ``sums`` (>= max(seg) + 1, dim) float32.  On the card the dot
+    kernel of :func:`hashed_medoid_scores` (a thread per row), without
+    waiting for the card."""
+    _check_vectors(vectors, seg)
+    if (sums.dtype != torch.float32 or sums.ndim != 2
+            or sums.shape[1] != vectors.shape[1] or not sums.is_contiguous()
+            or sums.device != vectors.device):
+        raise ValueError("segment_dots: sums must be a contiguous float32 "
+                         "(segments, dim) tensor on the vectors' device")
+    if vectors.device.type == "cpu":
+        return segment_dots_plain(vectors, seg, sums, spill)
+    with torch.cuda.device(vectors.device):
+        out = _launch_dots(vectors, seg.contiguous(), sums, spill)
+    count_launch(segment_dots)
+    return out
+
+
+segment_dots.launches = 0

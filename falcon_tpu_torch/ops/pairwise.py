@@ -319,15 +319,20 @@ def grouped_condensed_distances(
     rounds: int = DEFAULT_ROUNDS,
     max_group_pairs: int = 2**24,
     device=None,
+    devices=None,
 ) -> Iterator[Tuple[int, np.ndarray]]:
     """Condensed distance matrices of many small intervals, batched.
 
     Consecutive intervals are scored together, up to ``max_group_pairs``
     pairs per launch (at least one interval each).  Yields (interval
-    index, condensed float32 pdist), where distance = 1 - score and a pair
-    with fewer than ``min_matches`` matched peaks has distance 1.
+    index, condensed float32 pdist) in interval order, where distance = 1
+    - score and a pair with fewer than ``min_matches`` matched peaks has
+    distance 1.  ``devices`` (a list of ``torch.device``): the launches go
+    round-robin over them, up to two a device in flight, and are read back
+    in launch order (``falcon_tpu/ops/pairwise.py``'s mesh scale-out);
+    else every launch runs on ``device`` and is read back before the next.
     """
-    dev = resolve_device(device)
+    devs = list(devices) if devices else [resolve_device(device)]
     groups: List[List[int]] = []
     group_pairs = 0
     for idx, (mz, _) in enumerate(interval_peaks):
@@ -339,12 +344,12 @@ def grouped_condensed_distances(
         group_pairs += m * (m - 1) // 2
 
     with_matches = min_matches > 0
-    for group in groups:
-        sizes = np.array([interval_peaks[k][0].shape[0] for k in group],
-                         np.int64)
-        starts = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
-        pair_starts = np.concatenate(
-            [[0], np.cumsum(sizes * (sizes - 1) // 2)]).astype(np.int64)
+    window = 2 * len(devs) if devices else 1
+
+    def dispatch(g, dev):
+        group = groups[g]
+        starts = np.concatenate([[0], np.cumsum(
+            [interval_peaks[k][0].shape[0] for k in group])]).astype(np.int64)
         mz = torch.from_numpy(np.concatenate(
             [np.asarray(interval_peaks[k][0], np.float32) for k in group]
         )).to(dev)
@@ -359,11 +364,27 @@ def grouped_condensed_distances(
             if with_matches:
                 scores = torch.where(matches >= min_matches, scores, 0.0)
             dist = 1.0 - scores
-            synchronize(dev)
+            if window == 1:
+                synchronize(dev)
+        return group, dist
+
+    def drain(pending):
+        group, dist = pending.pop(0)
         with profiler.phase("groups to host"):
             dist = dist.cpu().numpy()
-        for b, idx in enumerate(group):
-            yield idx, dist[pair_starts[b]:pair_starts[b + 1]]
+        pair_off = 0
+        for idx in group:
+            m = interval_peaks[idx][0].shape[0]
+            yield idx, dist[pair_off:pair_off + m * (m - 1) // 2]
+            pair_off += m * (m - 1) // 2
+
+    pending = []
+    for g in range(len(groups)):
+        pending.append(dispatch(g, devs[g % len(devs)]))
+        if len(pending) >= window:
+            yield from drain(pending)
+    while pending:
+        yield from drain(pending)
 
 
 def condensed_distances(

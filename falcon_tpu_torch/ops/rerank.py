@@ -6,11 +6,13 @@ top ``k_out``, so density clustering runs on exact distances.  The scoring
 is the pair-list kernel of ``ops/pairwise.py`` (``pair_list_scores``; the
 JAX package's XLA ``rerank_scan_body`` gathers the candidates' peaks and
 builds their (P, P) weights instead); the top-k is ``stable_topk``, ties to
-the lower slot as ``lax.top_k`` breaks them.  ``rerank_scan_body`` is the
-plain version, on ``pair_list_scores_plain``.
+the lower slot as ``lax.top_k`` breaks them.  The candidates' pool is the
+block itself, or, on a shard of the sharded pipeline, the shard's halo
+(``pool``): the kernel takes the queries and the pool apart.
+``rerank_scan_body`` is the plain version, on ``pair_list_scores_plain``.
 """
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,20 +36,23 @@ def rerank_exact(
     fragment_tol: float,
     k_out: int,
     rounds: int = 4,
+    pool: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Exact-score the candidate lists and keep each row's top ``k_out``.
 
-    ``mz_pad``/``int_pad``: the block's (n_pad, P) padded peaks, which are
-    both the queries and the candidate pool; ``neigh``: (n_pad, K) int64
-    pool ids, -1 = missing.  Returns (scores float32, ids int64, matches
+    ``mz_pad``/``int_pad``: the (n_pad, P) padded peaks of the queries,
+    which are also the candidate pool unless ``pool`` gives its (n_pool,
+    P) m/z and intensities; ``neigh``: (n_pad, K) int64 pool ids, -1 =
+    missing.  Returns (scores float32, ids int64, matches
     int32), each (n_pad, min(k_out, K)), ordered by exact score; a slot
     not above ``NEG`` has id -1.  Four matching rounds, as the JAX
     package's default (its scores measured identical to eight rounds on
     the bench corpus).
     """
     k_out = min(int(k_out), neigh.shape[1])
+    pool_mz, pool_int = (mz_pad, int_pad) if pool is None else pool
     scores, matches = pairwise.pair_list_scores(
-        mz_pad, int_pad, mz_pad, int_pad, neigh.contiguous(), fragment_tol,
+        mz_pad, int_pad, pool_mz, pool_int, neigh.contiguous(), fragment_tol,
         rounds)
     return _keep_top(scores, matches, neigh, k_out)
 

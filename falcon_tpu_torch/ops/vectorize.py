@@ -25,11 +25,13 @@ ranks candidates by these vectors, so a last-bit change there could reorder
 near-ties.
 """
 
+import threading
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from ..device import synchronize
 from . import _build
 from .hashing import binning_dims, hash_bin_mapping
 from .matching import _tree_sum
@@ -198,7 +200,9 @@ def vectorize_plain(mz: torch.Tensor, intensity: torch.Tensor,
 
 class SpectrumHasher:
     """Binning + hashing configuration; the bin -> dimension table is
-    built once on the host and copied to each device on first use."""
+    built once on the host and copied to each device on first use (under
+    a lock, and waited for, since block workers on other streams read
+    it)."""
 
     def __init__(self, min_mz: float, max_mz: float, bin_size: float,
                  low_dim: int = 400, seed: int = 0):
@@ -210,12 +214,16 @@ class SpectrumHasher:
         self.seed = int(seed)
         self.mapping = hash_bin_mapping(self.n_bins, low_dim, seed)
         self._mapping_on = {}
+        self._lock = threading.Lock()
 
     def _mapping(self, device: torch.device) -> torch.Tensor:
-        if device not in self._mapping_on:
-            self._mapping_on[device] = torch.from_numpy(
-                self.mapping.astype(np.int64)).to(device)
-        return self._mapping_on[device]
+        with self._lock:
+            if device not in self._mapping_on:
+                table = torch.from_numpy(self.mapping.astype(np.int64)).to(
+                    device)
+                synchronize(device)
+                self._mapping_on[device] = table
+            return self._mapping_on[device]
 
     def vectorize(self, mz: torch.Tensor, intensity: torch.Tensor,
                   norm: bool = True, spread: bool = False) -> torch.Tensor:

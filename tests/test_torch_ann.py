@@ -246,17 +246,19 @@ def test_ann_engine_matches_jax(dataset, case, monkeypatch):
 def test_unported_engine_options_raise(dataset, monkeypatch):
     # --rerank off, dbscan mode (tests/test_torch_dbscan.py) and the IVF
     # index (tests/test_torch_ivf.py) are ported: the IVF index runs and
-    # gives the JAX package's labels and medoids.  Several GPUs are not
-    # ported.  The multi-GPU refusal is reached without a GPU: the engine
-    # only counts the visible cards before it clusters.
+    # gives the JAX package's labels and medoids.  Several GPUs are ported
+    # for the auto and brute indexes (tests/test_torch_parallel.py), not
+    # for the exact index and IVF.  The refusal is reached without a GPU:
+    # the engine only counts the visible cards before it clusters.
     for got, want in zip(_generate(ann_engine, dataset, ann_index="ivf"),
                          _generate(jax_engine, dataset, ann_index="ivf")):
         np.testing.assert_array_equal(got, want)
     monkeypatch.setattr(ann_engine, "resolve_device",
                         lambda device: torch.device("cuda"))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        _generate(ann_engine, dataset, devices=2)
+    for index in ("exact", "ivf"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            _generate(ann_engine, dataset, devices=2, ann_index=index)
 
 
 def test_multi_device_request_warns(dataset, caplog):

@@ -26,14 +26,23 @@ pair, on a block with exact copies (score ties) and on rows longer than
 one sort run, the update on the bench block's and the largest block's
 training shapes and on one list of 20,000 rows, and the ann engine's
 ``--ann_index ivf`` gives the CPU's labels and medoids, with no list of
-the index copied to the host between its search and its rerank.
+the index copied to the host between its search and its rerank.  On
+``[cuda:0] x 4`` (``FALCON_TPU_TORCH_VIRTUAL_DEVICES``) the sharded ann
+chain gives one device's labels and the CPU's sharded labels and medoids,
+through the vectorize, pair-list and B.2 kernels; blocks two deep give the
+serial loop's; a pair-list launch from a worker thread on its own stream
+equals the main thread's; the halo-pool rerank and B.2's sums and dots
+alone equal their plain versions bit for bit.
 """
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
 import torch
 
 from falcon_tpu_torch.cluster import ann_engine, engine
+from falcon_tpu_torch.device import VIRTUAL_DEVICES_ENV, worker_stream
 from falcon_tpu_torch.ops import consensus as cs
 from falcon_tpu_torch.ops import exact_knn as ex
 from falcon_tpu_torch.ops import groupby
@@ -42,6 +51,7 @@ from falcon_tpu_torch.ops import medoids as md
 from falcon_tpu_torch.ops import rerank
 from falcon_tpu_torch.ops import pairwise as pw
 from falcon_tpu_torch.ops import vectorize as vz
+from falcon_tpu_torch.parallel import mesh, sharded_pipeline
 from falcon_tpu_torch.preprocess import process_spectrum
 from falcon_tpu_torch.simulate import make_clustered_spectra
 from falcon_tpu_torch.store.store import SpectrumStore, padded_peaks
@@ -919,3 +929,149 @@ def test_ivf_engine_gpu_equals_cpu(cuda, rows, tmp_path, case,
         *args, device="cpu", **kw)
     np.testing.assert_array_equal(labels, ref_labels)
     np.testing.assert_array_equal(medoids, ref_medoids)
+
+
+@pytest.fixture(scope="module")
+def mesh_rows():
+    """~1,300 spectra in 3 m/z (rows in three 512-row shards, bands across
+    their edges), 30 of them twice."""
+    spectra, _ = make_clustered_spectra(
+        n_clusters=150, cluster_size=6, n_noise=450, seed=13, charges=(2,),
+        precursor_mz_range=(600.0, 603.0))
+    out = [process_spectrum(s, 5, 250, 101.0, 1500.0, 1.5, 0.01, 50, None)
+           for s in spectra]
+    out = [r for r in out if r is not None]
+    return out + [dict(r, identifier=r["identifier"] + "_copy")
+                  for r in out[1::9][:30]]
+
+
+def _mesh_dataset(rows, tmp_path):
+    store = SpectrumStore(str(tmp_path / "spectra"))
+    writer = store.writer()
+    writer.add_many(rows)
+    writer.close()
+    return (store.dataset(2), 0.1, 2, 0, 20.0, "ppm", None, TOL, 2**15)
+
+
+@pytest.mark.parametrize("case", ["linkage", "dbscan", "rerank_off_dbscan"])
+def test_sharded_pipeline_on_four_shards_of_the_card(cuda, mesh_rows,
+                                                     tmp_path, monkeypatch,
+                                                     case):
+    # [cuda:0] x 4: the sharded chain's labels equal one device's (and its
+    # medoids, apart from dbscan mode's hashed ones), and the sharded chain
+    # on the card equals it on the CPU bit for bit, medoids included.
+    monkeypatch.setenv(VIRTUAL_DEVICES_ENV, "4")
+    args = _mesh_dataset(mesh_rows, tmp_path)
+    kw = {"linkage": {}, "dbscan": dict(cluster_method="dbscan"),
+          "rerank_off_dbscan": dict(cluster_method="dbscan",
+                                    rerank="off")}[case]
+    counts = (vz.vectorize, pw.pair_list_scores, md.segment_sums,
+              md.segment_dots, md.hashed_medoid_scores)
+    before = [c.launches for c in counts]
+    labels, medoids = ann_engine.generate_clusters(*args, devices=4,
+                                                   device=cuda, **kw)
+    launched = [c.launches - b for c, b in zip(counts, before)]
+    cpu = ann_engine.generate_clusters(*args, devices=4, device="cpu", **kw)
+    one = ann_engine.generate_clusters(*args, device=cuda, **kw)
+    np.testing.assert_array_equal(labels, cpu[0])
+    np.testing.assert_array_equal(medoids, cpu[1])
+    np.testing.assert_array_equal(labels, one[0])
+    if case != "dbscan":
+        np.testing.assert_array_equal(medoids, one[1])
+    assert launched == {"linkage": [4, 4, 0, 0, 0],
+                        "dbscan": [4, 4, 4, 4, 0],
+                        "rerank_off_dbscan": [1, 0, 0, 0, 1]}[case]
+
+
+@pytest.mark.parametrize("devices", [None, 2])
+def test_pipelined_blocks_equal_serial_blocks(cuda, mesh_rows, tmp_path,
+                                              monkeypatch, devices):
+    monkeypatch.setenv("FALCON_TPU_DEVICE_BLOCK_CAP", "256")
+    if devices:
+        monkeypatch.setenv(VIRTUAL_DEVICES_ENV, str(devices))
+    args = _mesh_dataset(mesh_rows, tmp_path)
+    out, gauge = {}, {}
+    for depth in ("1", "2"):
+        monkeypatch.setenv("FALCON_TPU_BLOCK_PIPELINE", depth)
+        monkeypatch.setitem(ann_engine._block_gauge, "max", 0)
+        out[depth] = ann_engine.generate_clusters(*args, devices=devices,
+                                                  device=cuda)
+        gauge[depth] = ann_engine._block_gauge["max"]
+    np.testing.assert_array_equal(out["1"][0], out["2"][0])
+    np.testing.assert_array_equal(out["1"][1], out["2"][1])
+    assert gauge["2"] >= 2
+    assert gauge["1"] == (1 if devices is None else 2)
+
+
+def test_pair_list_launch_from_a_worker_thread(cuda, rows):
+    # The launcher runs on the calling thread's current device and stream:
+    # a worker under worker_stream launches on its own stream.
+    mz, intensity = _padded(rows, cuda)
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    ids = torch.randint(0, mz.shape[0], (200, 64), generator=gen)
+    ids[torch.rand(ids.shape, generator=gen) < 0.3] = -1
+    args = (mz[:200], intensity[:200], mz, intensity, ids.to(cuda), TOL, 4)
+    want = pw.pair_list_scores(*args)
+    torch.cuda.synchronize()
+
+    def work():
+        with worker_stream(cuda):
+            stream = torch.cuda.current_stream(cuda)
+            got = pw.pair_list_scores(*args)
+        return got, stream
+
+    with ThreadPoolExecutor(2) as pool:
+        results = [f.result() for f in [pool.submit(work) for _ in range(2)]]
+    for got, stream in results:
+        assert stream != torch.cuda.default_stream(cuda)
+        _assert_same(got, want)
+
+
+def test_halo_pool_rerank_bit_identical_to_plain(cuda, rows):
+    # Queries and the pool apart, as on a shard of the sharded pipeline.
+    mz, intensity = _padded(rows, cuda)
+    pool_mz = torch.cat([mz[300:], mz[:300]])
+    pool_int = torch.cat([intensity[300:], intensity[:300]])
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    ids = torch.randint(0, pool_mz.shape[0], (200, 45), generator=gen)
+    ids[torch.rand(ids.shape, generator=gen) < 0.3] = -1
+    ids = ids.to(cuda)
+    q = (mz[100:300], intensity[100:300])
+    before = pw.pair_list_scores.launches
+    got = rerank.rerank_exact(*q, ids, TOL, 16, pool=(pool_mz, pool_int))
+    torch.cuda.synchronize()
+    assert pw.pair_list_scores.launches == before + 1
+    plain = rerank.rerank_scan_body(*q, pool_mz, pool_int, ids, TOL, 16)
+    cpu = rerank.rerank_exact(q[0].cpu(), q[1].cpu(), ids.cpu(), TOL, 16,
+                              pool=(pool_mz.cpu(), pool_int.cpu()))
+    for a, b, c in zip(got, plain, cpu):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+
+
+def test_sharded_medoid_scores_bit_identical_to_cpu(cuda, mesh_rows):
+    # B.2's sums and dots alone, per shard, against their plain versions,
+    # and the sharded scores on [cuda:0] x 4 against the CPU's.
+    mz, intensity = _padded(mesh_rows, cuda)
+    n = mz.shape[0]
+    hasher = vz.SpectrumHasher(101.0, 1500.0, TOL)
+    vectors = vz.normalize_rows(hasher.vectorize(
+        torch.nn.functional.pad(mz, (0, 0, 0, 2048 - n), value=pw.PAD_MZ),
+        torch.nn.functional.pad(intensity, (0, 0, 0, 2048 - n)),
+        norm=False))
+    rng = np.random.default_rng(4)
+    seg = rng.integers(0, 300, n).astype(np.int32)
+    seg[::7] = 299  # a large segment
+    cuda_mesh = mesh.Mesh((cuda,) * 4)
+    cpu_mesh = mesh.Mesh((torch.device("cpu"),) * 4)
+    parts = mesh.shard_rows(cuda_mesh, vectors)
+    seg_full = torch.zeros(2048, dtype=torch.int32)
+    seg_full[:n] = torch.from_numpy(seg)
+    for v, s in zip(parts, mesh.shard_rows(cuda_mesh, seg_full.to(cuda))):
+        sums = md.segment_sums(v, s, 512)
+        assert torch.equal(sums, md.segment_sums_plain(v, s, 512))
+        dots = md.segment_dots(v, s, sums, 512)
+        assert torch.equal(dots, md.segment_dots_plain(v, s, sums, 512))
+    got = sharded_pipeline.sharded_medoid_scores(parts, seg, 300, cuda_mesh)
+    want = sharded_pipeline.sharded_medoid_scores(
+        [p.cpu() for p in parts], seg, 300, cpu_mesh)
+    assert got.tobytes() == want.tobytes()
