@@ -76,7 +76,21 @@ It builds the port's CUDA kernels from ``falcon_tpu_torch/csrc`` and then:
     with block gauges of 1 and 2, with each run's time and peak device
     memory; and a ``torch.profiler`` split of one sharded dbscan run, in
     which the plain pair-list version raises and the pair-list, vectorize
-    and B.2 kernels must run.
+    and B.2 kernels must run.  The sharded searches' launch shapes are held
+    against their plain versions bit for bit and timed: K1 on each shard's
+    condensed slice (4 shards of a 3,000-spectrum dense interval; shard 1
+    of the whole dense interval timed), the pair lists on shard 1's
+    windowed halo pool (the exact index on the bench block in 4 shards),
+    and IVF.1 on the IVF ring's steps (shard 1 at step 1 beside PyTorch's
+    gather + einsum + mask + sort, the ring against the ring on plain
+    versions, its device time against the one-device self-search); then
+    the CLI's exact backend on the dense corpus, ``--ann_index exact`` on
+    the bench and dense corpora and ``--ann_index ivf`` on both, at 2 and
+    4 shards, and IVF with ``--rerank off --cluster_method dbscan`` at 4:
+    the exact backend and index must give the one-device labels (phases 4
+    and 6), IVF a pair-F1 of 1.0 against phase 9's; last,
+    ``multichip_cluster_step`` on the bench block in 4 shards (its exact
+    tile against K1's plain version) and ``graft_entry.dryrun_multichip(4)``.
 
 Phase 2 also holds the vectorize kernel (one output, and the fused plain +
 spread call) against its plain version at the bench corpus's charge-2 block
@@ -2246,6 +2260,248 @@ def mesh_kernels(dev, bench_all, report):
     return parity.err
 
 
+@contextlib.contextmanager
+def recorded(module, attr):
+    """Record the (args, kwargs) of each call of ``module.attr`` in the
+    body, the call itself unchanged (not a kernel's wrapper: its launch
+    count is read under its module name)."""
+    fn = getattr(module, attr)
+    calls = []
+
+    def spy(*args, **kwargs):
+        calls.append((args, kwargs))
+        return fn(*args, **kwargs)
+
+    setattr(module, attr, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, attr, fn)
+
+
+def slice_kernels(dev, dense_rows, report):
+    """Phase 10: K1 on each shard's condensed slice, [card] x 4.  The four
+    slices of a 3,000-spectrum dense interval (row panels of 2,048, the
+    first and last rows of each slice cut) against K1's plain version, bit
+    for bit, with and without match counts, and against a second launch;
+    then shard 1's slice of the whole dense interval timed, with its copy
+    to the host and K1's calls alone, and a bound from the edges of a
+    sample of its pairs.  Returns the largest difference."""
+    import torch
+
+    from falcon_tpu_torch.ops import pairwise as pw
+    from falcon_tpu_torch.parallel import sharded_exact as se
+
+    def slices(mz, intensity, d, min_matches, buf, panel_scores):
+        n = mz.shape[0]
+        m = n * (n - 1) // 2
+        per = -(-m // 4)
+        k0, k1 = d * per, min((d + 1) * per, m)
+        saved, se.panel_scores = se.panel_scores, panel_scores
+        try:
+            se._slice_distances(mz, intensity, se.condensed_offsets(n), k0,
+                                k1, TOL, min_matches, 8, PANEL_ROWS, buf)
+        finally:
+            se.panel_scores = saved
+        return k0, k1
+
+    mz, intensity = (torch.from_numpy(a).to(dev)
+                     for a in padded(dense_rows[:3000]))
+    m = 3000 * 2999 // 2
+    err = 0.0
+    for min_matches in (0, 6):
+        for d in range(4):
+            got, again, want = (np.ones(m, np.float32) for _ in range(3))
+            k0, k1 = slices(mz, intensity, d, min_matches, got,
+                            pw.panel_scores)
+            slices(mz, intensity, d, min_matches, again, pw.panel_scores)
+            slices(mz, intensity, d, min_matches, want,
+                   pw.panel_scores_plain)
+            err = max(err, float(np.abs(got - want).max()))
+            if not (got.tobytes() == want.tobytes() == again.tobytes()):
+                raise AssertionError(f"{K1} shard {d}'s condensed slice "
+                                     f"(min_matches {min_matches}): not "
+                                     f"bit-identical to the plain version "
+                                     f"and a second launch")
+    log(f"  {K1} the condensed slices of 3,000 spectra on 4 shards, "
+        f"min_matches 0 and 6: bit-identical to the plain version and to a "
+        f"second launch")
+    mz, intensity = (torch.from_numpy(a).to(dev) for a in padded(dense_rows))
+    n = mz.shape[0]
+    buf = np.empty(n * (n - 1) // 2, np.float32)
+    k0, k1 = slices(mz, intensity, 1, 0, buf, pw.panel_scores)
+
+    def run():
+        slices(mz, intensity, 1, 0, buf, pw.panel_scores)
+
+    ms = kernel_ms(run, reps=3)
+    offs = se.condensed_offsets(n)
+    # K1's wrapper calls alone: the slice's row panels (its first and last
+    # rows whole), no copy to the host.
+    i0 = int(np.searchsorted(offs, k0, side="right")) - 1
+    i1 = int(np.searchsorted(offs, k1 - 1, side="right"))
+    k1_ms = kernel_ms(lambda: [pw.panel_scores(
+        mz[r0:min(r0 + PANEL_ROWS, i1)], intensity[r0:min(r0 + PANEL_ROWS,
+                                                            i1)],
+        mz, intensity, r0, TOL, 8, upper_only=True, with_matches=False)
+        for r0 in range(i0, i1, PANEL_ROWS)], reps=3)
+    # Edges of a sample of the slice's pairs, scaled to the slice.
+    ks = np.sort(np.random.default_rng(3).integers(k0, k1, 1 << 18))
+    ii = np.searchsorted(offs, ks, side="right") - 1
+    jj = ks - offs[ii] + ii + 1
+    ii_t, jj_t = (torch.from_numpy(a).to(dev) for a in (ii, jj))
+    edges = float(edge_counts(mz, intensity, ii_t, mz, intensity, jj_t,
+                              TOL).double().mean()) * (k1 - k0)
+    rows = i1 - i0
+    # Bytes: the slice's rows and every column read once, the slice
+    # written to the host.
+    b_ms, b_by = bound(k1 - k0, edges, (rows + n) * 512 + (k1 - k0) * 4)
+    log(f"  {K1} shard 1 of 4's condensed slice of the dense interval "
+        f"({n} spectra, pairs {k0}..{k1}, {rows} rows): {ms:.3f} ms with "
+        f"the copy to the host, K1's calls {k1_ms:.3f} ms; bound "
+        f"{b_ms:.4f} ms ({b_by}, {edges / (k1 - k0):.3f} edges a pair from "
+        f"a sample of {len(ks)})")
+    report["k1_shard_slice"] = dict(
+        spectra=n, pairs=k1 - k0, rows=rows, ms=ms, kernel_ms=k1_ms,
+        bound_ms=b_ms, bound_by=b_by, edges_per_pair=edges / (k1 - k0))
+    return err
+
+
+def halo_window_kernels(dev, bench_all, report):
+    """Phase 10: the exact index's pair lists on shard 1's windowed halo
+    pool (the bench corpus's charge-2 block in 4 shards, [card] x 4), as
+    ``parallel/sharded_exact_index.py`` launches them, against the plain
+    version bit for bit and a second launch, timed, with a bound from the
+    edges of its pairs.  Returns the largest difference."""
+    import torch
+
+    from falcon_tpu_torch.ops import pairwise as pw
+    from falcon_tpu_torch.parallel import mesh as pm
+    from falcon_tpu_torch.parallel import sharded_exact_index as sei
+
+    rows = sorted((r for r in bench_all if r["precursor_charge"] == 2),
+                  key=lambda r: r["precursor_mz"])
+    mz, intensity = padded(rows)
+    pmz = np.asarray([r["precursor_mz"] for r in rows])
+    m = pm.Mesh((dev,) * 4)
+    with recorded(sei, "rerank_exact") as calls:
+        sei.exact_banded_topk_sharded(mz, intensity, pmz, 20.0, "ppm", 64,
+                                      TOL, m)
+    if len(calls) != 4:
+        raise AssertionError(f"the sharded exact index made {len(calls)} "
+                             f"reranks, not 4")
+    # Shard 1's launch: its queries against its halo pool.
+    (q_mz, q_int, ids, tol, _, rounds), kw = calls[1]
+    pool_mz, pool_int = kw["pool"]
+    args, kwargs = (q_mz, q_int, pool_mz, pool_int, ids, tol, rounds), {}
+    parity = Parity()
+    got, again = pw.pair_list_scores(*args, **kwargs), pw.pair_list_scores(
+        *args, **kwargs)
+    want, t_plain = plain_ms(lambda: pw.pair_list_scores_plain(*args,
+                                                               **kwargs))
+    valid = ids >= 0
+    what = (f"windowed halo pool, shard 1 of 4: {q_mz.shape[0]} queries x "
+            f"{ids.shape[1]} window slots ({int(valid.sum())} pairs in "
+            f"band) in a pool of {pool_mz.shape[0]}")
+    parity.check(PL, what, got, want, again)
+    ms = kernel_ms(lambda: pw.pair_list_scores(*args, **kwargs), reps=10)
+    ii = torch.arange(q_mz.shape[0], device=dev)[:, None].expand_as(
+        ids)[valid]
+    edges = edge_counts(q_mz, q_int, ii, pool_mz, pool_int, ids[valid], TOL)
+    b_ms, b_by = bound(ii.shape[0], int(edges.sum()),
+                       (q_mz.shape[0] + pool_mz.shape[0]) * 512
+                       + ids.numel() * 16)
+    log(f"  {PL} {what}: kernel {ms:.4f} ms, plain version {t_plain:.1f} "
+        f"ms, bound {b_ms:.5f} ms ({b_by})")
+    report["pair_list_window"] = dict(
+        ms=ms, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
+        pairs=int(ii.shape[0]), edges=int(edges.sum()),
+        slots=int(ids.numel()))
+    return parity.err.get(PL, 0.0)
+
+
+def ring_kernels(dev, bench_all, report):
+    """Phase 10: IVF.1 on the IVF ring's steps (the bench corpus's charge-2
+    block in 4 shards, [card] x 4, the engine's k and probes): every launch
+    of shard 1 at ring step 1 against the plain version bit for bit and a
+    second launch, timed beside PyTorch's gather + einsum + mask + stable
+    sort, with its byte bound; the ring against the ring on the plain
+    versions; and the ring's device time against the one-device
+    self-search's (torch.profiler).  Returns the largest difference."""
+    import torch
+
+    from falcon_tpu_torch.cluster import ann_engine
+    from falcon_tpu_torch.ops import ivf
+    from falcon_tpu_torch.parallel import mesh as pm
+    from falcon_tpu_torch.parallel import sharded_ivf as si
+
+    mz, intensity, pmz = bench_block(bench_all, dev)
+    index, _, _, _ = ivf_index(mz, intensity, pmz, dev)
+    _, k_ivf = ann_engine.ivf_widths(ann_engine.band_spans(pmz, 20.0, "ppm"),
+                                     64, 128, True)
+    m = pm.Mesh((dev,) * 4)
+
+    def ring():
+        return si.ivf_search_sharded(index, k_ivf, 32, 20.0, "ppm", m)
+
+    with recorded(si, "probe_topk") as calls:
+        got = ring()
+    saved, si.probe_topk = si.probe_topk, ivf.probe_topk_plain
+    try:
+        want = ring()
+    finally:
+        si.probe_topk = saved
+    check_bits(IVF1, "the ring of 4 shards", got, ring(), want)
+    n_step = len(calls) // 16  # launches a (shard, step)
+    step = calls[(1 * 4 + 1) * n_step:(1 * 4 + 2) * n_step]  # step 1, shard 1
+    for args, _ in step:
+        check_bits(IVF1, f"ring step 1, shard 1, lists {args[10]}+"
+                   f"{args[11]} (masked probes)", ivf.probe_topk(*args),
+                   ivf.probe_topk(*args), ivf.probe_topk_plain(*args))
+    ms = kernel_ms(lambda: [ivf.probe_topk(*a) for a, _ in step], reps=5)
+    lib_ms = kernel_ms(lambda: [probe_topk_library(*a) for a, _ in step],
+                       reps=3)
+    plain = plain_ms(lambda: [ivf.probe_topk_plain(*a) for a, _ in step])[1]
+    # Bytes the step must move: each query slot's m/z and row, the held
+    # block's slots' m/z and rows, the vectors of the query and slab slots
+    # with a pair in band (bf16), the probe ids and the lists written.
+    n_bytes = 0
+    for args, _ in step:
+        q3d, qmz, qrow, c3d, cmz, crow, probe_ids = args[:7]
+        k, c0, chunk = args[9:12]
+        probes = probe_ids[c0:c0 + chunk].long()
+        valid = probe_mask(qmz, qrow, cmz, crow, probes, 20.0, False, c0,
+                           chunk)
+        lb, dim = c3d.shape[1], c3d.shape[2]
+        hit = torch.zeros(c3d.shape[:2], dtype=torch.int32, device=dev)
+        hit.index_put_((probes.flatten(),),
+                       valid.any(1).flatten(0, 1).int(), accumulate=True)
+        held = torch.unique(probes)
+        n_bytes += (chunk * q3d.shape[1] * 8
+                    + int((held < c3d.shape[0] - 1).sum()) * lb * 8
+                    + int(valid.flatten(2).any(-1).sum()) * dim * 2
+                    + int((hit > 0).sum()) * dim * 2 + probes.numel() * 4
+                    + chunk * q3d.shape[1] * k * 8)
+    b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    split_ring = device_split(ring, reps=1)
+    split_one = device_split(lambda: index.self_search(
+        k_ivf, n_probe=32, tol_mass=20.0, tol_mode="ppm"), reps=1)
+    ring_ms, one_ms = sum(split_ring.values()), sum(split_one.values())
+    log(f"  {IVF1} ring step 1, shard 1 of 4 ({len(step)} launches, "
+        f"{index.n_lists // 4} query lists, k = {step[0][0][9]}): "
+        f"{ms:.4f} ms, plain version {plain:.1f} ms, library "
+        f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms (bytes)")
+    log(f"  IVF ring of 4 shards, bench block: device time {ring_ms:.4f} ms "
+        f"(IVF.1 {sum(v for k, v in split_ring.items() if 'ivf_' in k):.4f});"
+        f" one-device self-search {one_ms:.4f} ms (torch.profiler)")
+    report["ivf_ring"] = dict(
+        step_ms=ms, step_plain_ms=plain, step_library_ms=lib_ms,
+        step_bound_ms=b_ms, launches_a_step=len(step),
+        ring_device_ms=ring_ms, self_search_device_ms=one_ms,
+        ring_split=split_ring, one_split=split_one)
+    return 0.0
+
+
 def sharded_split(dev, bench_all, tmp, report):
     """Phase 10, last: one sharded run (the bench corpus's charge 2, dbscan
     mode, on [card] x 4) under torch.profiler, with the plain pair-list
@@ -2311,7 +2567,77 @@ def sharded_split(dev, bench_all, tmp, report):
     report["sharded_split"] = dict(parts, kernels=split)
 
 
-def phase_mesh_paths(dev, bench_all, bench_spectra, bench_truth,
+def driven(fn):
+    """``fn()`` with every launch count set to 0 before it; returns (its
+    result, the launch counts after it)."""
+    for attrs in wrappers().values():
+        for module, attr in attrs:
+            getattr(module, attr).launches = 0
+    out = fn()
+    return out, launch_counts()
+
+
+def step_and_dryrun(dev, bench_all, report):
+    """Phase 10, last paths: ``multichip_cluster_step`` on the bench
+    corpus's charge-2 block in 4 shards of the card (the vectorize kernel,
+    B.2's sums, K1's exact tile, held against K1's plain version), and the
+    graft entry's ``dryrun_multichip(4)``; returns the launch counts of
+    each."""
+    import torch
+
+    from falcon_tpu_torch.graft_entry import dryrun_multichip
+    from falcon_tpu_torch.ops import pairwise as pw
+    from falcon_tpu_torch.ops.hashing import binning_dims, hash_bin_mapping
+    from falcon_tpu_torch.parallel import mesh as pm
+
+    rows = sorted((r for r in bench_all if r["precursor_charge"] == 2),
+                  key=lambda r: r["precursor_mz"])
+    rows = rows[:len(rows) - len(rows) % 4]
+    mz, intensity = padded(rows)
+    pmz = np.asarray([r["precursor_mz"] for r in rows], np.float32)
+    n_bins, min_bound, _ = binning_dims(101.0, 1500.0, TOL)
+    rng = np.random.default_rng(42)
+    centroids = rng.normal(size=(256, 512)).astype(np.float32)
+    centroids /= np.linalg.norm(centroids, axis=1, keepdims=True)
+    m = pm.Mesh((dev,) * 4)
+    t0 = time.perf_counter()
+    (cent, top_s, top_i, exact), counts = driven(
+        lambda: pm.multichip_cluster_step(
+            m, mz, intensity, pmz, hash_bin_mapping(n_bins, 400, 0),
+            centroids, min_bound, TOL, n_bins))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    n = len(rows)
+    local = n // 4
+    # Each shard's exact tile against K1's plain version on its rows.
+    mz_t, int_t = torch.from_numpy(mz).to(dev), torch.from_numpy(
+        intensity).to(dev)
+    want = torch.cat([pw.panel_scores_plain(
+        mz_t[d * local:d * local + 8], int_t[d * local:d * local + 8], mz_t,
+        int_t, 0, TOL, with_matches=False)[0] for d in range(4)])
+    if not (bool(torch.isfinite(cent).all()) and top_s.shape == (n, 8)
+            and top_i.shape == (n, 8) and torch.equal(exact, want)):
+        raise AssertionError("multichip_cluster_step: non-finite centroids, "
+                             "wrong shapes, or an exact tile that is not "
+                             "K1's plain version's bits")
+    for k in (VEC, B2, K1):
+        if counts[k] <= 0:
+            raise AssertionError(f"multichip_cluster_step: {k} never "
+                                 f"launched")
+    log(f"  multichip_cluster_step, bench charge-2 block ({n} spectra) in "
+        f"4 shards: {seconds:.3f} s; launches {counts}")
+    report["multichip_cluster_step"] = dict(spectra=n, seconds=seconds,
+                                            launches=counts)
+    t0 = time.perf_counter()
+    _, dry = driven(lambda: dryrun_multichip(4))
+    log(f"  dryrun_multichip(4) on [card] x 4: passed in "
+        f"{time.perf_counter() - t0:.2f} s; launches {dry}")
+    report["dryrun_multichip"] = dict(seconds=time.perf_counter() - t0,
+                                      launches=dry)
+    return [counts, dry]
+
+
+def phase_mesh_paths(dev, bench_all, dense_rows, bench_spectra, bench_truth,
                      dense_spectra, dense_truth, tmp, report):
     """Phase 10: ``--devices N`` on N virtual shards of the card
     (``FALCON_TPU_TORCH_VIRTUAL_DEVICES``) and the block pipeline.  The
@@ -2329,6 +2655,10 @@ def phase_mesh_paths(dev, bench_all, bench_spectra, bench_truth,
     log("== phase 10: --devices N on virtual shards of the card, and the "
         "block pipeline")
     errs = mesh_kernels(dev, bench_all, report)
+    for k, err in ((K1, slice_kernels(dev, dense_rows, report)),
+                   (PL, halo_window_kernels(dev, bench_all, report)),
+                   (IVF1, ring_kernels(dev, bench_all, report))):
+        errs[k] = max(errs.get(k, 0.0), err)
     launches = []
     for name, spectra, truth, n_dev, flags, required, ref, floor in (
             ("mesh2_default_ann_bench_corpus", bench_spectra, bench_truth, 2,
@@ -2342,14 +2672,52 @@ def phase_mesh_paths(dev, bench_all, bench_spectra, bench_truth,
             ("mesh4_dbscan_bench_corpus", bench_spectra, bench_truth, 4,
              DBSCAN, [VEC, PL, B2], "dbscan_bench_corpus", 0.5),
             ("mesh4_rerank_off_bench_corpus", bench_spectra, bench_truth, 4,
-             RERANK_OFF, [VEC, K4], "rerank_off_bench_corpus", 0.5)):
+             RERANK_OFF, [VEC, K4], "rerank_off_bench_corpus", 0.5),
+            ("mesh2_exact_dense_corpus", dense_spectra, dense_truth, 2, [],
+             [K1], "dense_corpus", 0.99),
+            ("mesh4_exact_dense_corpus", dense_spectra, dense_truth, 4, [],
+             [K1], "dense_corpus", 0.99),
+            ("mesh2_ann_exact_bench_corpus", bench_spectra, bench_truth, 2,
+             ANN, [PL, K4], "ann_bench_corpus", 0.99),
+            ("mesh4_ann_exact_bench_corpus", bench_spectra, bench_truth, 4,
+             ANN, [PL, K4], "ann_bench_corpus", 0.99),
+            ("mesh2_ann_exact_dense_corpus", dense_spectra, dense_truth, 2,
+             ANN, [PL], "ann_dense_corpus", 0.99),
+            ("mesh4_ann_exact_dense_corpus", dense_spectra, dense_truth, 4,
+             ANN, [PL], "ann_dense_corpus", 0.99),
+            ("mesh2_ivf_bench_corpus", bench_spectra, bench_truth, 2, IVF,
+             [VEC, IVF1, IVF2, PL, K4], "ivf_bench_corpus", 0.99),
+            ("mesh4_ivf_bench_corpus", bench_spectra, bench_truth, 4, IVF,
+             [VEC, IVF1, IVF2, PL, K4], "ivf_bench_corpus", 0.99),
+            ("mesh2_ivf_dense_corpus", dense_spectra, dense_truth, 2, IVF,
+             [VEC, IVF1, IVF2, PL], "ivf_dense_corpus", 0.99),
+            ("mesh4_ivf_dense_corpus", dense_spectra, dense_truth, 4, IVF,
+             [VEC, IVF1, IVF2, PL], "ivf_dense_corpus", 0.99),
+            ("mesh4_ivf_rerank_off_dbscan_bench_corpus", bench_spectra,
+             bench_truth, 4, IVF + ["--rerank", "off", "--cluster_method",
+                                    "dbscan"],
+             [VEC, IVF1, IVF2, B2], "ivf_rerank_off_dbscan_bench_corpus",
+             0.5)):
         log(f"  {name}")
         with environ(FALCON_TPU_TORCH_VIRTUAL_DEVICES=n_dev):
             launches.append(phase_main_path(
                 name, spectra, truth, tmp, report, required,
                 flags + ["--devices", str(n_dev), "--overwrite"],
                 min_completeness=0.0, min_purity=floor))
-        if report["labels"][name] != report["labels"][ref]:
+        same = report["labels"][name] == report["labels"][ref]
+        if "ivf" in name:
+            # The ring breaks ties in the JAX package's sharded order, so
+            # the bar is its own: pair-F1 1.0 against one device.
+            agreement = pair_f1(report, name, ref)
+            report[f"{name}_vs_{ref}"] = agreement
+            log(f"  {name}: pair F1 {agreement['f1']:.6f} against {ref}'s "
+                f"labels (one device); labels "
+                f"{'identical' if same else 'not identical'}")
+            if agreement["f1"] != 1.0:
+                raise AssertionError(f"{name}: pair F1 {agreement['f1']} "
+                                     f"against {ref}'s labels, not 1.0")
+            continue
+        if not same:
             raise AssertionError(f"{name}: labels differ from {ref}'s (one "
                                  f"device)")
         log(f"  {name}: labels identical to {ref}'s (one device)")
@@ -2396,6 +2764,7 @@ def phase_mesh_paths(dev, bench_all, bench_spectra, bench_truth,
         f" s, two deep {runs[1][1]['seconds']:.2f} / "
         f"{runs[2][1]['seconds']:.2f} s")
     sharded_split(dev, bench_all, tmp, report)
+    launches.extend(step_and_dryrun(dev, bench_all, report))
     return launches, errs
 
 
@@ -2609,8 +2978,8 @@ def main() -> int:
             bench_spectra, bench_truth, dense_spectra, dense_truth, tmp,
             report))
         mesh_launches, mesh_errs = phase_mesh_paths(
-            dev, bench_all, bench_spectra, bench_truth, dense_spectra,
-            dense_truth, tmp, report)
+            dev, bench_all, charge2, bench_spectra, bench_truth,
+            dense_spectra, dense_truth, tmp, report)
         launches.extend(mesh_launches)
         for k, err in mesh_errs.items():
             errs[k] = max(errs.get(k, 0.0), err)

@@ -79,15 +79,23 @@ DBSCAN merged by ``pmin``), with the JAX package's sharded medoid scores
 in dbscan mode (hashed vectors, not the exact lists); under ``--rerank
 off`` only the k-NN is sharded (``parallel/sharded_knn.py``).  A band
 wider than one shard's halo is logged and takes the one-device chain.
-Linkage mode scores its small components round-robin over the mesh and
-its large ones on a thread a device.  The exact backend and the exact and
-IVF indexes refuse N visible devices (``NotImplementedError``); fewer
-visible than asked is logged and runs on one.  ``tests/test_torch_parallel
-.py`` holds labels, medoids and CLI bytes against the JAX package's
-``devices=N`` at N = 2, 4 and 8.  The exact index does
-not hash: the JAX package's chain hashes every block into vectors that
-index never reads.  The IVF index takes one retrieval in both packages;
-``tests/test_torch_ivf.py`` holds its labels against the JAX package's.
+``--ann_index exact`` shards its search (``parallel/
+sharded_exact_index.py``: the pair-list kernel against a halo pool, the
+JAX package's two sorts) and keeps the lists on the card for the rest of
+the chain; ``--ann_index ivf`` runs its self-search as a ring over the
+mesh (``parallel/sharded_ivf.py``: IVF.1 on each step, the corpus slabs
+rotating), then cuts and RT-filters the lists as on one device.  Each
+sharded search that returns None (a band wider than the halo, or a mesh
+that does not divide the IVF list count) is logged and takes the
+one-device search.  Linkage mode scores its small components round-robin
+over the mesh and its large ones on a thread a device.  Fewer visible
+devices than asked is logged and runs on one.
+``tests/test_torch_parallel.py`` and ``tests/test_torch_sharded.py`` hold
+labels, medoids and CLI bytes against the JAX package's ``devices=N`` at
+N = 2, 4 and 8.  The exact index does not hash: the JAX package's chain
+hashes every block into vectors that index never reads.  The IVF index
+takes one retrieval in both packages; ``tests/test_torch_ivf.py`` holds
+its labels against the JAX package's.
 """
 
 import contextlib
@@ -114,6 +122,8 @@ from ..ops.rerank import rerank_exact
 from ..ops.vectorize import SpectrumHasher, normalize_rows
 from ..ops.xfer import upload_padded_peaks
 from ..parallel.mesh import Mesh
+from ..parallel.sharded_exact_index import exact_banded_topk_sharded
+from ..parallel.sharded_ivf import ivf_search_sharded
 from ..parallel.sharded_knn import knn_banded_sharded
 from ..parallel.sharded_pipeline import (ann_cluster_sharded,
                                          sharded_medoid_scores)
@@ -258,11 +268,6 @@ def generate_clusters(
         if len(visible) < devices:
             logger.warning("Requested %d devices but only %d visible; using "
                            "one device", devices, len(visible))
-        elif ann_index in ("exact", "ivf"):
-            raise NotImplementedError(
-                f"--devices {devices} with --ann_index {ann_index} is not "
-                "ported yet (ROADMAP.md A.7: the sharded exact index and "
-                "the sharded IVF ring)")
         else:
             mesh = Mesh(tuple(visible[:devices]))
 
@@ -377,9 +382,10 @@ def _cluster_range(offsets, mz_flat, int_flat, order, mz_sorted, rt_sorted,
     exact_index = ann_index == "exact"
     do_rerank = rerank == "exact" and not exact_index
     labels = None
-    if mesh is not None and do_rerank:
+    if mesh is not None and do_rerank and ann_index != "ivf":
         # The whole chain sharded over the mesh (the exact and IVF indexes
-        # were refused above); the JAX package's hashed medoid scores.
+        # shard their searches only); the JAX package's hashed medoid
+        # scores.
         with profiler.phase("ann: sharded pipeline"):
             mz_host, int_host, _ = padded_peaks(offsets, mz_flat, int_flat,
                                                 pad_to, order)
@@ -420,9 +426,12 @@ def _single_device_chain(offsets, mz_flat, int_flat, order, mz_sorted,
                          min_matches, precursor_tol_mass, precursor_tol_mode,
                          rt_tol, fragment_tol, k_final, n_neighbors_ann,
                          n_probe, ann_index, do_rerank, dev, mesh):
-    """The block's lists on ``dev`` (under ``--rerank off``, the k-NN
-    sharded over ``mesh`` when it is set) and DBSCAN on them: (labels,
-    medoid scores of (seg, n_seg), numpy)."""
+    """The block's lists on ``dev`` and DBSCAN on them: (labels, medoid
+    scores of (seg, n_seg), numpy).  With ``mesh`` set, the search runs
+    sharded over it: the exact index (``parallel/sharded_exact_index.py``),
+    the IVF ring (``parallel/sharded_ivf.py``) or, under ``--rerank off``,
+    the halo k-NN; each falls back to one device, with the JAX package's
+    warning, where that search returns None."""
     n = len(order)
     exact_index = ann_index == "exact"
     with profiler.phase("ann: upload"):
@@ -432,17 +441,33 @@ def _single_device_chain(offsets, mz_flat, int_flat, order, mz_sorted,
     unit = None
     if exact_index:
         with profiler.phase("ann: knn"):
-            sims, neigh = exact_banded_topk(
-                mz_pad, int_pad, mz_sorted, precursor_tol_mass,
-                precursor_tol_mode, k_final, fragment_tol,
-                rts=rt_sorted if rt_tol is not None else None,
-                rt_tol=rt_tol, min_matches=min_matches)
+            sims = None
+            if mesh is not None:
+                mz_host, int_host, _ = padded_peaks(offsets, mz_flat,
+                                                    int_flat, pad_to, order)
+                result = exact_banded_topk_sharded(
+                    mz_host, int_host, mz_sorted, precursor_tol_mass,
+                    precursor_tol_mode, k_final, fragment_tol, mesh,
+                    rts=rt_sorted if rt_tol is not None else None,
+                    rt_tol=rt_tol, min_matches=min_matches)
+                if result is None:
+                    logger.warning("Precursor band wider than one shard "
+                                   "halo; falling back to the single-device "
+                                   "exact index")
+                else:
+                    sims, neigh = result
+            if sims is None:
+                sims, neigh = exact_banded_topk(
+                    mz_pad, int_pad, mz_sorted, precursor_tol_mass,
+                    precursor_tol_mode, k_final, fragment_tol,
+                    rts=rt_sorted if rt_tol is not None else None,
+                    rt_tol=rt_tol, min_matches=min_matches)
             synchronize(dev)
     elif ann_index == "ivf":
         sims, neigh, unit = _ivf_lists(
             mz_pad, int_pad, mz_sorted, rt_sorted, hasher, min_matches,
             precursor_tol_mass, precursor_tol_mode, rt_tol, fragment_tol,
-            k_final, n_neighbors_ann, n_probe, do_rerank, dev)
+            k_final, n_neighbors_ann, n_probe, do_rerank, dev, mesh)
     elif do_rerank:
         sims, neigh = _prefilter_rerank(
             mz_pad, int_pad, mz_sorted, rt_sorted, hasher, eps, min_matches,
@@ -638,10 +663,14 @@ def _prefilter_rerank(mz_pad, int_pad, mz_sorted, rt_sorted, hasher, eps,
 
 def _ivf_lists(mz_pad, int_pad, mz_sorted, rt_sorted, hasher, min_matches,
                precursor_tol_mass, precursor_tol_mode, rt_tol, fragment_tol,
-               k_final, n_neighbors_ann, n_probe, do_rerank, dev):
+               k_final, n_neighbors_ann, n_probe, do_rerank, dev,
+               mesh=None):
     """``--ann_index ivf`` (``falcon_tpu/cluster/ann_engine.py``,
     :830-912 and the rerank's compaction at :1082-1092): (scores, ids,
     unit vectors or None), the lists as the other indexes return them.
+    With ``mesh`` set the search is the ring over it
+    (``parallel/sharded_ivf.py``), unless the mesh does not divide the list
+    count.
 
     The quantizer trains on the normalised spread vectors.  With the
     rerank, the index holds the unnormalised plain vectors in bfloat16 and
@@ -665,7 +694,16 @@ def _ivf_lists(mz_pad, int_pad, mz_sorted, rt_sorted, hasher, min_matches,
                          precise=not do_rerank, coarse_vectors=coarse,
                          rank_vectors=rank)
         del coarse, spread, rank
-        sims, neigh = index.self_search(
+        result = None
+        if mesh is not None:
+            result = ivf_search_sharded(
+                index, k_ivf, n_probe, precursor_tol_mass,
+                precursor_tol_mode, mesh, precise=not do_rerank)
+            if result is None:
+                logger.warning("Mesh size does not divide the IVF list "
+                               "count; falling back to the single-device "
+                               "list scan")
+        sims, neigh = result if result is not None else index.self_search(
             k_ivf, n_probe=n_probe, tol_mass=precursor_tol_mass,
             tol_mode=precursor_tol_mode, precise=not do_rerank)
         del index, vectors, plain

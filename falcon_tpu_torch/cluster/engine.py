@@ -5,7 +5,9 @@ behaviour: precursor-m/z intervals, all-pairs peak-matching distances on the
 device, native linkage and distance cut, refinement and medoids on the
 host, and the same labels and medoids.  Intervals of 2..``GROUP_MAX``
 spectra are scored together by the grouped kernel (K4); larger ones stream
-row panels through the panel kernel (K1) (``ops/pairwise.py``).  A producer
+row panels through the panel kernel (K1) (``ops/pairwise.py``), or with
+``--devices N`` cut their condensed pairs over a mesh of N devices
+(``parallel/sharded_exact.py``).  A producer
 thread owns all device work and overlaps it with the host's linkage of the
 previous interval, with the same backpressure as the JAX engine.
 
@@ -26,6 +28,8 @@ import numpy as np
 from .. import native
 from ..device import resolve_device, visible_devices
 from ..ops import pairwise
+from ..parallel.mesh import Mesh
+from ..parallel.sharded_exact import condensed_distances_sharded
 from ..store.store import ChargeDataset, padded_peaks
 from ..utils.profiling import profiler
 from .intervals import precursor_mz_splits
@@ -71,16 +75,6 @@ def generate_clusters(
     small sizes.
     """
     dev = resolve_device(device)
-    if devices is not None and devices > 1:
-        visible = len(visible_devices(dev))
-        if visible >= devices:
-            raise NotImplementedError(
-                f"--devices {devices} with --backend exact is not ported "
-                "yet (ROADMAP.md A.7: the pair-sharded exact scoring)")
-        logger.warning(
-            "Requested %d devices but only %d visible; exact panel "
-            "scoring stays single-device", devices, visible,
-        )
 
     meta = dataset.read_metadata(
         columns=("precursor_mz", "retention_time")
@@ -111,6 +105,20 @@ def generate_clusters(
     group_max = 0 if panel_only else GROUP_MAX
     small = [k for k in range(n_intervals) if 2 <= sizes[k] <= group_max]
     large = [k for k in range(n_intervals) if sizes[k] > group_max]
+
+    # --devices N: the condensed pairs of each large interval are cut over
+    # a mesh (parallel/sharded_exact.py), each pair scored once, the same
+    # condensed output; small groups stay as they are.
+    mesh = None
+    if devices is not None and devices > 1:
+        visible = visible_devices(dev)
+        if len(visible) < devices:
+            logger.warning(
+                "Requested %d devices but only %d visible; exact panel "
+                "scoring stays single-device", devices, len(visible),
+            )
+        elif large:
+            mesh = Mesh(tuple(visible[:devices]))
 
     def interval_peaks(k: int):
         rows = order[splits[k]:splits[k + 1]]
@@ -157,6 +165,13 @@ def generate_clusters(
                 if state["stop"]:
                     return
                 mz_pad, int_pad = interval_peaks(k)
+                if mesh is not None:
+                    pdist = condensed_distances_sharded(
+                        mz_pad, int_pad, fragment_tol, min_matches, mesh,
+                        **kwargs)
+                    if pdist is not None:  # None: too large for int32
+                        put(k, pdist)
+                        continue
                 put(k, pairwise.condensed_distances(
                     mz_pad, int_pad, fragment_tol, min_matches,
                     device=dev, **kwargs,

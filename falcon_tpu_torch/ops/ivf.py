@@ -572,14 +572,14 @@ def scan_chunk(n_lists: int, qlb: int, n_probe: int, lb: int) -> int:
 def _check_scan(q3d, qmz3d, qrow3d, corpus3d, cmz3d, crow3d, probe_ids, c0,
                 chunk):
     dev = corpus3d.device
-    n_lists, lb, dim = corpus3d.shape
-    qlb = q3d.shape[1] if q3d.ndim == 3 else -1
+    n_corpus, lb, dim = corpus3d.shape
+    n_lists, qlb = q3d.shape[:2] if q3d.ndim == 3 else (-1, -1)
     for t, dtype, shape, what in (
             (q3d, corpus3d.dtype, (n_lists, qlb, dim), "q3d"),
             (qmz3d, torch.float32, (n_lists, qlb), "qmz3d"),
             (qrow3d, torch.int32, (n_lists, qlb), "qrow3d"),
-            (cmz3d, torch.float32, (n_lists, lb), "cmz3d"),
-            (crow3d, torch.int32, (n_lists, lb), "crow3d"),
+            (cmz3d, torch.float32, (n_corpus, lb), "cmz3d"),
+            (crow3d, torch.int32, (n_corpus, lb), "crow3d"),
             (probe_ids, torch.int32, (n_lists, probe_ids.shape[-1]),
              "probe_ids")):
         if (not isinstance(t, torch.Tensor) or t.dtype != dtype
@@ -619,16 +619,19 @@ def probe_topk(q3d: torch.Tensor, qmz3d: torch.Tensor, qrow3d: torch.Tensor,
     In-band scores are taken to lie above ``NEG`` (cosines; dots of
     non-negative vectors).
 
-    ``q3d`` (n_lists, qlb, D) and ``corpus3d`` (n_lists, lb, D) are both
+    ``q3d`` (n_lists, qlb, D) and ``corpus3d`` (n_corpus, lb, D) are both
     float32 or both bfloat16 (widened exactly); ``qmz3d``/``cmz3d``
     float32 and ``qrow3d``/``crow3d`` int32 per slot; ``probe_ids``
-    (n_lists, n_probe) int32; 1 <= k <= n_probe * lb.  On the card one
+    (n_lists, n_probe) int32, lists of ``corpus3d`` (a search's corpus is
+    its own queries' lists; a ring step's is one rotating block, whose
+    appended list of +inf m/z stands for the probes outside it, see
+    ``parallel/sharded_ivf.py``); 1 <= k <= n_probe * lb.  On the card one
     call of ``csrc/ivf.cu`` (a memset and two kernels), which reads the
     probed slabs in place and keeps a segment of (n_probe * lb) 64-bit keys
     per row as scratch, written only for in-band pairs."""
     _check_scan(q3d, qmz3d, qrow3d, corpus3d, cmz3d, crow3d, probe_ids, c0,
                 chunk)
-    n_lists, lb, dim = corpus3d.shape
+    lb, dim = corpus3d.shape[1:]
     qlb, n_probe = q3d.shape[1], probe_ids.shape[1]
     if not 1 <= k <= n_probe * lb:
         raise ValueError(f"probe_topk: k = {k} outside [1, {n_probe * lb}]")

@@ -26,6 +26,7 @@ from falcon_tpu.preprocess import process_spectrum
 from falcon_tpu.simulate import make_clustered_spectra
 from falcon_tpu.store.store import SpectrumStore, padded_peaks
 from falcon_tpu_torch.cluster import ann_engine
+from falcon_tpu_torch.device import VIRTUAL_DEVICES_ENV
 from falcon_tpu_torch.ops import density, exact_knn, pairwise, vectorize
 from falcon_tpu_torch.ops.vectorize import SpectrumHasher
 
@@ -243,22 +244,24 @@ def test_ann_engine_matches_jax(dataset, case, monkeypatch):
         assert calls["panel"] > 0 and calls["pruned"] == 0
 
 
-def test_unported_engine_options_raise(dataset, monkeypatch):
-    # --rerank off, dbscan mode (tests/test_torch_dbscan.py) and the IVF
-    # index (tests/test_torch_ivf.py) are ported: the IVF index runs and
-    # gives the JAX package's labels and medoids.  Several GPUs are ported
-    # for the auto and brute indexes (tests/test_torch_parallel.py), not
-    # for the exact index and IVF.  The refusal is reached without a GPU:
-    # the engine only counts the visible cards before it clusters.
+def test_unported_engine_options_raise(dataset, monkeypatch, caplog):
+    # Every engine option is ported now; the name is kept from when some
+    # refused.  --rerank off, dbscan mode (tests/test_torch_dbscan.py) and
+    # the IVF index (tests/test_torch_ivf.py) give the JAX package's labels
+    # and medoids, and so do the exact and IVF indexes with two devices
+    # visible (two virtual shards of the CPU here), each through its
+    # sharded search (tests/test_torch_sharded.py).
     for got, want in zip(_generate(ann_engine, dataset, ann_index="ivf"),
                          _generate(jax_engine, dataset, ann_index="ivf")):
         np.testing.assert_array_equal(got, want)
-    monkeypatch.setattr(ann_engine, "resolve_device",
-                        lambda device: torch.device("cuda"))
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setenv(VIRTUAL_DEVICES_ENV, "2")
     for index in ("exact", "ivf"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            _generate(ann_engine, dataset, devices=2, ann_index=index)
+        with caplog.at_level("WARNING", logger="falcon_tpu"):
+            got = _generate(ann_engine, dataset, devices=2, ann_index=index)
+        assert "falling back" not in caplog.text
+        want = _generate(jax_engine, dataset, devices=2, ann_index=index)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
 
 
 def test_multi_device_request_warns(dataset, caplog):

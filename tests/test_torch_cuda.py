@@ -32,7 +32,14 @@ chain gives one device's labels and the CPU's sharded labels and medoids,
 through the vectorize, pair-list and B.2 kernels; blocks two deep give the
 serial loop's; a pair-list launch from a worker thread on its own stream
 equals the main thread's; the halo-pool rerank and B.2's sums and dots
-alone equal their plain versions bit for bit.
+alone equal their plain versions bit for bit.  The rest of ``--devices
+N`` on ``[cuda:0] x 4``: K1 on each shard's condensed slice equals its
+plain version and the one-device distances, and the exact backend one
+device's labels; the exact index's pair lists on windowed halo pools equal
+their plain version and the CPU's, and its labels one device's; IVF.1 with
+the probes outside a ring step's block masked equals its plain version,
+the ring on the kernel equals the ring on plain versions (and one device's
+scores), and the IVF engine's sharded labels equal the CPU's.
 """
 
 from concurrent.futures import ThreadPoolExecutor
@@ -1075,3 +1082,167 @@ def test_sharded_medoid_scores_bit_identical_to_cpu(cuda, mesh_rows):
     want = sharded_pipeline.sharded_medoid_scores(
         [p.cpu() for p in parts], seg, 300, cpu_mesh)
     assert got.tobytes() == want.tobytes()
+
+
+def _sorted_host(rows):
+    rows = sorted(rows, key=lambda r: r["precursor_mz"])
+    mz, intensity = _padded(rows, "cpu")
+    return (mz.numpy(), intensity.numpy(),
+            np.asarray([r["precursor_mz"] for r in rows]),
+            np.asarray([r["retention_time"] for r in rows]))
+
+
+@pytest.mark.parametrize("min_matches", [0, 6])
+def test_sharded_exact_slices_on_four_shards(cuda, mesh_rows, monkeypatch,
+                                             min_matches):
+    # [cuda:0] x 4: each shard's condensed slice through K1 (first and last
+    # rows cut) equals the slices through K1's plain version on the card
+    # and the one-device distances, bit for bit, twice.
+    from falcon_tpu_torch.parallel import sharded_exact
+
+    mz, intensity, _, _ = _sorted_host(mesh_rows[:700])
+    m = mesh.Mesh((cuda,) * 4)
+    args = (mz, intensity, TOL, min_matches, m)
+    before = pw.panel_scores.launches
+    got = sharded_exact.condensed_distances_sharded(*args, panel_rows=128)
+    assert pw.panel_scores.launches - before >= 7  # panels of 128 rows
+    again = sharded_exact.condensed_distances_sharded(*args, panel_rows=128)
+    one = pw.condensed_distances(mz, intensity, TOL, min_matches, rounds=8,
+                                 device=cuda)
+    monkeypatch.setattr(sharded_exact, "panel_scores", pw.panel_scores_plain)
+    plain = sharded_exact.condensed_distances_sharded(*args, panel_rows=128)
+    assert got.tobytes() == again.tobytes() == plain.tobytes()
+    assert got.tobytes() == one.tobytes()
+
+
+def test_exact_backend_on_four_shards_equals_one_device(cuda, mesh_rows,
+                                                        tmp_path,
+                                                        monkeypatch):
+    monkeypatch.setenv(VIRTUAL_DEVICES_ENV, "4")
+    store = SpectrumStore(str(tmp_path / "spectra"))
+    writer = store.writer()
+    writer.add_many(mesh_rows[:500])
+    writer.close()
+    args = (store.dataset(2), "complete", 0.1, 0, 20.0, "ppm", None, TOL,
+            2**15)
+    before = pw.panel_scores.launches
+    got = engine.generate_clusters(*args, devices=4, device=cuda,
+                                   panel_only=True)
+    assert pw.panel_scores.launches > before
+    one = engine.generate_clusters(*args, device=cuda)
+    cpu = engine.generate_clusters(*args, devices=4, device="cpu",
+                                   panel_only=True)
+    for a, b, c in zip(got, one, cpu):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+
+
+@pytest.mark.parametrize("rt_tol,min_matches", [(None, 0), (300.0, 4)])
+def test_sharded_exact_index_on_four_shards(cuda, mesh_rows, monkeypatch,
+                                            rt_tol, min_matches):
+    # The windowed halo pair lists: the pair-list kernel against each
+    # shard's halo pool equals its plain version and the CPU, bit for bit.
+    from falcon_tpu_torch.parallel import sharded_exact_index as sei
+
+    mz, intensity, pmz, rts = _sorted_host(mesh_rows)
+    args = (mz, intensity, pmz, 20.0, "ppm", 16, TOL)
+    kw = dict(rts=rts if rt_tol else None, rt_tol=rt_tol,
+              min_matches=min_matches)
+    before = pw.pair_list_scores.launches
+    got = sei.exact_banded_topk_sharded(*args, mesh.Mesh((cuda,) * 4), **kw)
+    assert pw.pair_list_scores.launches == before + 4
+    cpu = sei.exact_banded_topk_sharded(
+        *args, mesh.Mesh((torch.device("cpu"),) * 4), **kw)
+    monkeypatch.setattr(pw, "pair_list_scores", pw.pair_list_scores_plain)
+    plain = sei.exact_banded_topk_sharded(*args, mesh.Mesh((cuda,) * 4),
+                                          **kw)
+    for a, b, c in zip(got, plain, cpu):
+        assert a.device.type == "cuda"
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+    assert int((got[1] >= 0).sum()) > 3 * len(pmz)
+
+
+@pytest.mark.parametrize("ann_index", ["exact", "ivf"])
+def test_sharded_indexes_on_four_shards_of_the_card(cuda, mesh_rows,
+                                                    tmp_path, monkeypatch,
+                                                    ann_index):
+    # --ann_index exact: one device's labels and medoids; ivf: the CPU's
+    # sharded labels and medoids (the ring's tie order is the JAX
+    # package's sharded one).
+    from falcon_tpu_torch.ops import ivf
+
+    monkeypatch.setenv(VIRTUAL_DEVICES_ENV, "4")
+    args = _mesh_dataset(mesh_rows, tmp_path)
+    counts = (pw.pair_list_scores, ivf.probe_topk)
+    before = [c.launches for c in counts]
+    got = ann_engine.generate_clusters(*args, devices=4, device=cuda,
+                                       ann_index=ann_index)
+    launched = [c.launches - b for c, b in zip(counts, before)]
+    cpu = ann_engine.generate_clusters(*args, devices=4, device="cpu",
+                                       ann_index=ann_index)
+    for a, c in zip(got, cpu):
+        np.testing.assert_array_equal(a, c)
+    if ann_index == "exact":
+        one = ann_engine.generate_clusters(*args, device=cuda,
+                                           ann_index="exact")
+        for a, b in zip(got, one):
+            np.testing.assert_array_equal(a, b)
+        assert launched[0] >= 4
+    else:
+        assert launched[1] >= 16  # 4 shards x 4 ring steps
+
+
+@pytest.mark.parametrize("precise", [False, True], ids=["bf16", "f32"])
+def test_ivf_probe_topk_masked_probes_bit_identical_to_plain(
+        cuda, ivf_block, precise):
+    # A ring step's launch: the corpus is one block of lists plus a list
+    # of +inf m/z for the probes outside it.
+    from falcon_tpu_torch.ops import ivf
+
+    index, _ = _ivf_index(cuda, ivf_block, precise)
+    n_probe, lb = 32, index._lb
+    layout = _probe_layout(index, cuda, n_probe)
+    s_lists = index.n_lists // 4
+    probes = layout[6]
+    lo = 2 * s_lists
+    held = (probes >= lo) & (probes < lo + s_lists)
+    local = torch.where(held, probes - lo, s_lists).int().contiguous()
+    block = [torch.cat([a[lo:lo + s_lists], a.new_full((1,) + a.shape[1:],
+                                                       fill)])
+             for a, fill in ((layout[3], 0.0), (layout[4], torch.inf),
+                             (layout[5], -1))]
+    chunk = ivf.scan_chunk(index.n_lists, lb, n_probe, lb)
+    before = ivf.probe_topk.launches
+    for c0 in range(0, index.n_lists, chunk):
+        args = layout[:3] + tuple(block) + (local, 20.0, False, 256, c0,
+                                             chunk)
+        got, again = ivf.probe_topk(*args), ivf.probe_topk(*args)
+        want = ivf.probe_topk_plain(*args)
+        for g, a, w in zip(got, again, want):
+            assert torch.equal(g, w) and torch.equal(g, a)
+        # Kept slots lie in the held block.
+        kept = got[1][got[1] >= 0]
+        assert bool((kept < s_lists * lb).all())
+    assert ivf.probe_topk.launches == before + 2 * (index.n_lists // chunk)
+
+
+@pytest.mark.parametrize("precise", [False, True], ids=["bf16", "f32"])
+def test_ivf_ring_bit_identical_to_plain_ring(cuda, ivf_block, monkeypatch,
+                                              precise):
+    from falcon_tpu_torch.ops import ivf
+    from falcon_tpu_torch.parallel import sharded_ivf
+
+    index, _ = _ivf_index(cuda, ivf_block, precise)
+    m = mesh.Mesh((cuda,) * 4)
+    args = (index, 256, 32, 20.0, "ppm", m)
+    before = ivf.probe_topk.launches
+    got = sharded_ivf.ivf_search_sharded(*args, precise=precise)
+    assert ivf.probe_topk.launches - before >= 16
+    monkeypatch.setattr(sharded_ivf, "probe_topk", ivf.probe_topk_plain)
+    plain = sharded_ivf.ivf_search_sharded(*args, precise=precise)
+    for g, p in zip(got, plain):
+        assert g.device.type == "cuda" and torch.equal(g, p)
+    # The same neighbour sets as the one-device search, where separated.
+    one = index.self_search(256, 32, 20.0, "ppm", precise=precise)
+    assert torch.equal(got[0], one[0])
+    assert int((got[1] >= 0).sum()) > 0

@@ -15,6 +15,7 @@ import os
 import numpy as np
 import pytest
 
+import __graft_entry__ as j_graft
 import falcon_tpu.api as j_api
 import falcon_tpu.cli as j_cli
 import falcon_tpu.cluster.ann_engine as j_ann
@@ -27,6 +28,7 @@ import falcon_tpu.ms_io.ms_io as j_ms_io
 import falcon_tpu.native as j_native
 import falcon_tpu.ops.hashing as j_hashing
 import falcon_tpu.ops.ivf as j_ivf
+import falcon_tpu.parallel.sharded_exact as j_sharded_exact
 import falcon_tpu.preprocess as j_prep
 import falcon_tpu.store.store as j_store
 import falcon_tpu.utils.natsort as j_natsort
@@ -45,7 +47,9 @@ import falcon_tpu_torch.metrics as t_metrics
 import falcon_tpu_torch.ms_io.ms_io as t_ms_io
 import falcon_tpu_torch.native as t_native
 import falcon_tpu_torch.ops.hashing as t_hashing
+import falcon_tpu_torch.graft_entry as t_graft
 import falcon_tpu_torch.ops.ivf as t_ivf
+import falcon_tpu_torch.parallel.sharded_exact as t_sharded_exact
 import falcon_tpu_torch.preprocess as t_prep
 import falcon_tpu_torch.simulate as t_simulate
 import falcon_tpu_torch.store.store as t_store
@@ -399,6 +403,18 @@ def case_natsort_metrics_labels(tmp_path, spectra):
     np.testing.assert_array_equal(
         t_labels(comp, core, attach, 300),
         j_labels_from_parts(comp, core, attach, 300))
+
+
+def case_condensed_offsets_and_example_peaks(tmp_path, spectra):
+    for n in (0, 1, 2, 7, 1000):
+        np.testing.assert_array_equal(t_sharded_exact.condensed_offsets(n),
+                                      j_sharded_exact.condensed_offsets(n))
+    assert t_sharded_exact.MAX_N == j_sharded_exact.MAX_N
+    for args in ((64, 64, 0), (48, 64, 3)):
+        for g, w in zip(t_graft._example_peaks(*args),
+                        j_graft._example_peaks(*args)):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
 
 
 CASES = {name[5:]: fn for name, fn in sorted(globals().items())
