@@ -91,6 +91,20 @@ It builds the port's CUDA kernels from ``falcon_tpu_torch/csrc`` and then:
     and 6), IVF a pair-F1 of 1.0 against phase 9's; last,
     ``multichip_cluster_step`` on the bench block in 4 shards (its exact
     tile against K1's plain version) and ``graft_entry.dryrun_multichip(4)``.
+11. holds K4's pair kernel against the host oracle (``cluster/oracle.py``,
+    the optimal assignment) on spectra whose peaks each have at most one
+    partner, then runs the CLI under each of the JAX package's switches
+    that change the result: ``FALCON_TPU_KNN_DTYPE=f32`` (linkage, and
+    dbscan mode with its medoid MGF), ``FALCON_TPU_IVF_COARSE=plain`` and
+    ``FALCON_TPU_IVF_RANK=cos`` (IVF.1 and IVF.2 must launch),
+    ``FALCON_TPU_LINKAGE_GROUP_MAX=8``, ``FALCON_TPU_MAX_NEIGHBORS=128`` and
+    ``FALCON_TPU_NO_CHARGE_OVERLAP=1`` (the labels of phase 7's run) on the
+    bench corpus, and ``FALCON_TPU_LINKAGE_PRUNE=0`` with single and
+    complete linkage on the chained corpus (K1 must launch; the time
+    against a pruned run with the same flags).  Each run is repeated (the
+    same CSV and MGF bytes) and run on the plain versions (the same labels
+    and MGF); the pair-F1 against phase 6 and against the same mode
+    without the switch is recorded, not asserted.
 
 Phase 2 also holds the vectorize kernel (one output, and the fused plain +
 spread call) against its plain version at the bench corpus's charge-2 block
@@ -1778,16 +1792,25 @@ def read_labels(csv_path: str):
         return {r["spectrum_id"]: int(r["cluster"]) for r in rows}
 
 
+# Each corpus's MGF, written once a temporary directory: (tmp, id of the
+# spectra) -> (spectra, path); the spectra are held so that their id stays.
+_INPUTS = {}
+
+
 def run_cli(name, spectra, truth, tmp, flags=()):
-    """Write ``spectra`` as MGF and run the port's CLI on them with its
-    defaults and ``flags``; returns (seconds, phase summary, purity,
-    completeness, labels by spectrum id)."""
+    """Write ``spectra`` as MGF (once for each list of spectra) and run the
+    port's CLI on them with its defaults and ``flags``; returns (seconds,
+    phase summary, purity, completeness, labels by spectrum id)."""
     from falcon_tpu_torch.metrics import cluster_completeness, cluster_purity
     from falcon_tpu_torch.simulate import write_mgf
     from falcon_tpu_torch import cli
     from falcon_tpu_torch.utils.profiling import profiler
 
-    mgf = write_mgf(os.path.join(tmp, f"{name}.mgf"), spectra)
+    key = (tmp, id(spectra))
+    if key not in _INPUTS:
+        _INPUTS[key] = (spectra, write_mgf(os.path.join(tmp, f"{name}.mgf"),
+                                           spectra))
+    mgf = _INPUTS[key][1]
     out = os.path.join(tmp, f"{name}_out")
     t0 = time.perf_counter()
     rc = cli.main([mgf, out, "--work_dir", os.path.join(tmp, f"{name}_work")]
@@ -2768,6 +2791,177 @@ def phase_mesh_paths(dev, bench_all, dense_rows, bench_spectra, bench_truth,
     return launches, errs
 
 
+def unambiguous(n: int, seed: int):
+    """(mz, intensity) (n, 64) float32: 20 to 64 peaks a spectrum, each
+    within 0.4 TOL of one point of a 0.5 m/z grid, no two of one spectrum
+    at one point, unit norm, in no m/z order; so each peak has at most one
+    partner within TOL and locally-dominant matching is optimal."""
+    rng = np.random.default_rng(seed)
+    mz = np.full((n, 64), -1e6, np.float32)
+    intensity = np.zeros((n, 64), np.float32)
+    for i in range(n):
+        k = int(rng.integers(20, 65))
+        points = rng.choice(100, size=k, replace=False)
+        mz[i, :k] = 150.0 + 0.5 * points + rng.uniform(-0.4 * TOL,
+                                                       0.4 * TOL, k)
+        w = rng.uniform(0.05, 1.0, k)
+        intensity[i, :k] = w / np.sqrt((w * w).sum())
+    return mz, intensity
+
+
+def oracle_check(dev, report):
+    """Phase 11, first: K4's pair kernel against the host oracle
+    (``cluster/oracle.py``, the optimal assignment) on spectra whose peaks
+    each have at most one partner: scores within 1e-6, counts equal."""
+    import torch
+
+    from falcon_tpu_torch.cluster.oracle import cosine_exact
+    from falcon_tpu_torch.ops import pairwise
+
+    mz, intensity = unambiguous(96, seed=11)
+    starts = torch.tensor([0, 40, 96], dtype=torch.int64, device=dev)
+    scores, matches = pairwise.batched_block_scores(
+        torch.from_numpy(mz).to(dev), torch.from_numpy(intensity).to(dev),
+        starts, TOL)
+    want_s, want_m = [], []
+    for a, b in ((0, 40), (40, 96)):
+        for i in range(a, b):
+            for j in range(i + 1, b):
+                s_ij, m_ij = cosine_exact(mz[i], intensity[i], mz[j],
+                                          intensity[j], TOL)
+                want_s.append(s_ij)
+                want_m.append(m_ij)
+    err = float(np.abs(scores.cpu().numpy() - np.asarray(want_s)).max())
+    same = np.array_equal(matches.cpu().numpy(), np.asarray(want_m))
+    log(f"  K4's pair kernel against the Hungarian oracle: {len(want_s)} "
+        f"pairs, max |score diff| {err:.3g}, match counts "
+        f"{'equal' if same else 'DIFFER'}")
+    report["k4_vs_oracle"] = dict(pairs=len(want_s), max_abs_err=err,
+                                  counts_equal=same)
+    if err > 1e-6 or not same:
+        raise AssertionError("K4's pair kernel disagrees with the host "
+                             "oracle on unambiguous spectra")
+    return err
+
+
+def run_cli_plain(name, spectra, truth, tmp, flags):
+    """``run_cli`` with every kernel wrapper replaced by its plain
+    version (on the card): returns (seconds, labels by spectrum id)."""
+    pairs = [pair for attrs in wrappers().values() for pair in attrs]
+    saved = [getattr(m, a) for m, a in pairs]
+    for module, attr in pairs:
+        setattr(module, attr, getattr(module, f"{attr}_plain"))
+    try:
+        seconds, _, _, _, labels = run_cli(name, spectra, truth, tmp, flags)
+    finally:
+        for (module, attr), wrapper in zip(pairs, saved):
+            setattr(module, attr, wrapper)
+    return seconds, labels
+
+
+def switch_run(name, env, spectra, truth, tmp, report, required, flags,
+               min_purity):
+    """One switch of phase 11: the CLI under ``env`` through the kernels
+    (timed, its launches returned), a second time (the same CSV and MGF
+    bytes) and through the plain versions (the same labels and MGF)."""
+    flags = list(flags) + ["--overwrite"]
+    with environ(**env):
+        launches = phase_main_path(name, spectra, truth, tmp, report,
+                                   required, flags, min_completeness=0.0,
+                                   min_purity=min_purity)
+        check_repeatable(name, spectra, truth, tmp, tuple(flags))
+        seconds, labels = run_cli_plain(f"{name}_plain", spectra, truth,
+                                        tmp, flags)
+    same = labels == report["labels"][name]
+    mgf = os.path.join(tmp, f"{name}_out.mgf")
+    if os.path.isfile(mgf):
+        with open(mgf, "rb") as f, open(os.path.join(
+                tmp, f"{name}_plain_out.mgf"), "rb") as g:
+            same = same and f.read() == g.read()
+    log(f"  {name}: plain versions {seconds:.2f} s, labels"
+        f"{' and MGF' if os.path.isfile(mgf) else ''} "
+        f"{'identical' if same else 'DIFFER'}")
+    report[name]["plain_s"] = seconds
+    report[name]["identical_to_plain"] = same
+    if not same:
+        raise AssertionError(f"{name}: kernels and plain versions disagree")
+    return launches
+
+
+def phase_switches(dev, bench_spectra, bench_truth, chains, chain_truth,
+                   tmp, report):
+    """Phase 11: the JAX package's switches that change the result, each
+    through the CLI on the bench-shaped or the chained corpus at full
+    width; returns each kernel run's launch counts.  Each run is held
+    against a second run (bytes) and a run on the plain versions (labels,
+    MGF); spectra/s and the pair-F1 against phase 6's ann-exact labels and
+    against the same mode's run without the switch (phases 7–9) are
+    recorded, not asserted."""
+    log("== phase 11: the JAX package's result-changing switches")
+    log(f"  {card_line()}")
+    oracle_check(dev, report)
+    mgf = ["--export_representatives"]
+    launches = []
+    default, dbscan, ivf = ("default_ann_bench_corpus",
+                            "dbscan_bench_corpus_mgf", "ivf_bench_corpus")
+    for name, env, required, flags, min_purity, same_mode in (
+            ("f32_scan_bench_corpus", dict(FALCON_TPU_KNN_DTYPE="f32"),
+             [VEC, PL, K4], ANN_DEFAULT, 0.99, default),
+            ("f32_scan_dbscan_bench_corpus", dict(FALCON_TPU_KNN_DTYPE="f32"),
+             [VEC, PL, B1], DBSCAN + mgf, 0.5, dbscan),
+            ("ivf_plain_coarse_bench_corpus",
+             dict(FALCON_TPU_IVF_COARSE="plain"), [VEC, IVF1, IVF2, PL],
+             IVF, 0.99, ivf),
+            ("ivf_cos_rank_bench_corpus", dict(FALCON_TPU_IVF_RANK="cos"),
+             [VEC, IVF1, IVF2, PL], IVF, 0.99, ivf),
+            ("group_max_8_bench_corpus",
+             dict(FALCON_TPU_LINKAGE_GROUP_MAX=8), [VEC, PL, K4],
+             ANN_DEFAULT, 0.99, default),
+            ("max_neighbors_128_bench_corpus",
+             dict(FALCON_TPU_MAX_NEIGHBORS=128), [VEC, PL, K4], ANN_DEFAULT,
+             0.99, default),
+            ("charges_in_turn_bench_corpus",
+             dict(FALCON_TPU_NO_CHARGE_OVERLAP=1), [VEC, PL, K4],
+             ANN_DEFAULT, 0.99, default)):
+        log(f"  {name} ({', '.join(f'{k}={v}' for k, v in env.items())})")
+        launches.append(switch_run(name, env, bench_spectra, bench_truth,
+                                   tmp, report, required, flags, min_purity))
+        for other in ("ann_bench_corpus", same_mode):
+            agreement = pair_f1(report, name, other)
+            report[f"{name}_vs_{other}"] = agreement
+            log(f"  pair agreement with {other}'s labels: F1 "
+                f"{agreement['f1']:.6f} (recorded, not asserted)")
+    if (report["labels"]["charges_in_turn_bench_corpus"]
+            != report["labels"][default]):
+        raise AssertionError("charges in turn gave other labels than two "
+                             "at once")
+    default_pl = report[default]["launches"][PL]
+    log(f"  PL launches with components over 8 spectra on the pair lists: "
+        f"{launches[4][PL]} (default {default_pl})")
+    for linkage in ("single", "complete"):
+        flags = ANN_DEFAULT + ["--linkage", linkage] + mgf
+        pruned, name = (f"pruned_{linkage}_chained_corpus",
+                        f"unpruned_{linkage}_chained_corpus")
+        log(f"  {pruned} (the default, the reference of the next run)")
+        launches.append(phase_main_path(
+            pruned, chains, chain_truth, tmp, report, [VEC, PL],
+            flags + ["--overwrite"], min_completeness=0.0, min_purity=0.5))
+        log(f"  {name} (FALCON_TPU_LINKAGE_PRUNE=0)")
+        run = switch_run(name, dict(FALCON_TPU_LINKAGE_PRUNE=0), chains,
+                         chain_truth, tmp, report, [VEC, PL, K1], flags, 0.5)
+        launches.append(run)
+        ratios = {key: report[name][key] / report[pruned][key]
+                  for key in ("seconds",)}
+        ratios["ann: linkage"] = (report[name]["phases"]["ann: linkage"]
+                                  / report[pruned]["phases"]["ann: linkage"])
+        report[f"{name}_vs_pruned"] = ratios
+        log(f"  K1 launches: {run[K1]}; {report[name]['seconds']:.2f} s "
+            f"against {report[pruned]['seconds']:.2f} s pruned "
+            f"({ratios['seconds']:.2f}x; ann: linkage "
+            f"{ratios['ann: linkage']:.2f}x)")
+    return launches
+
+
 def phase_big_bucket(n_spectra, tmp, report):
     """``--big-bucket N``: one charge of ``n_spectra`` spectra (above
     2^19, the default block cap, it splits into several device blocks),
@@ -2983,6 +3177,9 @@ def main() -> int:
         launches.extend(mesh_launches)
         for k, err in mesh_errs.items():
             errs[k] = max(errs.get(k, 0.0), err)
+        launches.extend(phase_switches(
+            dev, bench_spectra, bench_truth, chains, chain_truth, tmp,
+            report))
     report.pop("labels")
 
     kernels = [

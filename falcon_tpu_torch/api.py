@@ -14,12 +14,12 @@ Options take the CLI option names as keyword arguments and reach the CLI
 unchanged (``ann_index``, ``eps``, ``n_neighbors`` and the other ann
 options included).  With ``output``
 the CSV/MGF files are written exactly as the CLI writes them; without it
-nothing is written.  Invalid inputs raise (``ValueError``,
-``FileExistsError``, ``NotImplementedError`` for ``devices`` above 1 where
-that many GPUs are visible with the exact backend or ``ann_index`` exact or
-ivf: those multi-device engines are not ported yet)
-instead of returning exit codes.  The configuration is a process-wide
-singleton, so call :func:`cluster` from one thread at a time.
+nothing is written.  Invalid inputs raise (``ValueError`` for bad
+files or options, ``FileExistsError`` for an existing output without
+``overwrite=True``) instead of returning exit codes; ``devices`` above 1
+runs every backend and index over a mesh, as the CLI's ``--devices N``
+does.  The configuration is a process-wide singleton, so call
+:func:`cluster` from one thread at a time.
 """
 
 import contextlib

@@ -12,7 +12,8 @@ byte for byte.  Clustering runs on the device named by
 (``cluster/ann_engine.py``; ``--ann_index auto``, ``brute``, ``exact`` or
 ``ivf`` with ``--n_probe``, ``--rerank exact`` or ``off``,
 ``--cluster_method linkage`` or ``dbscan``), whose charges run two at a
-time when each fits one device block, as in the JAX package.
+time when each fits one device block, as in the JAX package (unless
+``FALCON_TPU_NO_CHARGE_OVERLAP=1``).
 """
 
 import logging
@@ -208,12 +209,14 @@ def _run(args: Union[str, List[str], None], cleanup: list,
 
     # The ann backend clusters two charges at once when each fits one
     # device block (the JAX package's rule): one charge's host linkage
-    # overlaps the other's device work.  Labels and representatives are
-    # still taken in charge order below.
+    # overlaps the other's device work.  FALCON_TPU_NO_CHARGE_OVERLAP=1
+    # runs them one after another.  Labels and representatives are still
+    # taken in charge order below.
     overlap = (
         config.backend == "ann"
         and len(datasets) > 1
         and all(d.count_rows() <= device_block_cap() for _, d in datasets)
+        and os.environ.get("FALCON_TPU_NO_CHARGE_OVERLAP") != "1"
     )
     futures = {}
     charge_pool = None

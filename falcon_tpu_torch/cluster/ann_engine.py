@@ -28,7 +28,8 @@ same labels and medoids:
    - ``--ann_index ivf``: the IVF index (``ops/ivf.py``), its quantizer
      trained on the normalised spread vectors; with ``--rerank exact`` it
      ranks the upper bounds ``spread_i . plain_j`` in bfloat16 (the
-     probe-scan kernel, IVF.1), cuts the lists to ``k_ann``, filters them
+     probe-scan kernel, IVF.1; see the switches below for the other
+     quantizer and ranking), cuts the lists to ``k_ann``, filters them
      by RT on the host and scores the first power-of-two columns covering
      the widest band exactly; with ``--rerank off`` it ranks the cosines
      of the normalised plain vectors in float32, cut to ``n_neighbors``;
@@ -69,6 +70,20 @@ the JAX package's total coverage, ``k_ann * widen_passes`` (at most
 
 ``tests/test_torch_ann.py`` holds this against the JAX package in both of
 its modes (certified, and forced exact multi-pass).
+
+**The JAX package's switches.**  Those that change the result are read
+where and when the JAX package reads them, per block, with its defaults:
+``FALCON_TPU_KNN_DTYPE=f32`` (``scan_bf16``), ``FALCON_TPU_IVF_COARSE=plain``
+(``ivf_coarse_spread``), ``FALCON_TPU_IVF_RANK=cos`` (``ivf_rank_ub``),
+``FALCON_TPU_LINKAGE_PRUNE=0`` (``linkage_prune``),
+``FALCON_TPU_LINKAGE_GROUP_MAX`` (``linkage_group_max``),
+``FALCON_TPU_MAX_NEIGHBORS`` (``max_neighbors``),
+``FALCON_TPU_DEVICE_BLOCK_CAP`` and ``FALCON_TPU_BLOCK_PIPELINE``.  Its
+retrieval switches (``FALCON_TPU_KNN_CERTIFIED``,
+``FALCON_TPU_WIDEN_PASS_CAP``) only choose among the routes that the one
+wide scan replaces, so they are not read.  ``tests/test_torch_switches.py``
+and ``tests/test_torch_switches_index.py`` hold the CLI's bytes against the
+JAX package's under each switch.
 
 **``--devices N``** (``devices``, N of ``device.visible_devices``: N cards,
 or N virtual shards of one): a block of the default and brute indexes
@@ -139,13 +154,54 @@ from .postprocess import (
 logger = logging.getLogger("falcon_tpu")
 
 # Largest eps-component scored by the grouped kernel (K4); larger ones go
-# to the pruned pair lists or K1.  The JAX package reads the same default
-# from FALCON_TPU_LINKAGE_GROUP_MAX.
+# to the pruned pair lists or K1.  Default of linkage_group_max().
 LINKAGE_GROUP_MAX = 1024
-# Most candidates per row the upper-bound scan may retrieve (the JAX
-# package's FALCON_TPU_MAX_NEIGHBORS default): dense bands widen
-# n_neighbors_ann up to it, and a band beyond it is logged.
+# Most candidates per row the upper-bound scan may retrieve: dense bands
+# widen n_neighbors_ann up to it, and a band beyond it is logged.  Default
+# of max_neighbors().
 MAX_NEIGHBORS = 1024
+
+
+def linkage_group_max() -> int:
+    """Largest eps-component scored by K4 (``FALCON_TPU_LINKAGE_GROUP_MAX``,
+    default ``LINKAGE_GROUP_MAX``)."""
+    return int(os.environ.get("FALCON_TPU_LINKAGE_GROUP_MAX",
+                              LINKAGE_GROUP_MAX))
+
+
+def max_neighbors() -> int:
+    """The scan's neighbour budget (``FALCON_TPU_MAX_NEIGHBORS``, default
+    ``MAX_NEIGHBORS``)."""
+    return int(os.environ.get("FALCON_TPU_MAX_NEIGHBORS", MAX_NEIGHBORS))
+
+
+def scan_bf16() -> bool:
+    """The default index's upper-bound scan on bfloat16 operands (default);
+    ``FALCON_TPU_KNN_DTYPE=f32`` scans float32 ones, TF32 refused, and
+    drops the 1% bfloat16 margin from the compaction threshold.  Paths
+    that threshold eps on the scan's own scores always scan float32."""
+    return os.environ.get("FALCON_TPU_KNN_DTYPE", "bf16") != "f32"
+
+
+def linkage_prune() -> bool:
+    """Large components under complete or single linkage score only the
+    pairs whose bound can reach ``1 - eps`` (default);
+    ``FALCON_TPU_LINKAGE_PRUNE=0`` scores every pair with K1."""
+    return os.environ.get("FALCON_TPU_LINKAGE_PRUNE", "1") != "0"
+
+
+def ivf_coarse_spread() -> bool:
+    """The IVF quantizer trains, assigns and probes on the normalised
+    spread vectors (default); ``FALCON_TPU_IVF_COARSE=plain`` on the
+    index's own vectors."""
+    return os.environ.get("FALCON_TPU_IVF_COARSE", "spread") == "spread"
+
+
+def ivf_rank_ub() -> bool:
+    """Under the rerank, the IVF scan ranks the upper bounds
+    ``spread_i . plain_j`` (default); ``FALCON_TPU_IVF_RANK=cos`` ranks the
+    cosines of the unit plain vectors."""
+    return os.environ.get("FALCON_TPU_IVF_RANK", "ub") == "ub"
 
 
 def device_block_cap() -> int:
@@ -551,21 +607,23 @@ def band_spans(mz_sorted: np.ndarray, tol_mass: float,
 
 
 def widened_k(spans: np.ndarray, k_final: int,
-              n_neighbors_ann: int) -> int:
-    """The JAX package's ``k_ann`` of a rerank path: ``n_neighbors_ann``
-    (at least ``k_final``, at most ``n - 1``), widened in powers of two for
-    dense bands up to its per-pass cap, with its log line.  ``spans``:
-    ``band_spans`` of the ``n`` rows."""
+              n_neighbors_ann: int) -> Tuple[int, int]:
+    """The JAX package's ``k_ann`` of a rerank path and its count of
+    boundary-continued passes: ``n_neighbors_ann`` (at least ``k_final``,
+    at most ``n - 1``), widened in powers of two for dense bands up to its
+    per-pass cap, then as many passes as cover ``max_neighbors()``
+    candidates, with its log lines.  ``spans``: ``band_spans`` of the ``n``
+    rows."""
     n = len(spans)
     k_ann = min(max(n_neighbors_ann, k_final), max(n - 1, 1))
     span_max = int(spans.max(initial=1)) - 1  # candidates excl. self
     if span_max <= k_ann:
-        return k_ann
+        return k_ann, 1
+    budget = max_neighbors()
     # The JAX package caps one pass's (rows, k) lists at 2^28 bytes, a
     # TPU fault limit, and covers the rest of the budget in more passes;
     # the port scans their total at once.
-    per_pass = max(min(MAX_NEIGHBORS,
-                       2**28 // (8 * _pow2_at_least(n, 512))), k_ann)
+    per_pass = max(min(budget, 2**28 // (8 * _pow2_at_least(n, 512))), k_ann)
     new_k = k_ann
     while new_k < min(span_max, per_pass, max(n - 1, 1)):
         new_k *= 2
@@ -577,53 +635,53 @@ def widened_k(spans: np.ndarray, k_final: int,
             "(per-pass budget %d)", span_max,
             100.0 * float((spans - 1 > k_ann).mean()), k_ann, new_k,
             per_pass)
-    return new_k
-
-
-def scan_width(mz_sorted: np.ndarray, tol_mass: float, tol_mode: str,
-               k_final: int, n_neighbors_ann: int) -> int:
-    """Candidates per row of the upper-bound scan: ``widened_k`` times the
-    JAX package's boundary-continued passes, with its log lines, at most
-    ``n - 1``."""
-    n = len(mz_sorted)
-    spans = band_spans(mz_sorted, tol_mass, tol_mode)
-    k_ann = widened_k(spans, k_final, n_neighbors_ann)
-    span_max = int(spans.max(initial=1)) - 1
-    if span_max <= k_ann:
-        return k_ann
-    passes = max(1, -(-min(MAX_NEIGHBORS, span_max, max(n - 1, 1)) // k_ann))
+    k_ann, passes = new_k, 1
+    if span_max > k_ann:
+        passes = max(1, -(-min(budget, span_max, max(n - 1, 1)) // k_ann))
     if span_max > k_ann * passes:
         logger.warning(
             "%.1f%% of rows have more in-band candidates (max %d) than the "
             "neighbor budget %d; retrieval may truncate true neighbors in "
-            "those bands (raise --n_neighbors_ann)",
+            "those bands (raise FALCON_TPU_MAX_NEIGHBORS or "
+            "--n_neighbors_ann)",
             100.0 * float((spans - 1 > k_ann * passes).mean()), span_max,
             k_ann * passes)
+    return k_ann, passes
+
+
+def scan_width(mz_sorted: np.ndarray, tol_mass: float, tol_mode: str,
+               k_final: int, n_neighbors_ann: int) -> int:
+    """Candidates per row of the upper-bound scan: ``widened_k``'s width
+    times its passes, at most ``n - 1``."""
+    n = len(mz_sorted)
+    k_ann, passes = widened_k(band_spans(mz_sorted, tol_mass, tol_mode),
+                              k_final, n_neighbors_ann)
     return min(k_ann * passes, max(n - 1, 1))
 
 
 def ivf_widths(spans: np.ndarray, k_final: int, n_neighbors_ann: int,
                do_rerank: bool) -> Tuple[int, int]:
     """``--ann_index ivf``'s (k_ann, k_ivf): the width its lists are cut
-    to (``widened_k``, without the scan's pass multiplier, under the
-    rerank; else ``k_final``) and the k it searches (at least
-    ``n_neighbors_ann``, at most ``n - 1``).  ``spans``: ``band_spans``
-    of the ``n`` rows."""
+    to (``widened_k``'s, without its passes, under the rerank; else
+    ``k_final``) and the k it searches (at least ``n_neighbors_ann``, at
+    most ``n - 1``).  ``spans``: ``band_spans`` of the ``n`` rows."""
     n = len(spans)
-    k_ann = (widened_k(spans, k_final, n_neighbors_ann) if do_rerank
+    k_ann = (widened_k(spans, k_final, n_neighbors_ann)[0] if do_rerank
              else k_final)
     return k_ann, min(max(n_neighbors_ann, k_ann), max(n - 1, 1))
 
 
 def compact_candidates(bounds: torch.Tensor, neigh: torch.Tensor,
-                       eps: float) -> torch.Tensor:
+                       eps: float, bf16: bool = True) -> torch.Tensor:
     """The scan's lists cut to the candidates the rerank must score: ids
-    whose bound can reach ``1 - eps`` (the bf16 scan reads a bound at most
-    1% low, so the threshold is ``(1 - eps) * 0.99 - 1e-3``, compared in
-    float32), the rest -1, in a power-of-two width of at least 16.  The RT
-    filter leaves holes in the bound-sorted lists, so the width comes from
-    the last surviving column, not the survivor count.  One host sync."""
-    keep = bounds >= f32_tolerance((1.0 - eps) * 0.99 - 1e-3)
+    whose bound can reach ``1 - eps`` (a ``bf16`` scan reads a bound at
+    most 1% low, so the threshold is ``(1 - eps) * 0.99 - 1e-3``, else
+    ``(1 - eps) - 1e-3``, compared in float32), the rest -1, in a
+    power-of-two width of at least 16.  The RT filter leaves holes in the
+    bound-sorted lists, so the width comes from the last surviving column,
+    not the survivor count.  One host sync."""
+    keep = bounds >= f32_tolerance((1.0 - eps) * (0.99 if bf16 else 1.0)
+                                   - 1e-3)
     cols = torch.arange(1, keep.shape[1] + 1, device=keep.device)
     width = _pow2_at_least(int(torch.where(keep, cols, 0).max()), 16)
     return torch.where(keep, neigh, -1)[:, :width].contiguous()
@@ -637,6 +695,7 @@ def _prefilter_rerank(mz_pad, int_pad, mz_sorted, rt_sorted, hasher, eps,
     ``1 - eps``, padded lists as the exact index returns them."""
     k_scan = scan_width(mz_sorted, precursor_tol_mass, precursor_tol_mode,
                         k_final, n_neighbors_ann)
+    bf16 = scan_bf16()
     with profiler.phase("ann: vectorize"):
         plain, spread = hasher.vectorize_pair(mz_pad, int_pad)
         synchronize(dev)
@@ -647,12 +706,12 @@ def _prefilter_rerank(mz_pad, int_pad, mz_sorted, rt_sorted, hasher, eps,
         sims, neigh = knn_banded(
             plain, mz_sorted, precursor_tol_mass, precursor_tol_mode,
             k_scan, rts=rt_sorted, rt_tol=rt_tol, q_vectors=spread,
-            scan_bf16=True)
+            scan_bf16=bf16)
         del plain, spread
         synchronize(dev)
     with profiler.phase("ann: rerank"):
         sims, neigh, n_match = rerank_exact(
-            mz_pad, int_pad, compact_candidates(sims, neigh, eps),
+            mz_pad, int_pad, compact_candidates(sims, neigh, eps, bf16),
             fragment_tol, k_final)
         if min_matches > 0:
             sims = torch.where((neigh >= 0) & (n_match < min_matches), 0.0,
@@ -672,24 +731,35 @@ def _ivf_lists(mz_pad, int_pad, mz_sorted, rt_sorted, hasher, min_matches,
     (``parallel/sharded_ivf.py``), unless the mesh does not divide the list
     count.
 
-    The quantizer trains on the normalised spread vectors.  With the
+    The quantizer trains on the normalised spread vectors
+    (``ivf_coarse_spread``), else on the index's own vectors.  With the
     rerank, the index holds the unnormalised plain vectors in bfloat16 and
-    ranks the upper bounds ``spread_i . plain_j``; the lists, cut to
-    ``k_ann`` and filtered by RT, are scored exactly in their first
-    power-of-two (at least 16) columns covering the widest band.  Without
-    it, the index holds the normalised plain vectors in float32 and its
+    ranks the upper bounds ``spread_i . plain_j`` (``ivf_rank_ub``), else
+    the unit plain vectors in bfloat16, ranked by their cosines; the
+    lists, cut to ``k_ann`` and filtered by RT, are scored exactly in their
+    first power-of-two (at least 16) columns covering the widest band.
+    Without it, the index holds the unit plain vectors in float32 and its
     cosines, cut to ``k_final``, are the lists (and the unit vectors are
     returned for the medoids)."""
     n = len(mz_sorted)
     spans = band_spans(mz_sorted, precursor_tol_mass, precursor_tol_mode)
     k_ann, k_ivf = ivf_widths(spans, k_final, n_neighbors_ann, do_rerank)
+    coarse_spread = ivf_coarse_spread()
+    rank_ub = do_rerank and ivf_rank_ub()
     with profiler.phase("ann: vectorize"):
-        plain, spread = hasher.vectorize_pair(mz_pad, int_pad)
-        coarse = normalize_rows(spread)
-        unit = None if do_rerank else normalize_rows(plain)
+        if coarse_spread or rank_ub:
+            plain, spread = hasher.vectorize_pair(mz_pad, int_pad)
+        else:
+            plain, spread = hasher.vectorize(mz_pad, int_pad,
+                                             norm=False), None
+        # Without the spread vectors the quantizer takes the index's own
+        # vectors: under the upper-bound ranking, the unnormalised plain
+        # ones (as the JAX package does).
+        coarse = normalize_rows(spread) if coarse_spread else None
+        vectors, rank = ((plain, spread) if rank_ub
+                         else (normalize_rows(plain), None))
         synchronize(dev)
     with profiler.phase("ann: knn"):
-        vectors, rank = (plain, spread) if do_rerank else (unit, None)
         index = IVFIndex(vectors, mz_sorted, n_lists=None, seed=42,
                          precise=not do_rerank, coarse_vectors=coarse,
                          rank_vectors=rank)
@@ -706,13 +776,14 @@ def _ivf_lists(mz_pad, int_pad, mz_sorted, rt_sorted, hasher, min_matches,
         sims, neigh = result if result is not None else index.self_search(
             k_ivf, n_probe=n_probe, tol_mass=precursor_tol_mass,
             tol_mode=precursor_tol_mode, precise=not do_rerank)
-        del index, vectors, plain
+        del index, plain
         sims, neigh = sims[:, :k_ann], neigh[:, :k_ann].long()
         if rt_tol is not None:
             sims, neigh = _rt_filter(sims, neigh, rt_sorted, rt_tol)
         synchronize(dev)
     if not do_rerank:
-        return sims.contiguous(), neigh, unit
+        return sims.contiguous(), neigh, vectors
+    del vectors
     with profiler.phase("ann: rerank"):
         # The lists are sorted by bound with -1 at the tail: score the
         # columns that the widest band can fill.
@@ -829,14 +900,17 @@ def _linkage_refine_and_medoids(
             sorted_labels[order2b], pdist, order1[order2b])
         per_comp[i] = (pos[order1], sorted_labels, current, med)
 
+    group_max = linkage_group_max()
     small = [i for i in range(len(positions))
-             if len(positions[i]) <= LINKAGE_GROUP_MAX]
+             if len(positions[i]) <= group_max]
     large = [i for i in range(len(positions))
-             if len(positions[i]) > LINKAGE_GROUP_MAX]
+             if len(positions[i]) > group_max]
     # Complete and single linkage cut at eps never read a distance above
     # eps, so large components score only the pairs whose spread bound can
-    # reach 1 - eps; average linkage needs every distance.
-    prune = linkage in ("complete", "single")
+    # reach 1 - eps; average linkage needs every distance.  The pruned
+    # distances above eps read 1.0, so a single-linkage medoid can differ
+    # from the unpruned one's.
+    prune = linkage in ("complete", "single") and linkage_prune()
 
     def large_pdist(i, d):
         mz_c, int_c = comp_peaks(i)

@@ -176,24 +176,20 @@ def _dryrun(n_devices: int, dev: torch.device) -> None:
                   precursor_tol_mass=20.0, precursor_tol_mode="ppm",
                   rt_tol=None, fragment_tol=0.05, batch_size=2**15,
                   device=dev)
-    saved = ann_engine.LINKAGE_GROUP_MAX
-    ann_engine.LINKAGE_GROUP_MAX = 4
-    try:
-        with tempfile.TemporaryDirectory() as td:
-            store = SpectrumStore(td)
-            writer = store.writer()
-            writer.add_many(rows)
-            writer.close()
-            ds = store.dataset(2)
-            with _environ(FALCON_TPU_DEVICE_BLOCK_CAP=32):
-                with _environ(FALCON_TPU_BLOCK_PIPELINE=1):
-                    labels_serial, _ = ann_engine.generate_clusters(
-                        ds, **common)
-                ann_engine._block_gauge["max"] = 0
-                labels_mesh, _ = ann_engine.generate_clusters(
-                    ds, devices=n_devices, **common)
-    finally:
-        ann_engine.LINKAGE_GROUP_MAX = saved
+    with tempfile.TemporaryDirectory() as td:
+        store = SpectrumStore(td)
+        writer = store.writer()
+        writer.add_many(rows)
+        writer.close()
+        ds = store.dataset(2)
+        with _environ(FALCON_TPU_DEVICE_BLOCK_CAP=32,
+                      FALCON_TPU_LINKAGE_GROUP_MAX=4):
+            with _environ(FALCON_TPU_BLOCK_PIPELINE=1):
+                labels_serial, _ = ann_engine.generate_clusters(
+                    ds, **common)
+            ann_engine._block_gauge["max"] = 0
+            labels_mesh, _ = ann_engine.generate_clusters(
+                ds, devices=n_devices, **common)
     assert ann_engine._block_gauge["max"] >= 2, (
         "expected concurrent device blocks in the mesh dispatch")
     np.testing.assert_array_equal(labels_serial, labels_mesh)

@@ -27,10 +27,12 @@ Port of ``falcon_tpu/ops/ivf.py``, the index of ``--ann_index ivf``:
   (:meth:`IVFIndex.self_search`) maps slots to rows and rows to row order
   on the device.
 
-Not ported: the ``approx_max_k`` retrieval (``FALCON_TPU_IVF_EXACT_TOPK=0``
-in the JAX package); the port always takes the exact top-k.  The coarse
-space and the in-scan ranking are the caller's choice (the ann engine
-takes the JAX package's defaults).  The JAX package's chunked host upload
+The coarse space and the in-scan ranking are the caller's choice
+(``coarse_vectors``, ``rank_vectors``); the ann engine picks them by the
+JAX package's ``FALCON_TPU_IVF_COARSE`` and ``FALCON_TPU_IVF_RANK``.  The
+port always takes the exact top-k: the JAX package's
+``FALCON_TPU_IVF_EXACT_TOPK=0`` selects the TPU's ``approx_max_k``, which
+is not ported.  The JAX package's chunked host upload
 (``device_put_chunked``) is a plain copy to the device here.
 """
 

@@ -20,6 +20,7 @@ import falcon_tpu.api as j_api
 import falcon_tpu.cli as j_cli
 import falcon_tpu.cluster.ann_engine as j_ann
 import falcon_tpu.cluster.intervals as j_intervals
+import falcon_tpu.cluster.oracle as j_oracle
 import falcon_tpu.cluster.postprocess as j_post
 import falcon_tpu.export as j_export
 import falcon_tpu.ingest as j_ingest
@@ -40,6 +41,7 @@ import falcon_tpu_torch.api as t_api
 import falcon_tpu_torch.cli as t_cli
 import falcon_tpu_torch.cluster.ann_engine as t_ann
 import falcon_tpu_torch.cluster.intervals as t_intervals
+import falcon_tpu_torch.cluster.oracle as t_oracle
 import falcon_tpu_torch.cluster.postprocess as t_post
 import falcon_tpu_torch.export as t_export
 import falcon_tpu_torch.ingest as t_ingest
@@ -415,6 +417,31 @@ def case_condensed_offsets_and_example_peaks(tmp_path, spectra):
                         j_graft._example_peaks(*args)):
             assert g.dtype == w.dtype
             np.testing.assert_array_equal(g, w)
+
+
+def case_oracle(tmp_path, spectra):
+    # Verbatim: the copy's text is the original's (it imports only numpy
+    # and SciPy), and both give the same scores, counts and distances.
+    with open(j_oracle.__file__) as f_j, open(t_oracle.__file__) as f_t:
+        assert f_t.read() == f_j.read()
+    rows = [r for s in spectra
+            if (r := j_prep.process_spectrum(s, **PROCESS)) is not None][:12]
+    offsets = np.zeros(len(rows) + 1, np.int64)
+    offsets[1:] = np.cumsum([len(r["mz"]) for r in rows])
+    mz, intensity, n_peaks = j_store.padded_peaks(
+        offsets, np.concatenate([r["mz"] for r in rows]),
+        np.concatenate([r["intensity"] for r in rows]), 64)
+    for a, b in ((0, 1), (2, 3), (4, 4)):
+        assert (t_oracle.cosine_exact(mz[a], intensity[a], mz[b],
+                                      intensity[b], 0.05)
+                == j_oracle.cosine_exact(mz[a], intensity[a], mz[b],
+                                         intensity[b], 0.05))
+    for min_matches in (0, 6):
+        np.testing.assert_array_equal(
+            t_oracle.condensed_distances_exact(mz, intensity, n_peaks, 0.05,
+                                               min_matches),
+            j_oracle.condensed_distances_exact(mz, intensity, n_peaks, 0.05,
+                                               min_matches))
 
 
 CASES = {name[5:]: fn for name, fn in sorted(globals().items())

@@ -16,7 +16,9 @@ from falcon_tpu.ops import matching as jm
 from falcon_tpu.preprocess import process_spectrum
 from falcon_tpu.simulate import make_clustered_spectra
 from falcon_tpu.store.store import padded_peaks
+from falcon_tpu_torch.cluster.oracle import cosine_exact
 from falcon_tpu_torch.ops import matching as tm
+from torch_cases import unambiguous
 
 TOL = 0.05
 # Symmetry of the port's own block scores: (i, j) and (j, i) add the
@@ -281,3 +283,23 @@ def test_pair_scores_at_padded_width_128(permute):
     np.testing.assert_array_equal(m_t.numpy(), np.asarray(m_j))
     np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
     assert (m_t > 10).any()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_match_score_equals_the_hungarian_oracle(seed):
+    # Each peak has at most one partner, so the locally-dominant matching
+    # selects the optimal assignment: the port's plain scores agree with
+    # the host oracle's (cluster/oracle.py, the reference's cosine_fast
+    # semantics) to 1e-6, their match counts exactly.
+    mz, intensity = unambiguous(24, seed)
+    ii, jj = np.triu_indices(len(mz), 1)
+    got, matches = tm.pair_scores(
+        torch.from_numpy(mz[ii]), torch.from_numpy(intensity[ii]),
+        torch.from_numpy(mz[jj]), torch.from_numpy(intensity[jj]), TOL)
+    want = [cosine_exact(mz[i], intensity[i], mz[j], intensity[j], TOL)
+            for i, j in zip(ii, jj)]
+    np.testing.assert_allclose(got.numpy(), [w[0] for w in want], rtol=0,
+                               atol=1e-6)
+    np.testing.assert_array_equal(matches.numpy(), [w[1] for w in want])
+    assert min(w[1] for w in want) >= 1 and max(w[0] for w in want) > 0.5
+

@@ -24,6 +24,26 @@ def tie_heavy(n: int, seed: int):
     return np.repeat(mz, 2, axis=0), np.repeat(intensity, 2, axis=0)
 
 
+def unambiguous(n: int, seed: int, tol: float = 0.05):
+    """(mz, intensity) (n, 64): 20 to 64 peaks a spectrum, each near one
+    point of a 0.5 m/z grid (within 0.4 ``tol``) and no two of one spectrum
+    at one point, intensities of unit norm, in no m/z order.  Two peaks of
+    two spectra are within ``tol`` only at the same point, so each peak has
+    at most one partner: locally-dominant matching is optimal there."""
+    rng = np.random.default_rng(seed)
+    mz = np.full((n, 64), PAD_MZ, np.float32)
+    intensity = np.zeros((n, 64), np.float32)
+    for i in range(n):
+        k = int(rng.integers(20, 65))
+        # 100 shared points: most pairs of spectra share many.
+        points = rng.choice(100, size=k, replace=False)
+        mz[i, :k] = (150.0 + 0.5 * points
+                     + rng.uniform(-0.4 * tol, 0.4 * tol, k))
+        w = rng.uniform(0.05, 1.0, k)
+        intensity[i, :k] = w / np.sqrt((w * w).sum())
+    return mz, intensity
+
+
 def permuted(mz: np.ndarray, intensity: np.ndarray, seed: int):
     """Each spectrum's 64 peaks, padding included, in a random order."""
     perm = np.argsort(np.random.default_rng(seed).random(mz.shape), axis=1)
