@@ -2673,7 +2673,7 @@ def phase_mesh_paths(dev, bench_all, dense_rows, bench_spectra, bench_truth,
     parity errors)."""
     import torch
 
-    from falcon_tpu_torch.cluster import ann_engine
+    from falcon_tpu_torch.utils.profiling import profiler
 
     log("== phase 10: --devices N on virtual shards of the card, and the "
         "block pipeline")
@@ -2758,18 +2758,22 @@ def phase_mesh_paths(dev, bench_all, dense_rows, bench_spectra, bench_truth,
         shutil.rmtree(os.path.join(tmp, f"{name}_work"), ignore_errors=True)
         with environ(FALCON_TPU_DEVICE_BLOCK_CAP=BLOCK_CAP,
                      FALCON_TPU_BLOCK_PIPELINE=depth):
-            ann_engine._block_gauge["max"] = 0
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            launches.append(phase_main_path(
-                name, bench_spectra, bench_truth, tmp, report,
-                [VEC, PL, K4], ANN_DEFAULT + ["--overwrite"],
-                min_completeness=0.0, min_purity=0.99))
+            profiler.start_recording()
+            try:
+                launches.append(phase_main_path(
+                    name, bench_spectra, bench_truth, tmp, report,
+                    [VEC, PL, K4], ANN_DEFAULT + ["--overwrite"],
+                    min_completeness=0.0, min_purity=0.99))
+            finally:
+                profiler.stop_recording()
             peak = torch.cuda.max_memory_allocated()
         with open(os.path.join(tmp, f"{name}_out.csv"), "rb") as f:
             csv_bytes = f.read()
         run = report.pop(name)
-        run.update(depth=depth, gauge=ann_engine._block_gauge["max"],
+        run.update(depth=depth,
+                   gauge=profiler.counters()["ann.blocks_in_flight.max"],
                    peak_bytes=peak)
         log(f"  depth {depth}: {run['seconds']:.2f} s, block gauge "
             f"{run['gauge']}, peak device memory {peak / 2**20:.1f} MiB "
@@ -2972,7 +2976,6 @@ def phase_big_bucket(n_spectra, tmp, report):
     import torch
 
     from falcon_tpu_torch import cli
-    from falcon_tpu_torch.cluster import ann_engine
     from falcon_tpu_torch.simulate import make_clustered_spectra, write_mgf
     from falcon_tpu_torch.utils.profiling import profiler
 
@@ -2991,12 +2994,15 @@ def phase_big_bucket(n_spectra, tmp, report):
     for turn, depth in enumerate((1, 2, 2, 1)):
         shutil.rmtree(work, ignore_errors=True)
         with environ(FALCON_TPU_BLOCK_PIPELINE=depth):
-            ann_engine._block_gauge["max"] = 0
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            profiler.start_recording()
             t0 = time.perf_counter()
-            rc = cli.main([mgf, out, "--work_dir", work, "--backend", "ann",
-                           "--overwrite"])
+            try:
+                rc = cli.main([mgf, out, "--work_dir", work, "--backend",
+                               "ann", "--overwrite"])
+            finally:
+                profiler.stop_recording()
             seconds = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated()
         if rc != 0:
@@ -3005,7 +3011,8 @@ def phase_big_bucket(n_spectra, tmp, report):
             csv_bytes = f.read()
         run = dict(depth=depth, seconds=seconds,
                    spectra_per_s=n_spectra / seconds,
-                   gauge=ann_engine._block_gauge["max"], peak_bytes=peak,
+                   gauge=profiler.counters()["ann.blocks_in_flight.max"],
+                   peak_bytes=peak,
                    phases=profiler.summary())
         log(f"  depth {depth}: {seconds:.2f} s ({n_spectra / seconds:.0f} "
             f"spectra/s, ingest included), block gauge {run['gauge']}, "

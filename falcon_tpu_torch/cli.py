@@ -47,11 +47,13 @@ def main(args: Union[str, List[str], None] = None,
     of returning an exit code, and the CSV/MGF export only runs when
     ``_collect["write_outputs"]`` is true."""
     cleanup: list = []
-    try:
-        return _run(args, cleanup, _collect)
-    finally:
-        for path in cleanup:
-            shutil.rmtree(path, ignore_errors=True)
+    # The root of every span the call records (recorder-only: no phase).
+    with profiler.span("run", root=True):
+        try:
+            return _run(args, cleanup, _collect)
+        finally:
+            for path in cleanup:
+                shutil.rmtree(path, ignore_errors=True)
 
 
 def _run(args: Union[str, List[str], None], cleanup: list,
@@ -226,7 +228,8 @@ def _run(args: Union[str, List[str], None], cleanup: list,
         charge_pool = ThreadPoolExecutor(max_workers=2)
         for charge, dataset in datasets:
             futures[charge] = charge_pool.submit(
-                _generate_for_charge, dataset, mz_min, mz_max, device)
+                profiler.bind(_generate_for_charge), dataset, mz_min,
+                mz_max, device)
 
     try:
         for charge, dataset in datasets:
@@ -327,7 +330,7 @@ def _run(args: Union[str, List[str], None], cleanup: list,
     with profiler.phase("export"):
         with ThreadPoolExecutor(max_workers=2) as export_pool:
             csv_future = export_pool.submit(
-                export_cluster_csv, csv_tmp, _write_manifest,
+                profiler.bind(export_cluster_csv), csv_tmp, _write_manifest,
                 labels_by_charge,
             )
             if config.export_representatives:
@@ -341,7 +344,7 @@ def _run(args: Union[str, List[str], None], cleanup: list,
                     "file %s", len(spectra), mgf_path,
                 )
                 export_pool.submit(
-                    mgf_io.write_spectra, mgf_tmp, spectra,
+                    profiler.bind(mgf_io.write_spectra), mgf_tmp, spectra,
                 ).result()
             csv_future.result()
             os.replace(csv_tmp, csv_path)

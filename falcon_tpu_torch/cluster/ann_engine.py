@@ -116,7 +116,6 @@ its labels against the JAX package's.
 import contextlib
 import logging
 import os
-import threading
 from concurrent.futures import ThreadPoolExecutor, as_completed
 from typing import Optional, Tuple
 
@@ -221,25 +220,6 @@ def block_pipeline_depth() -> int:
     return int(os.environ.get("FALCON_TPU_BLOCK_PIPELINE", "2"))
 
 
-# Gauge of the device blocks running at once (the JAX package's
-# ``_block_gauge``): ``max`` reaches 2 when blocks overlap.
-_block_gauge = {"active": 0, "max": 0}
-_block_gauge_lock = threading.Lock()
-
-
-@contextlib.contextmanager
-def _block_gauge_tracked():
-    with _block_gauge_lock:
-        _block_gauge["active"] += 1
-        _block_gauge["max"] = max(_block_gauge["max"],
-                                  _block_gauge["active"])
-    try:
-        yield
-    finally:
-        with _block_gauge_lock:
-            _block_gauge["active"] -= 1
-
-
 def _block_splits(mz_sorted: np.ndarray, tol_mass: float, tol_mode: str,
                   cap: int) -> np.ndarray:
     """Block boundaries: tolerance gaps, coalesced greedily up to
@@ -327,14 +307,16 @@ def generate_clusters(
         else:
             mesh = Mesh(tuple(visible[:devices]))
 
-    meta = dataset.read_metadata(columns=("precursor_mz", "retention_time"))
-    offsets, mz_flat, int_flat = dataset.read_peaks()
-    n = len(meta["precursor_mz"])
-    precursor_mzs = np.asarray(meta["precursor_mz"], np.float64)
-    rts = np.asarray(meta["retention_time"], np.float64)
-    order = np.argsort(precursor_mzs, kind="stable")
-    mz_sorted = precursor_mzs[order]
-    rt_sorted = rts[order]
+    with profiler.phase("ann: load"):
+        meta = dataset.read_metadata(
+            columns=("precursor_mz", "retention_time"))
+        offsets, mz_flat, int_flat = dataset.read_peaks()
+        n = len(meta["precursor_mz"])
+        precursor_mzs = np.asarray(meta["precursor_mz"], np.float64)
+        rts = np.asarray(meta["retention_time"], np.float64)
+        order = np.argsort(precursor_mzs, kind="stable")
+        mz_sorted = precursor_mzs[order]
+        rt_sorted = rts[order]
     logger.info(
         "Cluster %d spectra with the ANN engine (%s index, eps=%.3f, "
         "min_samples=%d, low_dim=%d, n_neighbors=%d)", n, ann_index, eps,
@@ -369,8 +351,10 @@ def generate_clusters(
 
     def run_block(i, b0, b1):
         d = block_devices[i % len(block_devices)] if block_devices else dev
+        # The gauge's highest level shows how many blocks overlapped.
         with (worker_stream(d) if n_workers > 1
-              else contextlib.nullcontext()), _block_gauge_tracked():
+              else contextlib.nullcontext()), \
+                profiler.gauge("ann.blocks_in_flight"):
             return _cluster_range(
                 offsets, mz_flat, int_flat, order[b0:b1], mz_sorted[b0:b1],
                 rt_sorted[b0:b1], hasher, pad_to, eps, min_samples,
@@ -382,7 +366,7 @@ def generate_clusters(
 
     if n_workers > 1:
         with ThreadPoolExecutor(max_workers=n_workers) as pool:
-            futures = {b: pool.submit(run_block, i, *b)
+            futures = {b: pool.submit(profiler.bind(run_block), i, *b)
                        for i, b in enumerate(multi_blocks)}
             results = {b: futures[b].result() for b in multi_blocks}
     else:
@@ -821,37 +805,46 @@ def _linkage_refine_and_medoids(
     components are assembled in their order.
     """
     final = np.full(n, -1, np.int32)
-    comp = np.asarray(comp, np.int64)
-    order2 = np.argsort(comp, kind="stable")
-    sorted_comp = comp[order2].astype(np.int32)
-    slices = [(s, e) for s, e in cluster_group_slices(sorted_comp)
-              if sorted_comp[s] >= 0]
-    positions = [order2[s:e] for s, e in slices]
-    noise_pos = order2[sorted_comp == -1]
+    with profiler.phase("ann: components"):
+        comp = np.asarray(comp, np.int64)
+        order2 = np.argsort(comp, kind="stable")
+        sorted_comp = comp[order2].astype(np.int32)
+        slices = [(s, e) for s, e in cluster_group_slices(sorted_comp)
+                  if sorted_comp[s] >= 0]
+        positions = [order2[s:e] for s, e in slices]
+        noise_pos = order2[sorted_comp == -1]
 
-    capped, n_chunked = [], 0
-    for pos in positions:
-        if len(pos) <= batch_size:
-            capped.append(pos)
-        else:
-            n_chunks = -(-len(pos) // batch_size)
-            bounds = np.linspace(0, len(pos), n_chunks + 1).astype(np.int64)
-            capped.extend(pos[a:b] for a, b in zip(bounds[:-1], bounds[1:]))
-            n_chunked += 1
-    if n_chunked:
-        logger.warning(
-            "%d eps-component(s) exceeded batch_size=%d and were chunked "
-            "for linkage (reference batch_size semantics: within-tolerance "
-            "pairs across chunk boundaries are not compared)", n_chunked,
-            batch_size)
-    positions = capped
+        capped, n_chunked = [], 0
+        for pos in positions:
+            if len(pos) <= batch_size:
+                capped.append(pos)
+            else:
+                n_chunks = -(-len(pos) // batch_size)
+                bounds = np.linspace(0, len(pos),
+                                     n_chunks + 1).astype(np.int64)
+                capped.extend(pos[a:b]
+                              for a, b in zip(bounds[:-1], bounds[1:]))
+                n_chunked += 1
+        if n_chunked:
+            logger.warning(
+                "%d eps-component(s) exceeded batch_size=%d and were "
+                "chunked for linkage (reference batch_size semantics: "
+                "within-tolerance pairs across chunk boundaries are not "
+                "compared)", n_chunked, batch_size)
+        positions = capped
 
-    member_pos = (np.concatenate(positions) if positions
-                  else np.zeros(0, np.int64))
-    mz_all, int_all, _ = padded_peaks(offsets, mz_flat, int_flat, pad_to,
-                                      order[member_pos])
-    comp_off = np.zeros(len(positions) + 1, np.int64)
-    np.cumsum([len(p) for p in positions], out=comp_off[1:])
+        member_pos = (np.concatenate(positions) if positions
+                      else np.zeros(0, np.int64))
+        mz_all, int_all, _ = padded_peaks(offsets, mz_flat, int_flat,
+                                          pad_to, order[member_pos])
+        sizes = np.asarray([len(p) for p in positions], np.int64)
+        comp_off = np.zeros(len(positions) + 1, np.int64)
+        np.cumsum(sizes, out=comp_off[1:])
+        group_max = linkage_group_max()
+        small = np.flatnonzero(sizes <= group_max).tolist()
+        large = np.flatnonzero(sizes > group_max).tolist()
+    profiler.count("ann.linkage.components", len(positions))
+    profiler.count("ann.linkage.pairs", int((sizes * (sizes - 1) // 2).sum()))
 
     def comp_peaks(i):
         lo, hi = comp_off[i], comp_off[i + 1]
@@ -859,52 +852,57 @@ def _linkage_refine_and_medoids(
 
     per_comp = {}
 
+    def whole(pos, pdist):
+        """True when every distance is within eps: any linkage cut at eps
+        gives one cluster, and if the precursor (and RT) span is within
+        tolerance the refinement keeps it whole too."""
+        if pdist.max(initial=0.0) > eps:
+            return False
+        mzs_c = mz_sorted[pos]
+        span = float(mzs_c.max() - mzs_c.min())
+        if precursor_tol_mode == "ppm":
+            span_ok = (span / max(float(mzs_c.min()), 1e-12) * 1e6
+                       <= precursor_tol_mass)
+        else:
+            span_ok = span <= precursor_tol_mass
+        if span_ok and rt_tol is not None:
+            rts_c = rt_sorted[pos]
+            span_ok = float(rts_c.max() - rts_c.min()) <= rt_tol
+        return span_ok
+
     def process(i, pdist):
         """One component as one exact-engine interval."""
         pos = positions[i]
         size = len(pos)
-        # Every distance within eps: any linkage cut at eps gives one
-        # cluster, and if the precursor (and RT) span is within tolerance
-        # the refinement keeps it whole too.
-        if pdist.max(initial=0.0) <= eps:
-            mzs_c = mz_sorted[pos]
-            span = float(mzs_c.max() - mzs_c.min())
-            if precursor_tol_mode == "ppm":
-                span_ok = (span / max(float(mzs_c.min()), 1e-12) * 1e6
-                           <= precursor_tol_mass)
-            else:
-                span_ok = span <= precursor_tol_mass
-            if span_ok and rt_tol is not None:
-                rts_c = rt_sorted[pos]
-                span_ok = float(rts_c.max() - rts_c.min()) <= rt_tol
-            if span_ok:
+        with profiler.timer("ann.linkage.refine_ns"):
+            if whole(pos, pdist):
                 lab = np.zeros(size, np.int32)
                 med = cluster_medoids(order[pos].astype(np.int64), lab,
                                       pdist, np.arange(size))
                 per_comp[i] = (pos, lab, 1, med)
+                profiler.count("ann.linkage.whole")
                 return
-        z = native.linkage(pdist, linkage)
-        flat = native.fcluster(z, eps, n=size)
-        order1 = np.argsort(flat, kind="stable")
-        sorted_labels = flat[order1].astype(np.int32)
-        mzs_c = mz_sorted[pos[order1]]
-        rts_c = rt_sorted[pos[order1]]
-        current = 0
-        for s_i, e_i in list(cluster_group_slices(sorted_labels)):
-            current += postprocess_cluster(
-                sorted_labels[s_i:e_i], mzs_c[s_i:e_i], rts_c[s_i:e_i],
-                precursor_tol_mass, precursor_tol_mode, rt_tol, 2, current)
-        order2b = np.argsort(sorted_labels, kind="stable")
-        med = cluster_medoids(
-            order[pos[order1][order2b]].astype(np.int64),
-            sorted_labels[order2b], pdist, order1[order2b])
+        profiler.count("ann.linkage.linked")
+        with profiler.timer("ann.linkage.native_ns"):
+            z = native.linkage(pdist, linkage)
+            flat = native.fcluster(z, eps, n=size)
+        with profiler.timer("ann.linkage.refine_ns"):
+            order1 = np.argsort(flat, kind="stable")
+            sorted_labels = flat[order1].astype(np.int32)
+            mzs_c = mz_sorted[pos[order1]]
+            rts_c = rt_sorted[pos[order1]]
+            current = 0
+            for s_i, e_i in list(cluster_group_slices(sorted_labels)):
+                current += postprocess_cluster(
+                    sorted_labels[s_i:e_i], mzs_c[s_i:e_i], rts_c[s_i:e_i],
+                    precursor_tol_mass, precursor_tol_mode, rt_tol, 2,
+                    current)
+            order2b = np.argsort(sorted_labels, kind="stable")
+            med = cluster_medoids(
+                order[pos[order1][order2b]].astype(np.int64),
+                sorted_labels[order2b], pdist, order1[order2b])
         per_comp[i] = (pos[order1], sorted_labels, current, med)
 
-    group_max = linkage_group_max()
-    small = [i for i in range(len(positions))
-             if len(positions[i]) <= group_max]
-    large = [i for i in range(len(positions))
-             if len(positions[i]) > group_max]
     # Complete and single linkage cut at eps never read a distance above
     # eps, so large components score only the pairs whose spread bound can
     # reach 1 - eps; average linkage needs every distance.  The pruned
@@ -924,22 +922,29 @@ def _linkage_refine_and_medoids(
         with worker_stream(d):
             return large_pdist(i, d)
 
+    # ann.linkage.wait_ns: getting each component's distances.
     with profiler.phase("ann: linkage"):
         if small:
-            for local_i, pdist in pairwise.grouped_condensed_distances(
-                    [comp_peaks(i) for i in small], fragment_tol,
-                    min_matches, device=dev, devices=devices):
+            for local_i, pdist in profiler.timed(
+                    "ann.linkage.wait_ns",
+                    pairwise.grouped_condensed_distances(
+                        [comp_peaks(i) for i in small], fragment_tol,
+                        min_matches, device=dev, devices=devices)):
                 process(small[local_i], pdist)
         if large and devices:
             with ThreadPoolExecutor(len(devices)) as pool:
                 futures = {
-                    pool.submit(on_device, i, devices[j % len(devices)]): i
+                    pool.submit(profiler.bind(on_device), i,
+                                devices[j % len(devices)]): i
                     for j, i in enumerate(large)}
-                for future in as_completed(futures):
+                for future in profiler.timed("ann.linkage.wait_ns",
+                                             as_completed(futures)):
                     process(futures[future], future.result())
         else:
             for i in large:
-                process(i, large_pdist(i, dev))
+                with profiler.timer("ann.linkage.wait_ns"):
+                    pdist = large_pdist(i, dev)
+                process(i, pdist)
 
     with profiler.phase("ann: refine"):
         # Assemble in component order, so labels do not depend on the

@@ -151,35 +151,36 @@ def generate_clusters(
                 results_ready.wait()
 
     def producer() -> None:
-        try:
-            if small:
-                gen = pairwise.grouped_condensed_distances(
-                    [interval_peaks(k) for k in small],
-                    fragment_tol, min_matches, device=dev, **kwargs,
-                )
-                for local_i, pdist in gen:
-                    if state["stop"]:  # consumer failed: abort promptly
+        with profiler.span("exact: produce"):
+            try:
+                if small:
+                    gen = pairwise.grouped_condensed_distances(
+                        [interval_peaks(k) for k in small],
+                        fragment_tol, min_matches, device=dev, **kwargs,
+                    )
+                    for local_i, pdist in gen:
+                        if state["stop"]:  # consumer failed: abort promptly
+                            return
+                        put(small[local_i], pdist)
+                for k in large:
+                    if state["stop"]:
                         return
-                    put(small[local_i], pdist)
-            for k in large:
-                if state["stop"]:
-                    return
-                mz_pad, int_pad = interval_peaks(k)
-                if mesh is not None:
-                    pdist = condensed_distances_sharded(
-                        mz_pad, int_pad, fragment_tol, min_matches, mesh,
-                        **kwargs)
-                    if pdist is not None:  # None: too large for int32
-                        put(k, pdist)
-                        continue
-                put(k, pairwise.condensed_distances(
-                    mz_pad, int_pad, fragment_tol, min_matches,
-                    device=dev, **kwargs,
-                ))
-        except BaseException as e:  # propagate to the consumer
-            with results_ready:
-                results["error"] = e
-                results_ready.notify_all()
+                    mz_pad, int_pad = interval_peaks(k)
+                    if mesh is not None:
+                        pdist = condensed_distances_sharded(
+                            mz_pad, int_pad, fragment_tol, min_matches, mesh,
+                            **kwargs)
+                        if pdist is not None:  # None: too large for int32
+                            put(k, pdist)
+                            continue
+                    put(k, pairwise.condensed_distances(
+                        mz_pad, int_pad, fragment_tol, min_matches,
+                        device=dev, **kwargs,
+                    ))
+            except BaseException as e:  # propagate to the consumer
+                with results_ready:
+                    results["error"] = e
+                    results_ready.notify_all()
 
     try:
         from tqdm import tqdm
@@ -194,36 +195,38 @@ def generate_clusters(
     medoids = []
     wait_s = host_s = 0.0  # consumer time waiting for scores / clustering
     with ThreadPoolExecutor(max_workers=1) as device_pool:
-        device_pool.submit(producer)
+        device_pool.submit(profiler.bind(producer))
         try:
-            for k in range(n_intervals):
-                t0 = time.perf_counter()
-                if sizes[k] <= 1:
-                    pdist = None
-                else:
-                    with results_ready:
-                        state["need"] = k
-                        results_ready.notify_all()  # producer re-checks
-                        while k not in results and "error" not in results:
-                            results_ready.wait()
-                        if "error" in results and k not in results:
-                            raise results["error"]
-                        pdist = results.pop(k)
-                        if pdist is not None:
-                            state["bytes"] -= pdist.nbytes
-                        results_ready.notify_all()
-                t1 = time.perf_counter()
-                start, stop = splits[k], splits[k + 1]
-                interval_medoids = _cluster_interval(
-                    labels, order, mz_sorted, rt_sorted, pdist,
-                    int(start), int(stop), linkage, distance_threshold,
-                    precursor_tol_mass, precursor_tol_mode, rt_tol,
-                )
-                wait_s += t1 - t0
-                host_s += time.perf_counter() - t1
-                medoids.append(interval_medoids)
-                if progress is not None:
-                    progress.update(int(stop - start))
+            with profiler.span("exact: consume"):
+                for k in range(n_intervals):
+                    t0 = time.perf_counter()
+                    if sizes[k] <= 1:
+                        pdist = None
+                    else:
+                        with results_ready:
+                            state["need"] = k
+                            results_ready.notify_all()  # producer re-checks
+                            while (k not in results
+                                   and "error" not in results):
+                                results_ready.wait()
+                            if "error" in results and k not in results:
+                                raise results["error"]
+                            pdist = results.pop(k)
+                            if pdist is not None:
+                                state["bytes"] -= pdist.nbytes
+                            results_ready.notify_all()
+                    t1 = time.perf_counter()
+                    start, stop = splits[k], splits[k + 1]
+                    interval_medoids = _cluster_interval(
+                        labels, order, mz_sorted, rt_sorted, pdist,
+                        int(start), int(stop), linkage, distance_threshold,
+                        precursor_tol_mass, precursor_tol_mode, rt_tol,
+                    )
+                    wait_s += t1 - t0
+                    host_s += time.perf_counter() - t1
+                    medoids.append(interval_medoids)
+                    if progress is not None:
+                        progress.update(int(stop - start))
         finally:
             # Unstick a back-pressured producer so the pool join above
             # cannot deadlock when the consumer raises.
@@ -275,9 +278,11 @@ def _cluster_interval(
         # itself (a dataset row index, not an interval position).
         return rows.astype(np.int64)
 
-    # native.linkage makes its one f64 working copy itself.
-    z = native.linkage(pdist, linkage)
-    flat = native.fcluster(z, distance_threshold, n=n_vectors)
+    profiler.count("exact.intervals.linked")
+    with profiler.timer("exact.linkage.native_ns"):
+        # native.linkage makes its one f64 working copy itself.
+        z = native.linkage(pdist, linkage)
+        flat = native.fcluster(z, distance_threshold, n=n_vectors)
 
     order1 = np.argsort(flat, kind="stable")
     idx_interval = rows[order1]

@@ -111,6 +111,7 @@ def _dryrun(n_devices: int, dev: torch.device) -> None:
     from .preprocess import process_spectrum
     from .simulate import make_clustered_spectra
     from .store.store import SpectrumStore
+    from .utils.profiling import profiler
 
     # The step: k-means sums by psum, the hashed k-NN against the gathered
     # vectors, the exact tile against the gathered peaks.
@@ -187,9 +188,12 @@ def _dryrun(n_devices: int, dev: torch.device) -> None:
             with _environ(FALCON_TPU_BLOCK_PIPELINE=1):
                 labels_serial, _ = ann_engine.generate_clusters(
                     ds, **common)
-            ann_engine._block_gauge["max"] = 0
-            labels_mesh, _ = ann_engine.generate_clusters(
-                ds, devices=n_devices, **common)
-    assert ann_engine._block_gauge["max"] >= 2, (
+            profiler.start_recording()
+            try:
+                labels_mesh, _ = ann_engine.generate_clusters(
+                    ds, devices=n_devices, **common)
+            finally:
+                profiler.stop_recording()
+    assert profiler.counters().get("ann.blocks_in_flight.max", 0) >= 2, (
         "expected concurrent device blocks in the mesh dispatch")
     np.testing.assert_array_equal(labels_serial, labels_mesh)

@@ -10,6 +10,7 @@ imports JAX.
 """
 
 import dataclasses
+import json
 import os
 import pathlib
 import re
@@ -233,7 +234,10 @@ def test_profile_writes_a_torch_trace(mgf_inputs):
     trace_dir = tmp_path / "trace"
     assert cli.main(files + [str(tmp_path / "out"), "--profile",
                              str(trace_dir)]) == 0
-    assert (trace_dir / "trace.json").stat().st_size > 0
+    trace = json.loads((trace_dir / "trace.json").read_text())
+    names = {e.get("name") for e in trace["traceEvents"]}
+    # The program's phases are ranges of the one trace.
+    assert {"ingest", "cluster charge 2", "export"} <= names
 
 
 @pytest.mark.parametrize("flags", [

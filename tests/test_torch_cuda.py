@@ -62,6 +62,7 @@ from falcon_tpu_torch.parallel import mesh, sharded_pipeline
 from falcon_tpu_torch.preprocess import process_spectrum
 from falcon_tpu_torch.simulate import make_clustered_spectra
 from falcon_tpu_torch.store.store import SpectrumStore, padded_peaks
+from falcon_tpu_torch.utils.profiling import profiler
 from torch_cases import (GROUPBY_CASES, consensus_peaks, consensus_skewed,
                          groupby_keys, medoid_hub_lists, medoid_lists,
                          permuted, tie_heavy, tiers_reached)
@@ -1000,10 +1001,13 @@ def test_pipelined_blocks_equal_serial_blocks(cuda, mesh_rows, tmp_path,
     out, gauge = {}, {}
     for depth in ("1", "2"):
         monkeypatch.setenv("FALCON_TPU_BLOCK_PIPELINE", depth)
-        monkeypatch.setitem(ann_engine._block_gauge, "max", 0)
-        out[depth] = ann_engine.generate_clusters(*args, devices=devices,
-                                                  device=cuda)
-        gauge[depth] = ann_engine._block_gauge["max"]
+        profiler.start_recording()
+        try:
+            out[depth] = ann_engine.generate_clusters(
+                *args, devices=devices, device=cuda)
+        finally:
+            profiler.stop_recording()
+        gauge[depth] = profiler.counters()["ann.blocks_in_flight.max"]
     np.testing.assert_array_equal(out["1"][0], out["2"][0])
     np.testing.assert_array_equal(out["1"][1], out["2"][1])
     assert gauge["2"] >= 2

@@ -37,6 +37,7 @@ from falcon_tpu.simulate import make_clustered_spectra, write_mgf
 from falcon_tpu.store.store import SpectrumStore, padded_peaks
 from falcon_tpu_torch import cli
 from falcon_tpu_torch.cluster import ann_engine
+from falcon_tpu_torch.utils.profiling import profiler
 from falcon_tpu_torch.device import (DEVICE_ENV, VIRTUAL_DEVICES_ENV,
                                      visible_devices)
 from falcon_tpu_torch.ops import pairwise
@@ -357,18 +358,22 @@ def test_block_pipeline_matches_serial_and_jax(shards, dataset, jax_blocks,
     monkeypatch.setenv("FALCON_TPU_BLOCK_PIPELINE", depth)
     if n_dev:
         shards(n_dev)
-    monkeypatch.setitem(ann_engine._block_gauge, "max", 0)
-    with caplog.at_level("INFO", logger="falcon_tpu"):
-        got = _generate(ann_engine, dataset, devices=n_dev)
+    profiler.start_recording()
+    try:
+        with caplog.at_level("INFO", logger="falcon_tpu"):
+            got = _generate(ann_engine, dataset, devices=n_dev)
+    finally:
+        profiler.stop_recording()
+    gauge = profiler.counters()["ann.blocks_in_flight.max"]
     assert "device blocks (cap 128)" in caplog.text
     want = jax_blocks[n_dev]
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
     np.testing.assert_array_equal(got[0], jax_blocks[None][0])
     if depth == "1":
-        assert ann_engine._block_gauge["max"] == 1
+        assert gauge == 1
     else:
-        assert ann_engine._block_gauge["max"] >= 2
+        assert gauge >= 2
     if n_dev:
         assert "round-robin over 4 devices" in caplog.text
 
