@@ -122,7 +122,6 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .. import native
 from ..device import (resolve_device, synchronize, visible_devices,
                       worker_stream)
 from ..ops import medoids as medoid_ops
@@ -146,7 +145,7 @@ from ..utils.profiling import profiler
 from .intervals import mass_diff, precursor_mz_splits
 from .postprocess import (
     cluster_group_slices,
-    cluster_medoids,
+    link_components,
     postprocess_cluster,
 )
 
@@ -801,10 +800,11 @@ def _linkage_refine_and_medoids(
     at eps, so this gives the full-matrix flat clusters.  ``devices`` (a
     list, or None for ``dev`` alone): the small components' launches go
     round-robin over them, and one host thread per device scores its share
-    of the large ones; linkage and refinement stay on this thread, and the
-    components are assembled in their order.
+    of the large ones.  Linkage and refinement stay on this thread: each
+    launch of small components, and each large component, in one native
+    call (``postprocess.link_components``), and the components are
+    assembled in their order.
     """
-    final = np.full(n, -1, np.int32)
     with profiler.phase("ann: components"):
         comp = np.asarray(comp, np.int64)
         order2 = np.argsort(comp, kind="stable")
@@ -841,8 +841,18 @@ def _linkage_refine_and_medoids(
         comp_off = np.zeros(len(positions) + 1, np.int64)
         np.cumsum(sizes, out=comp_off[1:])
         group_max = linkage_group_max()
-        small = np.flatnonzero(sizes <= group_max).tolist()
+        small_ids = np.flatnonzero(sizes <= group_max)
+        small = small_ids.tolist()
         large = np.flatnonzero(sizes > group_max).tolist()
+        # Each member's precursor m/z, RT and dataset row, in its
+        # component's order, and the routine's outputs at its row.
+        member_mz = mz_sorted[member_pos]
+        member_rt = rt_sorted[member_pos] if rt_tol is not None else None
+        member_ids = order[member_pos].astype(np.int64)
+        member_labels = np.full(len(member_pos), -1, np.int32)
+        member_medoids = np.zeros(len(member_pos), np.int64)
+        n_clusters = np.zeros(len(positions), np.int64)
+        n_medoids = np.zeros(len(positions), np.int64)
     profiler.count("ann.linkage.components", len(positions))
     profiler.count("ann.linkage.pairs", int((sizes * (sizes - 1) // 2).sum()))
 
@@ -850,58 +860,18 @@ def _linkage_refine_and_medoids(
         lo, hi = comp_off[i], comp_off[i + 1]
         return mz_all[lo:hi], int_all[lo:hi]
 
-    per_comp = {}
-
-    def whole(pos, pdist):
-        """True when every distance is within eps: any linkage cut at eps
-        gives one cluster, and if the precursor (and RT) span is within
-        tolerance the refinement keeps it whole too."""
-        if pdist.max(initial=0.0) > eps:
-            return False
-        mzs_c = mz_sorted[pos]
-        span = float(mzs_c.max() - mzs_c.min())
-        if precursor_tol_mode == "ppm":
-            span_ok = (span / max(float(mzs_c.min()), 1e-12) * 1e6
-                       <= precursor_tol_mass)
-        else:
-            span_ok = span <= precursor_tol_mass
-        if span_ok and rt_tol is not None:
-            rts_c = rt_sorted[pos]
-            span_ok = float(rts_c.max() - rts_c.min()) <= rt_tol
-        return span_ok
-
-    def process(i, pdist):
-        """One component as one exact-engine interval."""
-        pos = positions[i]
-        size = len(pos)
-        with profiler.timer("ann.linkage.refine_ns"):
-            if whole(pos, pdist):
-                lab = np.zeros(size, np.int32)
-                med = cluster_medoids(order[pos].astype(np.int64), lab,
-                                      pdist, np.arange(size))
-                per_comp[i] = (pos, lab, 1, med)
-                profiler.count("ann.linkage.whole")
-                return
-        profiler.count("ann.linkage.linked")
+    def link(comps, dist):
+        """Link, cut, split and pick the medoids of the components
+        ``comps``, whose condensed distances ``dist`` holds in turn."""
         with profiler.timer("ann.linkage.native_ns"):
-            z = native.linkage(pdist, linkage)
-            flat = native.fcluster(z, eps, n=size)
+            n_whole = link_components(
+                dist, comps, comp_off, member_mz, member_rt, member_ids,
+                linkage, eps, precursor_tol_mass, precursor_tol_mode, rt_tol,
+                member_labels, n_clusters, member_medoids, n_medoids)
         with profiler.timer("ann.linkage.refine_ns"):
-            order1 = np.argsort(flat, kind="stable")
-            sorted_labels = flat[order1].astype(np.int32)
-            mzs_c = mz_sorted[pos[order1]]
-            rts_c = rt_sorted[pos[order1]]
-            current = 0
-            for s_i, e_i in list(cluster_group_slices(sorted_labels)):
-                current += postprocess_cluster(
-                    sorted_labels[s_i:e_i], mzs_c[s_i:e_i], rts_c[s_i:e_i],
-                    precursor_tol_mass, precursor_tol_mode, rt_tol, 2,
-                    current)
-            order2b = np.argsort(sorted_labels, kind="stable")
-            med = cluster_medoids(
-                order[pos[order1][order2b]].astype(np.int64),
-                sorted_labels[order2b], pdist, order1[order2b])
-        per_comp[i] = (pos[order1], sorted_labels, current, med)
+            profiler.count("ann.linkage.batches")
+            profiler.count("ann.linkage.whole", n_whole)
+            profiler.count("ann.linkage.linked", len(comps) - n_whole)
 
     # Complete and single linkage cut at eps never read a distance above
     # eps, so large components score only the pairs whose spread bound can
@@ -922,15 +892,17 @@ def _linkage_refine_and_medoids(
         with worker_stream(d):
             return large_pdist(i, d)
 
-    # ann.linkage.wait_ns: getting each component's distances.
+    # ann.linkage.wait_ns: getting each launch's or component's distances.
     with profiler.phase("ann: linkage"):
         if small:
-            for local_i, pdist in profiler.timed(
+            for group, dist in profiler.timed(
                     "ann.linkage.wait_ns",
-                    pairwise.grouped_condensed_distances(
+                    pairwise.condensed_distance_groups(
                         [comp_peaks(i) for i in small], fragment_tol,
                         min_matches, device=dev, devices=devices)):
-                process(small[local_i], pdist)
+                with profiler.timer("ann.linkage.refine_ns"):
+                    comps = small_ids[group]
+                link(comps, dist)
         if large and devices:
             with ThreadPoolExecutor(len(devices)) as pool:
                 futures = {
@@ -939,27 +911,26 @@ def _linkage_refine_and_medoids(
                     for j, i in enumerate(large)}
                 for future in profiler.timed("ann.linkage.wait_ns",
                                              as_completed(futures)):
-                    process(futures[future], future.result())
+                    link([futures[future]], future.result())
         else:
             for i in large:
                 with profiler.timer("ann.linkage.wait_ns"):
                     pdist = large_pdist(i, dev)
-                process(i, pdist)
+                link([i], pdist)
 
     with profiler.phase("ann: refine"):
         # Assemble in component order, so labels do not depend on the
-        # order the components were scored in.
-        med_parts = [order[noise_pos].astype(np.int64)]
-        current = 0
-        for i in range(len(positions)):
-            pos_lab, lab, n_cl, med = per_comp[i]
-            mask = lab >= 0
-            lab = lab.astype(np.int32)
-            lab[mask] += current
-            final[pos_lab] = lab
-            current += n_cl
-            med_parts.append(med)
-        medoids = np.concatenate(med_parts)
+        # order the components were scored in: each component's labels
+        # after those of the components before it, and its medoids after
+        # theirs, the rows outside every component first.
+        offset = np.repeat(np.cumsum(n_clusters) - n_clusters, sizes)
+        final = np.full(n, -1, np.int32)
+        final[member_pos] = np.where(member_labels >= 0,
+                                     member_labels + offset, -1)
+        local = np.arange(len(member_pos)) - np.repeat(comp_off[:-1], sizes)
+        medoids = np.concatenate([
+            order[noise_pos].astype(np.int64),
+            member_medoids[local < np.repeat(n_medoids, sizes)]])
     return final, medoids
 
 

@@ -21,12 +21,19 @@ identical observable semantics:
 
 - :func:`assign_global_cluster_labels` — reference
   ``_assign_global_cluster_labels`` (``cluster.py:556-590``).
+
+- :func:`link_component` — one eps-component of the ann engine as one
+  exact-engine interval: linkage, the cut at eps, the precursor / RT
+  split and the medoids; :func:`link_components` runs it on a batch of
+  components in one native call (``fc_link_components``), or component by
+  component where the native library is unavailable.
 """
 
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
+from .. import native
 from .intervals import cut_1d
 
 
@@ -190,3 +197,110 @@ def assign_global_cluster_labels(
         # or not (cluster.py:586-589), so we do too.
         current_label = max_label + 1
     return max_label
+
+
+def _spans_within(mzs: np.ndarray, rts: Optional[np.ndarray],
+                  precursor_tol_mass: float, precursor_tol_mode: str,
+                  rt_tol: Optional[float]) -> bool:
+    """The precursor (and RT) span of the members is within tolerance."""
+    span = float(mzs.max() - mzs.min())
+    if precursor_tol_mode == "ppm":
+        span_ok = (span / max(float(mzs.min()), 1e-12) * 1e6
+                   <= precursor_tol_mass)
+    else:
+        span_ok = span <= precursor_tol_mass
+    if span_ok and rt_tol is not None:
+        span_ok = float(rts.max() - rts.min()) <= rt_tol
+    return span_ok
+
+
+def link_component(
+    pdist: np.ndarray,
+    mzs: np.ndarray,
+    rts: Optional[np.ndarray],
+    ids: np.ndarray,
+    method: str,
+    eps: float,
+    precursor_tol_mass: float,
+    precursor_tol_mode: str,
+    rt_tol: Optional[float],
+) -> Tuple[np.ndarray, int, np.ndarray, bool]:
+    """One eps-component as one exact-engine interval.
+
+    ``pdist``: its condensed float32 distances; ``mzs``, ``rts`` (read
+    only with ``rt_tol``) and ``ids`` (dataset row ids): its members in
+    the matrix's order.  Returns (each member's label, from 0, -1 for a
+    member split off alone; the number of clusters; the medoid ids, noise
+    first; whether it closed whole).  It closes whole when every distance
+    is within eps, so any linkage cut at eps gives one cluster, and the
+    precursor (and RT) span is within tolerance, so the split keeps it.
+    """
+    size = len(ids)
+    if not pdist.max(initial=0.0) > eps and _spans_within(
+            mzs, rts, precursor_tol_mass, precursor_tol_mode, rt_tol):
+        labels = np.zeros(size, np.int32)
+        med = cluster_medoids(np.asarray(ids, np.int64), labels, pdist,
+                              np.arange(size))
+        return labels, 1, med, True
+    z = native.linkage(pdist, method)
+    flat = native.fcluster(z, eps, n=size)
+    order1 = np.argsort(flat, kind="stable")
+    sorted_labels = flat[order1].astype(np.int32)
+    mzs_c = mzs[order1]
+    rts_c = rts[order1] if rt_tol is not None else None
+    current = 0
+    for s_i, e_i in list(cluster_group_slices(sorted_labels)):
+        current += postprocess_cluster(
+            sorted_labels[s_i:e_i], mzs_c[s_i:e_i],
+            rts_c[s_i:e_i] if rts_c is not None else None,
+            precursor_tol_mass, precursor_tol_mode, rt_tol, 2, current)
+    order2 = np.argsort(sorted_labels, kind="stable")
+    med = cluster_medoids(np.asarray(ids, np.int64)[order1[order2]],
+                          sorted_labels[order2], pdist, order1[order2])
+    labels = np.empty(size, np.int32)
+    labels[order1] = sorted_labels
+    return labels, current, med, False
+
+
+def link_components(
+    dist: np.ndarray,
+    comps: np.ndarray,
+    member_off: np.ndarray,
+    mzs: np.ndarray,
+    rts: Optional[np.ndarray],
+    ids: np.ndarray,
+    method: str,
+    eps: float,
+    precursor_tol_mass: float,
+    precursor_tol_mode: str,
+    rt_tol: Optional[float],
+    labels: np.ndarray,
+    n_clusters: np.ndarray,
+    medoids: np.ndarray,
+    n_medoids: np.ndarray,
+) -> int:
+    """:func:`link_component` on each component of ``comps``, writing its
+    results in place (``native.link_components``' contract): in one native
+    call, or one component at a time where the library is unavailable.
+    Returns the number of components closed whole."""
+    n_whole = native.link_components(
+        dist, comps, member_off, mzs, rts, ids, method, eps,
+        precursor_tol_mass, precursor_tol_mode, rt_tol, labels, n_clusters,
+        medoids, n_medoids)
+    if n_whole is not None:
+        return n_whole
+    n_whole, pair_at = 0, 0
+    for c in np.asarray(comps, np.int64).tolist():
+        lo, hi = int(member_off[c]), int(member_off[c + 1])
+        n_pairs = (hi - lo) * (hi - lo - 1) // 2
+        lab, n_cl, med, whole = link_component(
+            dist[pair_at:pair_at + n_pairs], mzs[lo:hi],
+            rts[lo:hi] if rt_tol is not None else None, ids[lo:hi], method,
+            eps, precursor_tol_mass, precursor_tol_mode, rt_tol)
+        pair_at += n_pairs
+        labels[lo:hi] = lab
+        n_clusters[c] = n_cl
+        medoids[lo:lo + len(med)] = med
+        n_medoids[c] = len(med)
+        n_whole += whole
+    return n_whole

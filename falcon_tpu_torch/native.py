@@ -118,6 +118,17 @@ def get_lib() -> Optional[ctypes.CDLL]:
             ctypes.POINTER(ctypes.c_double), ctypes.c_int64,
             ctypes.c_double, ctypes.POINTER(ctypes.c_int32),
         ]
+        lib.fc_link_components.restype = ctypes.c_int64
+        lib.fc_link_components.argtypes = [
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_double),
+            ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_int, ctypes.c_double, ctypes.c_double, ctypes.c_double,
+            ctypes.c_int, ctypes.c_double, ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64),
+        ]
         lib.fc_connected_components.restype = ctypes.c_int64
         lib.fc_connected_components.argtypes = [
             ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
@@ -281,6 +292,86 @@ def fcluster(z: np.ndarray, t: float, n: Optional[int] = None) -> np.ndarray:
             "fcluster got an invalid linkage matrix (non-finite or "
             "out-of-range cluster ids)")
     return labels
+
+
+def _far_threshold(eps: float) -> float:
+    """The float64 threshold above which a float32 distance reads as
+    ``> eps`` to NumPy, which compares a float32 scalar with a Python float
+    in float32 (NumPy 2) or in float64 (NumPy 1)."""
+    eps32 = np.float32(eps)
+    if float(eps32) > eps and not eps32 > eps:
+        return float(eps32)
+    return float(eps)
+
+
+def link_components(dist: np.ndarray, comps: np.ndarray,
+                    member_off: np.ndarray, mz: np.ndarray,
+                    rt: Optional[np.ndarray], ids: np.ndarray, method: str,
+                    eps: float, tol_mass: float, tol_mode: str,
+                    rt_tol: Optional[float], labels: np.ndarray,
+                    n_clusters: np.ndarray, medoids: np.ndarray,
+                    n_medoids: np.ndarray) -> Optional[int]:
+    """``cluster.postprocess.link_component`` on each component of
+    ``comps`` in one call with the interpreter lock released
+    (``fc_link_components``); None when the library is unavailable.
+
+    ``dist``: the components' condensed float32 distances, one after the
+    other.  Component c's members are rows ``member_off[c]`` to
+    ``member_off[c + 1]`` of ``mz``, ``rt`` (read only with ``rt_tol``)
+    and ``ids``.  Writes each member's label at its row of ``labels`` (from
+    0 within its component), the component's medoids from its first row of
+    ``medoids`` on, and its counts at ``n_clusters[c]``, ``n_medoids[c]``.
+    Returns the number of components closed whole."""
+    if method not in _METHODS:
+        raise ValueError(f"unsupported linkage method {method!r}")
+    lib = get_lib()
+    if lib is None:
+        return None
+    dist = np.ascontiguousarray(dist, np.float32)
+    comps = np.ascontiguousarray(comps, np.int64)
+    if len(comps) and (comps.min() < 0 or comps.max() >= len(member_off) - 1):
+        raise ValueError("link_components: a component id out of range")
+    sizes = member_off[comps + 1] - member_off[comps]
+    if len(dist) != int((sizes * (sizes - 1) // 2).sum()):
+        raise ValueError("link_components: the distances do not cover the "
+                         "components' pairs")
+    n = len(ids)
+    for name, arr, dtype in (
+            ("member_off", member_off, np.int64), ("mz", mz, np.float64),
+            ("ids", ids, np.int64), ("labels", labels, np.int32),
+            ("medoids", medoids, np.int64),
+            ("n_clusters", n_clusters, np.int64),
+            ("n_medoids", n_medoids, np.int64)) + (
+            (("rt", rt, np.float64),) if rt_tol is not None else ()):
+        if arr.dtype != dtype or not arr.flags.c_contiguous:
+            raise ValueError(f"link_components: {name} must be contiguous "
+                             f"{np.dtype(dtype).name}")
+    if (len(mz) != n or len(labels) != n or len(medoids) != n
+            or member_off[-1] > n
+            or (rt_tol is not None and len(rt) != n)):
+        raise ValueError("link_components: member arrays differ in length")
+
+    def ptr(a, c_type):
+        return a.ctypes.data_as(ctypes.POINTER(c_type))
+
+    rc = lib.fc_link_components(
+        ptr(dist, ctypes.c_float), ctypes.c_int64(len(dist)),
+        ptr(comps, ctypes.c_int64), ctypes.c_int64(len(comps)),
+        ptr(member_off, ctypes.c_int64), _as_double_ptr(mz),
+        _as_double_ptr(rt) if rt_tol is not None else None,
+        ptr(ids, ctypes.c_int64), ctypes.c_int(_METHODS[method]),
+        ctypes.c_double(eps), ctypes.c_double(_far_threshold(eps)),
+        ctypes.c_double(tol_mass), ctypes.c_int(tol_mode == "ppm"),
+        ctypes.c_double(0.0 if rt_tol is None else rt_tol),
+        ptr(labels, ctypes.c_int32), ptr(n_clusters, ctypes.c_int64),
+        ptr(medoids, ctypes.c_int64), ptr(n_medoids, ctypes.c_int64))
+    if rc == -2:
+        raise ValueError(
+            "linkage requires a finite condensed distance matrix "
+            "(found NaN or infinity)")
+    if rc < 0:
+        raise RuntimeError(f"fc_link_components failed with code {rc}")
+    return int(rc)
 
 
 _NULL_CHARGE_I32 = -(2**31)  # C++ kNullCharge sentinel

@@ -10,6 +10,8 @@
 //     falcon/cluster/cluster.py:283-290, 413-421).
 //   - union-find connected components for the density-clustering (DBSCAN
 //     with min_samples) engine of the published algorithm.
+//   - the ann engine's per-component linkage, cut, precursor split and
+//     medoids, a batch of eps-components a call (fc_link_components).
 //
 // Exposed via a plain C ABI for ctypes binding (no pybind11 dependency).
 //
@@ -785,6 +787,344 @@ int64_t fc_csv_format_rows_u32_impl(const uint32_t* fn_data, int64_t fn_width,
 
 }  // namespace
 
+namespace {
+
+// Linkage, cut, precursor split and medoids of a batch of eps-components,
+// the per-component body of falcon_tpu_torch/cluster/postprocess.py's
+// link_component (its oracle in tests/test_torch_linkage_batch.py) in one
+// call: the spans and comparisons are made in the dtypes and order the
+// NumPy code makes them, NaN included, so the labels and medoids are its
+// own.
+
+// NumPy's min / max of float64 (a NaN wins) and Python's max(a, b).
+inline double np_min(const double* v, int64_t n) {
+  double m = v[0];
+  for (int64_t i = 1; i < n; ++i) {
+    if (std::isnan(v[i])) return v[i];
+    if (v[i] < m) m = v[i];
+  }
+  return m;
+}
+inline double np_max(const double* v, int64_t n) {
+  double m = v[0];
+  for (int64_t i = 1; i < n; ++i) {
+    if (std::isnan(v[i])) return v[i];
+    if (v[i] > m) m = v[i];
+  }
+  return m;
+}
+inline double py_max(double a, double b) { return b > a ? b : a; }
+inline double py_min(double a, double b) { return b < a ? b : a; }
+
+// The precursor (and, with rt, RT) span test of the whole() check and of
+// postprocess_cluster's fast path, on n gathered values.
+bool spans_ok(const double* mz, const double* rt, int64_t n, double tol_mass,
+              bool ppm, double rt_tol) {
+  double lo = np_min(mz, n);
+  double span = np_max(mz, n) - lo;
+  bool ok = ppm ? span / py_max(lo, 1e-12) * 1e6 <= tol_mass
+                : span <= tol_mass;
+  if (ok && rt != nullptr) ok = np_max(rt, n) - np_min(rt, n) <= rt_tol;
+  return ok;
+}
+
+// An entry of cut_1d's heap, ordered as Python orders the tuple
+// (d, a, b, va, vb): the first element that is not == decides by <.
+struct CutEntry {
+  double d;
+  int64_t a, b, va, vb;
+};
+inline bool py_lt(const CutEntry& x, const CutEntry& y) {
+  if (!(x.d == y.d)) return x.d < y.d;
+  if (x.a != y.a) return x.a < y.a;
+  if (x.b != y.b) return x.b < y.b;
+  if (x.va != y.va) return x.va < y.va;
+  return x.vb < y.vb;
+}
+
+// heapq's _siftdown, _siftup, heapify, heappush and heappop, so that
+// entries that Python cannot order (a NaN distance) pop in Python's order
+// too.
+void heap_siftdown(std::vector<CutEntry>& h, size_t start, size_t pos) {
+  CutEntry item = h[pos];
+  while (pos > start) {
+    size_t parent = (pos - 1) >> 1;
+    if (!py_lt(item, h[parent])) break;
+    h[pos] = h[parent];
+    pos = parent;
+  }
+  h[pos] = item;
+}
+void heap_siftup(std::vector<CutEntry>& h, size_t pos) {
+  size_t end = h.size(), start = pos;
+  CutEntry item = h[pos];
+  size_t child = 2 * pos + 1;
+  while (child < end) {
+    size_t right = child + 1;
+    if (right < end && !py_lt(h[child], h[right])) child = right;
+    h[pos] = h[child];
+    pos = child;
+    child = 2 * pos + 1;
+  }
+  h[pos] = item;
+  heap_siftdown(h, start, pos);
+}
+void heap_push(std::vector<CutEntry>& h, const CutEntry& e) {
+  h.push_back(e);
+  heap_siftdown(h, 0, h.size() - 1);
+}
+CutEntry heap_pop(std::vector<CutEntry>& h) {
+  CutEntry last = h.back();
+  h.pop_back();
+  if (h.empty()) return last;
+  CutEntry top = h[0];
+  h[0] = last;
+  heap_siftup(h, 0);
+  return top;
+}
+
+// numpy's stable argsort of float64: ascending, NaNs last.
+void argsort_stable(const double* v, int64_t n, std::vector<int64_t>& out) {
+  out.resize(n);
+  std::iota(out.begin(), out.end(), 0);
+  std::stable_sort(out.begin(), out.end(), [v](int64_t x, int64_t y) {
+    return v[x] < v[y] || (!std::isnan(v[x]) && std::isnan(v[y]));
+  });
+}
+
+// intervals.py's cut_1d: the complete-linkage cut at tol of k values,
+// adjacent clusters merged in heap order.  Writes each value's group (the
+// root's sorted position; only the grouping is used).
+void cut_1d(const double* values, int64_t k, double tol, bool ppm,
+            std::vector<int64_t>& group) {
+  group.assign(k, 0);
+  if (k < 2) return;
+  std::vector<int64_t> order;
+  argsort_stable(values, k, order);
+  std::vector<double> cmin(k), cmax(k);
+  for (int64_t i = 0; i < k; ++i) cmin[i] = cmax[i] = values[order[i]];
+  std::vector<int64_t> parent(k), version(k, 0), left(k), right(k);
+  for (int64_t i = 0; i < k; ++i) {
+    parent[i] = i;
+    left[i] = i - 1;
+    right[i] = i + 1;
+  }
+  auto find = [&](int64_t x) {
+    while (parent[x] != x) {
+      parent[x] = parent[parent[x]];
+      x = parent[x];
+    }
+    return x;
+  };
+  auto dist = [&](int64_t a, int64_t b) {
+    double d = cmax[b] - cmin[a];
+    return ppm ? d / cmin[a] * 1e6 : d;
+  };
+  std::vector<CutEntry> heap;
+  heap.reserve(2 * k);
+  for (int64_t i = 0; i + 1 < k; ++i)
+    heap.push_back({dist(i, i + 1), i, i + 1, 0, 0});
+  for (size_t i = heap.size() / 2; i-- > 0;) heap_siftup(heap, i);
+  while (!heap.empty()) {
+    CutEntry e = heap_pop(heap);
+    if (e.d > tol) break;
+    int64_t a = e.a, b = e.b;
+    if (find(a) != a || find(b) != b || right[a] != b ||
+        version[a] != e.va || version[b] != e.vb)
+      continue;
+    parent[b] = a;
+    cmax[a] = py_max(cmax[a], cmax[b]);
+    cmin[a] = py_min(cmin[a], cmin[b]);
+    ++version[a];
+    int64_t r = right[b];
+    right[a] = r;
+    if (r < k) {
+      left[r] = a;
+      heap_push(heap, {dist(a, r), a, r, version[a], version[r]});
+    }
+    int64_t lft = left[a];
+    if (lft >= 0 && find(lft) == lft)
+      heap_push(heap, {dist(lft, a), lft, a, version[lft], version[a]});
+  }
+  for (int64_t i = 0; i < k; ++i) group[order[i]] = find(i);
+}
+
+// postprocess_cluster with min_samples 2 on one flat cluster of n members
+// (gathered m/z and RT): labels the members start.. by first occurrence
+// of their (m/z group, RT group), -1 for a group of one; returns the
+// number of labels used.
+int64_t split_cluster(const double* mz, const double* rt, int64_t n,
+                      double tol_mass, bool ppm, double rt_tol,
+                      int32_t start, int32_t* labels) {
+  if (n < 2) {
+    std::fill(labels, labels + n, -1);
+    return 0;
+  }
+  if (spans_ok(mz, rt, n, tol_mass, ppm, rt_tol)) {
+    std::fill(labels, labels + n, start);
+    return 1;
+  }
+  std::vector<int64_t> g_mz, g_rt;
+  cut_1d(mz, n, tol_mass, ppm, g_mz);
+  if (rt != nullptr) {
+    cut_1d(rt, n, rt_tol, false, g_rt);
+    for (int64_t i = 0; i < n; ++i) g_mz[i] = g_mz[i] * n + g_rt[i];
+  }
+  // Groups numbered by first occurrence, then their sizes.
+  std::vector<int64_t> key_ids(g_mz);
+  std::sort(key_ids.begin(), key_ids.end());
+  key_ids.erase(std::unique(key_ids.begin(), key_ids.end()), key_ids.end());
+  std::vector<int64_t> group(n), first_seen(key_ids.size(), -1), count;
+  int64_t n_groups = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    int64_t u = std::lower_bound(key_ids.begin(), key_ids.end(), g_mz[i]) -
+                key_ids.begin();
+    if (first_seen[u] < 0) {
+      first_seen[u] = n_groups++;
+      count.push_back(0);
+    }
+    group[i] = first_seen[u];
+    ++count[group[i]];
+  }
+  std::vector<int32_t> remap(n_groups, -1);
+  int32_t next = start;
+  for (int64_t g = 0; g < n_groups; ++g)
+    if (count[g] >= 2) remap[g] = next++;
+  for (int64_t i = 0; i < n; ++i) labels[i] = remap[group[i]];
+  return next - start;
+}
+
+// cluster_medoids' choice for one group of s members (rows into the
+// component's condensed matrix of m rows, in the group's order): the first
+// member (s <= 2), else the first minimum of the float32 row sums, each
+// summed as two np.add.at passes over the triu pairs (row as ii, then as
+// jj) sum it; a NaN sum is the minimum.
+int64_t medoid_of(const float* pdist, int64_t m, const int64_t* rows,
+                  int64_t s, std::vector<float>& row_sum) {
+  if (s <= 2) return 0;
+  row_sum.assign(s, 0.0f);
+  auto d = [&](int64_t u, int64_t v) {
+    int64_t a = rows[u], b = rows[v];
+    if (a > b) std::swap(a, b);
+    return pdist[condensed_index(m, a, b)];
+  };
+  for (int64_t u = 0; u < s; ++u)
+    for (int64_t v = u + 1; v < s; ++v) row_sum[u] += d(u, v);
+  for (int64_t u = 0; u < s; ++u)
+    for (int64_t v = u + 1; v < s; ++v) row_sum[v] += d(u, v);
+  int64_t best = 0;
+  for (int64_t i = 0; i < s; ++i) {
+    if (std::isnan(row_sum[i])) return i;
+    if (row_sum[i] < row_sum[best]) best = i;
+  }
+  return best;
+}
+
+// See fc_link_components.
+int64_t fc_link_components_impl(
+    const float* dist, int64_t n_dist, const int64_t* comps, int64_t k,
+    const int64_t* member_off, const double* mz, const double* rt,
+    const int64_t* ids, int method, double eps, double eps_far,
+    double tol_mass, int ppm,
+    double rt_tol, int32_t* labels_out, int64_t* n_clusters_out,
+    int64_t* medoids_out, int64_t* n_medoids_out) {
+  std::vector<double> work, z;
+  std::vector<int32_t> flat, sorted_labels;
+  std::vector<int64_t> order1, rows;
+  std::vector<double> mz_c, rt_c;
+  std::vector<float> row_sum;
+  int64_t n_whole = 0, pair_at = 0;
+  for (int64_t t = 0; t < k; ++t) {
+    const int64_t c = comps[t], off = member_off[c];
+    const int64_t m = member_off[c + 1] - off;
+    const int64_t n_pairs = m * (m - 1) / 2;
+    if (m < 1 || pair_at + n_pairs > n_dist) return -1;
+    const float* pdist = dist + pair_at;
+    pair_at += n_pairs;
+    const double* mz_m = mz + off;
+    const double* rt_m = rt != nullptr ? rt + off : nullptr;
+    int32_t* lab = labels_out + off;
+    int64_t* med = medoids_out + off;
+
+    // whole(): every distance within eps (a NaN maximum passes, as
+    // NumPy's does) and the spans within tolerance.
+    bool far = false, any_nan = false;
+    for (int64_t i = 0; i < n_pairs; ++i) {
+      any_nan |= std::isnan(pdist[i]);
+      far |= static_cast<double>(pdist[i]) > eps_far;
+    }
+    if ((any_nan || !far) &&
+        spans_ok(mz_m, rt_m, m, tol_mass, ppm != 0, rt_tol)) {
+      std::fill(lab, lab + m, 0);
+      rows.resize(m);
+      std::iota(rows.begin(), rows.end(), 0);
+      med[0] = ids[off + medoid_of(pdist, m, rows.data(), m, row_sum)];
+      n_clusters_out[c] = 1;
+      n_medoids_out[c] = 1;
+      ++n_whole;
+      continue;
+    }
+
+    // Link and cut at eps.
+    work.assign(pdist, pdist + n_pairs);
+    z.resize(4 * std::max<int64_t>(m - 1, 0));
+    int rc = fc_linkage_impl(work.data(), m, method, z.data());
+    if (rc == 2) return -2;
+    if (rc != 0) return -3;
+    flat.resize(m);
+    if (fc_fcluster_impl(z.data(), m, eps, flat.data()) < 0) return -3;
+
+    // Members in the stable order of their flat labels; each flat cluster
+    // split by precursor (and RT).
+    order1.resize(m);
+    std::iota(order1.begin(), order1.end(), 0);
+    std::stable_sort(order1.begin(), order1.end(),
+                     [&](int64_t x, int64_t y) { return flat[x] < flat[y]; });
+    sorted_labels.resize(m);
+    mz_c.resize(m);
+    if (rt_m != nullptr) rt_c.resize(m);
+    for (int64_t i = 0; i < m; ++i) {
+      sorted_labels[i] = flat[order1[i]];
+      mz_c[i] = mz_m[order1[i]];
+      if (rt_m != nullptr) rt_c[i] = rt_m[order1[i]];
+    }
+    int32_t current = 0;
+    for (int64_t s = 0; s < m;) {
+      int64_t e = s;
+      while (e < m && flat[order1[e]] == flat[order1[s]]) ++e;
+      current += static_cast<int32_t>(split_cluster(
+          mz_c.data() + s, rt_m != nullptr ? rt_c.data() + s : nullptr, e - s,
+          tol_mass, ppm != 0, rt_tol, current, sorted_labels.data() + s));
+      s = e;
+    }
+    for (int64_t i = 0; i < m; ++i) lab[order1[i]] = sorted_labels[i];
+
+    // Medoids in cluster_medoids' order: each demoted member, then the
+    // clusters by label, members in their label-sorted order.
+    int64_t n_med = 0;
+    for (int64_t i = 0; i < m; ++i)
+      if (sorted_labels[i] < 0) med[n_med++] = ids[off + order1[i]];
+    std::vector<int64_t> starts(current + 1, 0);
+    for (int64_t i = 0; i < m; ++i)
+      if (sorted_labels[i] >= 0) ++starts[sorted_labels[i] + 1];
+    for (int32_t l = 0; l < current; ++l) starts[l + 1] += starts[l];
+    rows.resize(starts[current]);
+    std::vector<int64_t> fill(starts.begin(), starts.end() - 1);
+    for (int64_t i = 0; i < m; ++i)
+      if (sorted_labels[i] >= 0) rows[fill[sorted_labels[i]]++] = order1[i];
+    for (int32_t l = 0; l < current; ++l) {
+      const int64_t* r = rows.data() + starts[l];
+      int64_t s = starts[l + 1] - starts[l];
+      med[n_med++] = ids[off + r[medoid_of(pdist, m, r, s, row_sum)]];
+    }
+    n_clusters_out[c] = current;
+    n_medoids_out[c] = n_med;
+  }
+  return pair_at == n_dist ? n_whole : -1;
+}
+
+}  // namespace
+
 // ---------------------------------------------------------------------------
 // Public C ABI.  Each exported entry point is a noexcept exception barrier
 // around its _impl: a C++ exception (std::bad_alloc from a vector/string,
@@ -810,6 +1150,39 @@ int64_t fc_fcluster(const double* z, int64_t n, double t,
     return fc_fcluster_impl(z, n, t, labels_out);
   } catch (...) {
     return -1;
+  }
+}
+
+// Link, cut, split and pick the medoids of a batch of eps-components, as
+// falcon_tpu_torch/cluster/postprocess.py's link_component does one.
+//   dist: the batch's condensed float32 distances, component after
+//     component (n_dist in all).
+//   comps: the k components of the batch; component c's members are rows
+//     member_off[c]..member_off[c + 1] of mz, rt (null: no RT split) and
+//     ids (dataset row ids), in the order of its condensed matrix.
+//   method: 0 single, 1 complete, 2 average; eps: the cut; eps_far: a
+//     distance above it keeps a component from closing whole.
+//   Writes, at each member's row: labels_out, from 0 within its component
+//     (-1 for a member split off alone); and the component's medoid ids
+//     into medoids_out from its first row on, noise members first, then
+//     the clusters by label; n_clusters_out[c] and n_medoids_out[c].
+// Returns the number of components closed whole; -1 on bad offsets, -2 on
+// a non-finite distance in a component that is linked, -3 on a failed
+// linkage or cut, -4 on an internal error.
+int64_t fc_link_components(
+    const float* dist, int64_t n_dist, const int64_t* comps, int64_t k,
+    const int64_t* member_off, const double* mz, const double* rt,
+    const int64_t* ids, int method, double eps, double eps_far,
+    double tol_mass, int ppm, double rt_tol, int32_t* labels_out,
+    int64_t* n_clusters_out, int64_t* medoids_out,
+    int64_t* n_medoids_out) noexcept {
+  try {
+    return fc_link_components_impl(
+        dist, n_dist, comps, k, member_off, mz, rt, ids, method, eps,
+        eps_far, tol_mass, ppm, rt_tol, labels_out, n_clusters_out,
+        medoids_out, n_medoids_out);
+  } catch (...) {
+    return -4;
   }
 }
 

@@ -10,7 +10,8 @@ Port of the scoring in ``falcon_tpu/ops/pairwise.py``:
   every upper-triangle pair of many small intervals in one launch.  The
   intervals are ragged (``starts`` offsets) rather than padded to a common
   size, and the output is the concatenation of their condensed orders.
-  ``grouped_condensed_distances`` feeds it.
+  ``condensed_distance_groups`` feeds it, a launch's intervals at a time;
+  ``grouped_condensed_distances`` slices each launch into its intervals.
 - ``pair_list_scores`` replaces the exact scoring of the XLA
   ``rerank_scan_body`` (``falcon_tpu/ops/rerank.py``): each query row
   against its own list of pool ids.  ``pruned_condensed_distances`` feeds
@@ -312,7 +313,7 @@ def batched_block_scores_plain(
     return scores, (matches if with_matches else None)
 
 
-def grouped_condensed_distances(
+def condensed_distance_groups(
     interval_peaks,  # list of (mz (m_i, P), intensity (m_i, P)) numpy
     fragment_tol: float,
     min_matches: int = 0,
@@ -320,17 +321,19 @@ def grouped_condensed_distances(
     max_group_pairs: int = 2**24,
     device=None,
     devices=None,
-) -> Iterator[Tuple[int, np.ndarray]]:
-    """Condensed distance matrices of many small intervals, batched.
+) -> Iterator[Tuple[List[int], np.ndarray]]:
+    """Condensed distance matrices of many small intervals, a launch of
+    them at a time.
 
     Consecutive intervals are scored together, up to ``max_group_pairs``
-    pairs per launch (at least one interval each).  Yields (interval
-    index, condensed float32 pdist) in interval order, where distance = 1
-    - score and a pair with fewer than ``min_matches`` matched peaks has
-    distance 1.  ``devices`` (a list of ``torch.device``): the launches go
-    round-robin over them, up to two a device in flight, and are read back
-    in launch order (``falcon_tpu/ops/pairwise.py``'s mesh scale-out);
-    else every launch runs on ``device`` and is read back before the next.
+    pairs per launch (at least one interval each).  Yields (the launch's
+    interval indices, their condensed float32 distances one after the
+    other) in interval order, where distance = 1 - score and a pair with
+    fewer than ``min_matches`` matched peaks has distance 1.  ``devices``
+    (a list of ``torch.device``): the launches go round-robin over them,
+    up to two a device in flight, and are read back in launch order
+    (``falcon_tpu/ops/pairwise.py``'s mesh scale-out); else every launch
+    runs on ``device`` and is read back before the next.
     """
     devs = list(devices) if devices else [resolve_device(device)]
     groups: List[List[int]] = []
@@ -371,20 +374,36 @@ def grouped_condensed_distances(
     def drain(pending):
         group, dist = pending.pop(0)
         with profiler.phase("groups to host"):
-            dist = dist.cpu().numpy()
-        pair_off = 0
-        for idx in group:
-            m = interval_peaks[idx][0].shape[0]
-            yield idx, dist[pair_off:pair_off + m * (m - 1) // 2]
-            pair_off += m * (m - 1) // 2
+            return group, dist.cpu().numpy()
 
     pending = []
     for g in range(len(groups)):
         pending.append(dispatch(g, devs[g % len(devs)]))
         if len(pending) >= window:
-            yield from drain(pending)
+            yield drain(pending)
     while pending:
-        yield from drain(pending)
+        yield drain(pending)
+
+
+def grouped_condensed_distances(
+    interval_peaks,  # list of (mz (m_i, P), intensity (m_i, P)) numpy
+    fragment_tol: float,
+    min_matches: int = 0,
+    rounds: int = DEFAULT_ROUNDS,
+    max_group_pairs: int = 2**24,
+    device=None,
+    devices=None,
+) -> Iterator[Tuple[int, np.ndarray]]:
+    """:func:`condensed_distance_groups`, one interval at a time: yields
+    (interval index, condensed float32 pdist) in interval order."""
+    for group, dist in condensed_distance_groups(
+            interval_peaks, fragment_tol, min_matches, rounds,
+            max_group_pairs, device, devices):
+        pair_off = 0
+        for idx in group:
+            m = interval_peaks[idx][0].shape[0]
+            yield idx, dist[pair_off:pair_off + m * (m - 1) // 2]
+            pair_off += m * (m - 1) // 2
 
 
 def condensed_distances(

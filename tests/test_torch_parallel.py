@@ -293,7 +293,7 @@ def test_linkage_over_the_mesh_matches_jax(shards, dataset, monkeypatch):
     monkeypatch.setattr(ann_engine, "LINKAGE_GROUP_MAX", 5)
     monkeypatch.setenv("FALCON_TPU_LINKAGE_GROUP_MAX", "5")
     seen = {"grouped": [], "pruned": []}
-    grouped, pruned = (pairwise.grouped_condensed_distances,
+    grouped, pruned = (pairwise.condensed_distance_groups,
                        pairwise.pruned_condensed_distances)
 
     def spy_grouped(*args, **kw):
@@ -304,7 +304,7 @@ def test_linkage_over_the_mesh_matches_jax(shards, dataset, monkeypatch):
         seen["pruned"].append(kw.get("device"))
         return pruned(*args, **kw)
 
-    monkeypatch.setattr(pairwise, "grouped_condensed_distances", spy_grouped)
+    monkeypatch.setattr(pairwise, "condensed_distance_groups", spy_grouped)
     monkeypatch.setattr(pairwise, "pruned_condensed_distances", spy_pruned)
     got = _generate(ann_engine, dataset, devices=4, eps=0.3)
     want = _generate(jax_engine, dataset, devices=4, eps=0.3)

@@ -256,6 +256,10 @@ def test_csv_bytes_are_the_same_with_recording_on_and_off(corpus, flags):
             + counters["ann.linkage.linked"])
         assert counters["ann.linkage.whole"] > 0
         assert counters["ann.linkage.pairs"] > 0
+        # The batched native linkage ran: a call per K4 launch and per
+        # large component.
+        assert 0 < counters["ann.linkage.batches"] <= (
+            counters["ann.linkage.components"])
         for name in ("wait_ns", "native_ns", "refine_ns"):
             assert counters[f"ann.linkage.{name}"] > 0
         linkage = sum(s.end_ns - s.start_ns for s in profiler.spans()
