@@ -723,7 +723,10 @@ def _ivf_lists(mz_pad, int_pad, mz_sorted, rt_sorted, hasher, min_matches,
     first power-of-two (at least 16) columns covering the widest band.
     Without it, the index holds the unit plain vectors in float32 and its
     cosines, cut to ``k_final``, are the lists (and the unit vectors are
-    returned for the medoids)."""
+    returned for the medoids).  Inside ``ann: knn`` the search is the
+    phase ``ivf: probe`` (synchronised while the recorder is on) and the
+    cut with the RT filter ``ivf: cut`` (synchronised); the recorder counts
+    the rerank's width as ``ann.rerank.width``."""
     n = len(mz_sorted)
     spans = band_spans(mz_sorted, precursor_tol_mass, precursor_tol_mode)
     k_ann, k_ivf = ivf_widths(spans, k_final, n_neighbors_ann, do_rerank)
@@ -747,23 +750,30 @@ def _ivf_lists(mz_pad, int_pad, mz_sorted, rt_sorted, hasher, min_matches,
                          precise=not do_rerank, coarse_vectors=coarse,
                          rank_vectors=rank)
         del coarse, spread, rank
-        result = None
-        if mesh is not None:
-            result = ivf_search_sharded(
-                index, k_ivf, n_probe, precursor_tol_mass,
-                precursor_tol_mode, mesh, precise=not do_rerank)
-            if result is None:
-                logger.warning("Mesh size does not divide the IVF list "
-                               "count; falling back to the single-device "
-                               "list scan")
-        sims, neigh = result if result is not None else index.self_search(
-            k_ivf, n_probe=n_probe, tol_mass=precursor_tol_mass,
-            tol_mode=precursor_tol_mode, precise=not do_rerank)
+        with profiler.phase("ivf: probe"):
+            result = None
+            if mesh is not None:
+                result = ivf_search_sharded(
+                    index, k_ivf, n_probe, precursor_tol_mass,
+                    precursor_tol_mode, mesh, precise=not do_rerank)
+                if result is None:
+                    logger.warning("Mesh size does not divide the IVF list "
+                                   "count; falling back to the "
+                                   "single-device list scan")
+            sims, neigh = (result if result is not None
+                           else index.self_search(
+                               k_ivf, n_probe=n_probe,
+                               tol_mass=precursor_tol_mass,
+                               tol_mode=precursor_tol_mode,
+                               precise=not do_rerank))
+            if profiler.recording:
+                synchronize(dev)
         del index, plain
-        sims, neigh = sims[:, :k_ann], neigh[:, :k_ann].long()
-        if rt_tol is not None:
-            sims, neigh = _rt_filter(sims, neigh, rt_sorted, rt_tol)
-        synchronize(dev)
+        with profiler.phase("ivf: cut"):
+            sims, neigh = sims[:, :k_ann], neigh[:, :k_ann].long()
+            if rt_tol is not None:
+                sims, neigh = _rt_filter(sims, neigh, rt_sorted, rt_tol)
+            synchronize(dev)
     if not do_rerank:
         return sims.contiguous(), neigh, vectors
     del vectors
@@ -772,6 +782,7 @@ def _ivf_lists(mz_pad, int_pad, mz_sorted, rt_sorted, hasher, min_matches,
         # columns that the widest band can fill.
         real_k = max(min(int(spans.max(initial=1)) - 1, k_ann), 1)
         width = min(_pow2_at_least(real_k, 16), neigh.shape[1])
+        profiler.count("ann.rerank.width", width)
         ids = torch.full((mz_pad.shape[0], width), -1, dtype=torch.int64,
                          device=dev)
         ids[:n] = neigh[:, :width]

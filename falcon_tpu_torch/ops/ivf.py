@@ -27,6 +27,17 @@ Port of ``falcon_tpu/ops/ivf.py``, the index of ``--ann_index ivf``:
   (:meth:`IVFIndex.self_search`) maps slots to rows and rows to row order
   on the device.
 
+The index's build is two phases of ``utils/profiling.py``'s log, ``ivf:
+train`` (the training sample, the initial centroids and the k-means steps)
+and ``ivf: place`` (the rows' best lists, the balanced placement, the slab
+layout and its upload, synchronised while the recorder is on, so that its
+span holds the upload); while the recorder is on it counts
+``ivf.lists``, ``ivf.cap``, ``ivf.train_rows``, ``ivf.kmeans_steps``,
+``ivf.spilled_rows`` (rows placed outside their first list) and, a search,
+``ivf.chunks`` (probe-scan launches) and ``ivf.probes`` (query lists times
+their probes), and raises the gauge ``ivf.largest_list``; all are known on
+the host, so none waits for the card.
+
 The coarse space and the in-scan ranking are the caller's choice
 (``coarse_vectors``, ``rank_vectors``); the ann engine picks them by the
 JAX package's ``FALCON_TPU_IVF_COARSE`` and ``FALCON_TPU_IVF_RANK``.  The
@@ -43,7 +54,8 @@ import numpy as np
 import torch
 
 from . import _build
-from ..device import resolve_device
+from ..device import resolve_device, synchronize
+from ..utils.profiling import profiler
 from .knn import NEG, refuse_tf32, stable_topk
 from .matching import f32_tolerance
 from .medoids import _fma, segment_sums_plain
@@ -296,57 +308,72 @@ class IVFIndex:
         coarse_dev = (vectors_dev if coarse_vectors is None
                       else _on(coarse_vectors, dev))
         self._coarse = coarse_vectors is not None
-        # The quantizer trains on a power-of-two subsample, as the JAX
-        # package's; the initial centroids are rows drawn by NumPy's
-        # generator, so both packages start from the same rows.
-        sample = min(_bucket(self.n_lists * 128, 1024),
-                     _bucket(n, 512))
-        train_rows = (np.arange(sample) * max(n // sample, 1)) % n
-        init_rows = rng.choice(n, self.n_lists, replace=False)
-        train = coarse_dev[torch.from_numpy(train_rows).to(dev)].contiguous()
-        init = coarse_dev[torch.from_numpy(init_rows).to(dev)]
-        centroids_dev = _kmeans_fit(train, init, self.n_lists, n_iters)
-        del train, init
-        self.centroids = centroids_dev.cpu().numpy()
-        choices = _assign_topk(coarse_dev[:n], centroids_dev,
-                               min(8, self.n_lists)).cpu().numpy()
-        del coarse_dev  # never resident past init
-        # Capacity-capped balanced placement: the cap (2x the mean list
-        # size, pow2-bucketed) bounds the slab width, and hence the
-        # layout's memory.
-        cap = _bucket(2 * max(1, -(-n // self.n_lists)), 128)
-        self.order, counts = _balanced_placement(
-            choices, self.n_lists, cap)
-        self.mzs = np.asarray(precursor_mzs, np.float64)[self.order]
-        self.rows = self.order.astype(np.int32)
-        self.offsets = np.zeros(self.n_lists + 1, np.int64)
-        np.cumsum(counts, out=self.offsets[1:])
-        self._max_list = int(counts.max(initial=1))
-        self._lb = _bucket(self._max_list, 128)
-        idx3d, mz3d, row3d = self._pack_layout(
-            self.order, self.mzs, counts, self._lb, n)
-        store_dtype = torch.float32 if precise else torch.bfloat16
-        idx = torch.from_numpy(idx3d.astype(np.int64)).to(dev)
-        mask = torch.from_numpy((mz3d < np.inf).astype(np.float32)).to(dev)
-        self._corpus3d = _slabs(vectors_dev, idx, mask, store_dtype)
-        self._query3d = None
-        if rank_vectors is not None:
-            self._query3d = _slabs(_on(rank_vectors, dev), idx, mask,
-                                   store_dtype)
-        self._mz3d = torch.from_numpy(
-            mz3d.reshape(self.n_lists, self._lb)).to(dev)
-        self._row3d_host = row3d.reshape(self.n_lists, self._lb)
-        self._row3d = torch.from_numpy(self._row3d_host).to(dev)
-        # Each row's layout slot, the inverse of the row map: a
-        # self-search's lists go to row order by one gather.
-        rows_flat = self._row3d_host.reshape(-1)
-        slots = np.flatnonzero(rows_flat >= 0)
-        slot_of_row = np.empty(n, np.int64)
-        slot_of_row[rows_flat[slots]] = slots
-        self._slot_of_row = torch.from_numpy(slot_of_row).to(dev)
+        with profiler.phase("ivf: train"):
+            # The quantizer trains on a power-of-two subsample, as the JAX
+            # package's; the initial centroids are rows drawn by NumPy's
+            # generator, so both packages start from the same rows.
+            sample = min(_bucket(self.n_lists * 128, 1024),
+                         _bucket(n, 512))
+            train_rows = (np.arange(sample) * max(n // sample, 1)) % n
+            init_rows = rng.choice(n, self.n_lists, replace=False)
+            train = coarse_dev[
+                torch.from_numpy(train_rows).to(dev)].contiguous()
+            init = coarse_dev[torch.from_numpy(init_rows).to(dev)]
+            centroids_dev = _kmeans_fit(train, init, self.n_lists, n_iters)
+            del train, init
+            self.centroids = centroids_dev.cpu().numpy()
+        profiler.count("ivf.lists", self.n_lists)
+        profiler.count("ivf.train_rows", sample)
+        profiler.count("ivf.kmeans_steps", n_iters)
+        with profiler.phase("ivf: place"):
+            choices = _assign_topk(coarse_dev[:n], centroids_dev,
+                                   min(8, self.n_lists)).cpu().numpy()
+            del coarse_dev  # never resident past init
+            # Capacity-capped balanced placement: the cap (2x the mean list
+            # size, pow2-bucketed) bounds the slab width, and hence the
+            # layout's memory.
+            cap = _bucket(2 * max(1, -(-n // self.n_lists)), 128)
+            self.order, counts = _balanced_placement(
+                choices, self.n_lists, cap)
+            self.mzs = np.asarray(precursor_mzs, np.float64)[self.order]
+            self.rows = self.order.astype(np.int32)
+            self.offsets = np.zeros(self.n_lists + 1, np.int64)
+            np.cumsum(counts, out=self.offsets[1:])
+            self._max_list = int(counts.max(initial=1))
+            self._lb = _bucket(self._max_list, 128)
+            idx3d, mz3d, row3d = self._pack_layout(
+                self.order, self.mzs, counts, self._lb, n)
+            store_dtype = torch.float32 if precise else torch.bfloat16
+            idx = torch.from_numpy(idx3d.astype(np.int64)).to(dev)
+            mask = torch.from_numpy(
+                (mz3d < np.inf).astype(np.float32)).to(dev)
+            self._corpus3d = _slabs(vectors_dev, idx, mask, store_dtype)
+            self._query3d = None
+            if rank_vectors is not None:
+                self._query3d = _slabs(_on(rank_vectors, dev), idx, mask,
+                                       store_dtype)
+            self._mz3d = torch.from_numpy(
+                mz3d.reshape(self.n_lists, self._lb)).to(dev)
+            self._row3d_host = row3d.reshape(self.n_lists, self._lb)
+            self._row3d = torch.from_numpy(self._row3d_host).to(dev)
+            # Each row's layout slot, the inverse of the row map: a
+            # self-search's lists go to row order by one gather.
+            rows_flat = self._row3d_host.reshape(-1)
+            slots = np.flatnonzero(rows_flat >= 0)
+            slot_of_row = np.empty(n, np.int64)
+            slot_of_row[rows_flat[slots]] = slots
+            self._slot_of_row = torch.from_numpy(slot_of_row).to(dev)
+            if profiler.recording:
+                synchronize(dev)
         self._source = vectors_dev  # identity marker for self-search
         self._centroid_sims = self.centroids @ self.centroids.T
         self._probe_cache = {}
+        profiler.count("ivf.cap", cap)
+        profiler.level("ivf.largest_list", self._max_list)
+        if profiler.recording:
+            first = choices[self.order, 0]
+            placed = np.repeat(np.arange(self.n_lists), counts)
+            profiler.count("ivf.spilled_rows", int((placed != first).sum()))
 
     @staticmethod
     def _pack_layout(order, mzs_sorted, counts, lb, n):
@@ -379,11 +406,13 @@ class IVFIndex:
         """The chunked probe scan of a query layout against the index:
         (n_lists, qlb, k) scores and slots, on the index's device."""
         lb = self._lb
+        chunk = scan_chunk(self.n_lists, qlb, n_probe, lb)
+        profiler.count("ivf.chunks", self.n_lists // chunk)
+        profiler.count("ivf.probes", self.n_lists * n_probe)
         return _chunk_scan(
             q3d, qmz3d, qrow3d, self._corpus3d, self._mz3d, self._row3d,
             torch.from_numpy(self._probe_ids(n_probe)).to(self._device),
-            tol_mass, k, tol_mode == "Da",
-            scan_chunk(self.n_lists, qlb, n_probe, lb), int(qlb), int(lb),
+            tol_mass, k, tol_mode == "Da", chunk, int(qlb), int(lb),
             int(n_probe), bool(precise))
 
     def self_search(self, k: int, n_probe: int = 32,

@@ -14,9 +14,10 @@ recorder-only :meth:`~PhaseProfiler.span` as a :class:`Span` (start and
 end on ``time.time_ns``, thread, parent, root), and the counters:
 :meth:`~PhaseProfiler.count`, the nanosecond accumulators of
 :meth:`~PhaseProfiler.timer` and :meth:`~PhaseProfiler.timed`, and the
-gauges of :meth:`~PhaseProfiler.gauge`.  A span's parent is the innermost
-span open on its thread; work handed to another thread takes its parent
-through :meth:`~PhaseProfiler.bind`.  While recording is off a span
+gauges of :meth:`~PhaseProfiler.gauge` (blocks open at once) and
+:meth:`~PhaseProfiler.level` (a size seen).  A span's parent is the
+innermost span open on its thread; work handed to another thread takes its
+parent through :meth:`~PhaseProfiler.bind`.  While recording is off a span
 costs one flag test besides what a phase costs, and a counter, an
 accumulator or a gauge one flag test.
 
@@ -251,6 +252,15 @@ class PhaseProfiler:
         finally:
             with self._lock:
                 g[0] -= 1
+
+    def level(self, name: str, value: int) -> None:
+        """Raise the highest level the recording keeps for the gauge
+        ``name`` to ``value``: a size seen (a list's length), where
+        :meth:`gauge` counts blocks open at once."""
+        if self.recording:
+            with self._lock:
+                g = self._gauges.setdefault(name, [0, 0])
+                g[1] = max(g[1], value)
 
     def _bump(self, name: str, n: int) -> None:
         with self._lock:

@@ -1,0 +1,10 @@
+"""Spectra a second through whole passes (``cli.main``, MGF to CSV): the
+spectra of all the window's passes over the window's seconds on the host
+clock, the quotient the end-to-end ``spectra_per_s`` takes.  Per layer in
+the cells whose rate has no end-to-end bound yet."""
+
+
+def read(run):
+    if not run.passes or run.window_s <= 0:
+        return None
+    return run.spectra / run.window_s
