@@ -22,6 +22,7 @@ import numpy as np
 from .ms_io import ms_io
 from .preprocess import spectrum as prep
 from .store.store import SpectrumStore
+from .utils.profiling import profiler
 
 logger = logging.getLogger("falcon_tpu")
 
@@ -57,11 +58,12 @@ def read_and_process_file(
 
 def _read_processed(
     parse_path: str, record_filename: str, process_kwargs: Dict,
-    allow_native: bool = True,
+    allow_native: bool = True, by_charge: bool = False,
 ) -> FileResult:
     """Core of :func:`read_and_process_file`: parse ``parse_path`` (an
     on-disk, already-decompressed peak file) while recording
-    ``record_filename`` as each spectrum's origin."""
+    ``record_filename`` as each spectrum's origin.  ``by_charge`` groups
+    a native batch's rows by charge, for ``store.RunPlan``."""
     filename = record_filename
     lower = parse_path.lower()
     native_fmt = next((fmt for fmt in (".mgf", ".mzml", ".mzxml", ".msp")
@@ -73,7 +75,7 @@ def _read_processed(
                      ".mzml": native.mzml_ingest,
                      ".mzxml": native.mzxml_ingest,
                      ".msp": native.msp_ingest}[native_fmt]
-        batch = ingest_fn(parse_path, **process_kwargs)
+        batch = ingest_fn(parse_path, by_charge=by_charge, **process_kwargs)
         if (
             batch is not None
             and batch.get("n_read", 1) == 0
@@ -94,6 +96,7 @@ def _read_processed(
             )
             batch = None
         if batch is not None:
+            _count_ranges([batch])
             if batch.get("truncated"):
                 logger.warning(
                     "Failed to read file %s: truncated document "
@@ -129,70 +132,83 @@ _RANGE_MIN_BYTES = 16 * 2**20
 _RANGE_TARGET_BYTES = 8 * 2**20
 
 
-def _read_file_ranges(
-    filename: str, fmt: str, process_kwargs: Dict, budget: int,
-    record_filename: Optional[str] = None,
-) -> Optional[Tuple[List[dict], int]]:
-    """Parse one large peak file with ``budget`` concurrent native range
-    calls.
+def _ingest_ranges(
+    parse_path: str, fmt: str, process_kwargs: Dict, budget: int,
+    writer, filename: str,
+) -> Optional[Tuple[List[str], int, int]]:
+    """Parse one large peak file as ``budget`` concurrent native range
+    calls and write its shards as the ranges come in.
 
     The native range parsers release the GIL, so a thread pool gives
     real parse parallelism without process-spawn cost; per-range batches
     concatenate to the whole-file parse exactly (ownership by BEGIN IONS
     line offset for MGF and Name: line offset for MSP —
     ``native/falcon_ingest.cc`` — and by spectrum/scan open-tag offset
-    for mzML/mzXML — ``native/falcon_mzml.cc``).  Returns (columnar batches in file
-    order, low-quality count), or None when the native range entry is
-    unavailable (caller falls back to the single-range path).
+    for mzML/mzXML — ``native/falcon_mzml.cc``).  Each range's rows come
+    grouped by charge, and the ranges are planned into shards in file
+    order as they finish (``store.RunPlan``), so the shards of the first
+    ranges are written on the threads that parsed them while later ranges
+    still parse.  Returns (charge keys, spectra kept, low-quality count),
+    or None when the file is too small to split, the native library is
+    unavailable or the ranges find no spectrum at all; nothing is written
+    then, and the caller parses the file as one range.
     """
     from concurrent.futures import ThreadPoolExecutor
 
     from . import native
 
-    if record_filename is None:
-        record_filename = filename
+    size = os.path.getsize(parse_path)
+    n_ranges = min(budget, max(size // _RANGE_TARGET_BYTES, 1))
+    if n_ranges <= 1 or native.get_lib() is None:
+        return None
     ingest_fn = {".mgf": native.mgf_ingest,
                  ".mzml": native.mzml_ingest,
                  ".mzxml": native.mzxml_ingest,
                  ".msp": native.msp_ingest}[fmt]
-    size = os.path.getsize(filename)
-    n_ranges = min(budget, max(size // _RANGE_TARGET_BYTES, 1))
-    if n_ranges <= 1:
-        return None
     bounds = [size * i // n_ranges for i in range(n_ranges + 1)]
+    batches = []
     with ThreadPoolExecutor(max_workers=n_ranges) as pool:
-        batches = list(pool.map(
-            lambda i: ingest_fn(
-                filename, start=bounds[i], end=bounds[i + 1],
-                **process_kwargs,
-            ),
-            range(n_ranges),
-        ))
-    if any(b is None for b in batches):
-        return None
-    n_read = sum(b["n_read"] for b in batches)
-    # n_blocks > 0 with n_read == 0 = legitimately empty (e.g. MS1-only):
-    # fall through and return the empty batches without re-parsing the
-    # file two more times.
-    if (n_read == 0 and size > 0
-            and sum(b.get("n_blocks", 0) for b in batches) == 0):
-        return None  # unusual layout: let the single-range path decide
-    if any(b.get("truncated") for b in batches):
-        logger.warning(
-            "Failed to read file %s: truncated document "
-            "(parsed %d complete spectra)", filename, n_read,
-        )
-    n_unsupported = sum(b.get("n_unsupported", 0) for b in batches)
-    if n_unsupported > 0:
-        logger.warning(
-            "Skipped %d spectra with unsupported binary compression "
-            "(e.g. MS-Numpress) in %s", n_unsupported, filename,
-        )
-    for b in batches:
-        b["filename"] = np.repeat(np.array([record_filename]),
-                                  len(b["precursor_mz"]))
-    lqc = sum(b["n_low_quality"] for b in batches)
-    return [b for b in batches if len(b["precursor_mz"])], lqc
+        futures = [pool.submit(ingest_fn, parse_path, start=bounds[i],
+                               end=bounds[i + 1], by_charge=True,
+                               **process_kwargs)
+                   for i in range(n_ranges)]
+        plan = writer.plan_runs(filename, pool)
+        with profiler.phase("ingest: parse"):
+            for future in futures:
+                batch = future.result()
+                if batch is None:
+                    raise OSError(f"Cannot open {parse_path}")
+                batches.append(batch)
+                plan.add(batch)
+        _count_ranges(batches)
+        n_read = sum(b["n_read"] for b in batches)
+        # n_blocks > 0 with n_read == 0 = legitimately empty (e.g.
+        # MS1-only): go on, without parsing the file again.
+        if n_read == 0 and sum(b["n_blocks"] for b in batches) == 0:
+            return None  # unusual layout: let the single-range path decide
+        if any(b["truncated"] for b in batches):
+            logger.warning(
+                "Failed to read file %s: truncated document "
+                "(parsed %d complete spectra)", filename, n_read,
+            )
+        n_unsupported = sum(b["n_unsupported"] for b in batches)
+        if n_unsupported > 0:
+            logger.warning(
+                "Skipped %d spectra with unsupported binary compression "
+                "(e.g. MS-Numpress) in %s", n_unsupported, filename,
+            )
+        with profiler.phase("ingest: write"):
+            charges = plan.finish()
+    return (charges, sum(len(b["precursor_mz"]) for b in batches),
+            sum(b["n_low_quality"] for b in batches))
+
+
+def _count_ranges(batches: List[dict]) -> None:
+    """The recorder's counts of native range parses."""
+    profiler.count("ingest.ranges", len(batches))
+    profiler.count("ingest.topn_cut", sum(b["n_topn"] for b in batches))
+    profiler.count("ingest.titles_fallback",
+                   sum(b["titles_fallback"] for b in batches))
 
 
 def ingest_file_to_store(
@@ -219,8 +235,7 @@ def ingest_file_to_store(
     store = SpectrumStore(store_root)
     writer = store.writer(batch_size=10_000,
                           shard_prefix=f"{file_index:04d}_")
-    result: Union[List[dict], Dict[str, np.ndarray], None] = None
-    lqc = 0
+    ranged = None
     # Gzipped inputs decompress ONCE here so both the range-parallel
     # and single-range paths parse the same temp file; the original
     # .gz path is what the store records.
@@ -232,35 +247,35 @@ def ingest_file_to_store(
                     if lower.endswith(f)), None)
         if (range_budget > 1 and fmt is not None
                 and os.path.getsize(parse_path) >= _RANGE_MIN_BYTES):
-            ranged = _read_file_ranges(parse_path, fmt, process_kwargs,
-                                       range_budget,
-                                       record_filename=filename)
-            if ranged is not None:
-                batches, lqc = ranged
-                charges: set = set()
-                n_kept = 0
-                for batch in batches:  # file order -> deterministic shards
-                    n_kept += len(batch["precursor_mz"])
-                    charges.update(writer.add_batch(batch))
-                writer.close()
-                return sorted(charges), n_kept, lqc
-        result, lqc = _read_processed(parse_path, filename, process_kwargs)
+            ranged = _ingest_ranges(parse_path, fmt, process_kwargs,
+                                    range_budget, writer, filename)
+        if ranged is None:
+            with profiler.phase("ingest: parse"):
+                result, lqc = _read_processed(parse_path, filename,
+                                              process_kwargs, by_charge=True)
     finally:
         if tmp is not None:
             os.remove(tmp)
-    charges = set()
-    if isinstance(result, dict):
-        n_kept = len(result["precursor_mz"])
-        charges.update(writer.add_batch(result))
+    if ranged is not None:
+        charges, n_kept, lqc = ranged
     else:
-        n_kept = len(result)
-        from .store.store import charge_key
+        with profiler.phase("ingest: write"):
+            if isinstance(result, dict):
+                n_kept = len(result["precursor_mz"])
+                plan = writer.plan_runs(filename)
+                plan.add(result)
+                charges = plan.finish()
+            else:
+                n_kept = len(result)
+                from .store.store import charge_key
 
-        for spec in result:
-            charges.add(charge_key(spec["precursor_charge"]))
-            writer.add(spec)
-    writer.close()
-    return sorted(charges), n_kept, lqc
+                charges = sorted({charge_key(spec["precursor_charge"])
+                                  for spec in result})
+                writer.add_many(result)
+                writer.close()
+    profiler.count("ingest.spectra", n_kept)
+    profiler.count("ingest.shards", writer.shards_written)
+    return charges, n_kept, lqc
 
 
 def prepare_spectra(

@@ -163,6 +163,16 @@ def get_lib() -> Optional[ctypes.CDLL]:
         if hasattr(lib, "fc_result_n_unsupported"):
             lib.fc_result_n_unsupported.restype = ctypes.c_int64
             lib.fc_result_n_unsupported.argtypes = [ctypes.c_void_p]
+        for entry in ("fc_result_n_topn", "fc_result_title_width"):
+            getattr(lib, entry).restype = ctypes.c_int64
+            getattr(lib, entry).argtypes = [ctypes.c_void_p]
+        lib.fc_result_group_by_charge.restype = None
+        lib.fc_result_group_by_charge.argtypes = [ctypes.c_void_p]
+        lib.fc_result_titles_u32.restype = ctypes.c_int
+        lib.fc_result_titles_u32.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint32),
+            ctypes.c_int64,
+        ]
         for entry in ("fc_mzml_ingest", "fc_mzxml_ingest",
                       "fc_msp_ingest"):
             if hasattr(lib, entry):
@@ -390,6 +400,7 @@ def mgf_ingest(
     scaling: Optional[str] = None,
     start: Optional[int] = None,
     end: Optional[int] = None,
+    by_charge: bool = False,
 ) -> Optional[dict]:
     """Parse + preprocess an entire MGF file in the native library.
 
@@ -410,15 +421,21 @@ def mgf_ingest(
          "precursor_charge": i32 (n,) with _NULL_CHARGE_I32 for None,
          "retention_time": f64 (n,), "peak_offsets": i64 (n+1,),
          "mz": f32 flat, "intensity": f32 flat,
-         "n_read": int, "n_low_quality": int}
+         "n_read": int, "n_low_quality": int,
+         "n_topn": spectra the intensity filter cut to max_peaks_used,
+         "titles_fallback": whether the identifiers were decoded in
+         Python (a title that is not well-formed UTF-8)}
 
     or None when the native library (or the file) is unavailable — the
-    caller falls back to the Python path.
+    caller falls back to the Python path.  ``by_charge`` orders the rows
+    by store charge (``store.charge16``), each charge's rows in file order,
+    as ``store.RunPlan`` takes them.
     """
     return _native_ingest(filename, "fc_mgf_ingest", min_peaks,
                           min_mz_range, mz_min, mz_max,
                           remove_precursor_tolerance, min_intensity,
-                          max_peaks_used, scaling, start=start, end=end)
+                          max_peaks_used, scaling, start=start, end=end,
+                          by_charge=by_charge)
 
 
 def mzml_ingest(
@@ -433,6 +450,7 @@ def mzml_ingest(
     scaling: Optional[str] = None,
     start: Optional[int] = None,
     end: Optional[int] = None,
+    by_charge: bool = False,
 ) -> Optional[dict]:
     """Parse + preprocess an entire mzML file in the native library
     (``native/falcon_mzml.cc``); same batch contract as
@@ -445,7 +463,8 @@ def mzml_ingest(
     return _native_ingest(filename, "fc_mzml_ingest", min_peaks,
                           min_mz_range, mz_min, mz_max,
                           remove_precursor_tolerance, min_intensity,
-                          max_peaks_used, scaling, start=start, end=end)
+                          max_peaks_used, scaling, start=start, end=end,
+                          by_charge=by_charge)
 
 
 def mzxml_ingest(
@@ -460,6 +479,7 @@ def mzxml_ingest(
     scaling: Optional[str] = None,
     start: Optional[int] = None,
     end: Optional[int] = None,
+    by_charge: bool = False,
 ) -> Optional[dict]:
     """Parse + preprocess an entire mzXML file in the native library
     (``native/falcon_mzml.cc``); same batch contract as
@@ -469,7 +489,8 @@ def mzxml_ingest(
     return _native_ingest(filename, "fc_mzxml_ingest", min_peaks,
                           min_mz_range, mz_min, mz_max,
                           remove_precursor_tolerance, min_intensity,
-                          max_peaks_used, scaling, start=start, end=end)
+                          max_peaks_used, scaling, start=start, end=end,
+                          by_charge=by_charge)
 
 
 def msp_ingest(
@@ -484,6 +505,7 @@ def msp_ingest(
     scaling: Optional[str] = None,
     start: Optional[int] = None,
     end: Optional[int] = None,
+    by_charge: bool = False,
 ) -> Optional[dict]:
     """Parse + preprocess an entire MSP spectral library in the native
     library (``native/falcon_ingest.cc``, mirroring
@@ -494,23 +516,21 @@ def msp_ingest(
     return _native_ingest(filename, "fc_msp_ingest", min_peaks,
                           min_mz_range, mz_min, mz_max,
                           remove_precursor_tolerance, min_intensity,
-                          max_peaks_used, scaling, start=start, end=end)
+                          max_peaks_used, scaling, start=start, end=end,
+                          by_charge=by_charge)
 
 
 def _native_ingest(filename, entry, min_peaks, min_mz_range, mz_min,
                    mz_max, remove_precursor_tolerance, min_intensity,
-                   max_peaks_used, scaling, start=None,
-                   end=None) -> Optional[dict]:
+                   max_peaks_used, scaling, start=None, end=None,
+                   by_charge=False) -> Optional[dict]:
     lib = get_lib()
     if lib is None or not hasattr(lib, entry):
         return None
     is_xml = entry in ("fc_mzml_ingest", "fc_mzxml_ingest")
     range_args = ()
     if start is not None or end is not None:
-        range_entry = entry + "_range"
-        if not hasattr(lib, range_entry):
-            return None  # stale library build — caller falls back
-        entry = range_entry
+        entry += "_range"
         range_args = (ctypes.c_int64(start or 0),
                       ctypes.c_int64(-1 if end is None else end))
     counts = (ctypes.c_int64 * 7)()
@@ -539,10 +559,8 @@ def _native_ingest(filename, entry, min_peaks, min_mz_range, mz_min,
         )
         truncated = bool(counts[5]) if is_xml else False
         n_blocks = int(counts[6])
-        n_unsupported = (
-            int(lib.fc_result_n_unsupported(handle))
-            if hasattr(lib, "fc_result_n_unsupported") else 0
-        )
+        if by_charge:
+            lib.fc_result_group_by_charge(handle)
         precursor_mz = np.empty(n, np.float64)
         charge = np.empty(n, np.int32)
         rt = np.empty(n, np.float64)
@@ -564,20 +582,19 @@ def _native_ingest(filename, entry, min_peaks, min_mz_range, mz_min,
         )
         if rc != 0:
             raise RuntimeError("fc_mgf_result_copy failed")
+        identifiers = _identifiers(lib, handle, n)
+        titles_fallback = identifiers is None
+        if titles_fallback:
+            raw = titles.raw[:title_bytes]
+            identifiers = np.array([
+                raw[title_offsets[i]:title_offsets[i + 1]].decode(
+                    "utf-8", "replace")
+                for i in range(n)
+            ])
+        n_unsupported = int(lib.fc_result_n_unsupported(handle))
+        n_topn = int(lib.fc_result_n_topn(handle))
     finally:
         lib.fc_mgf_result_free(handle)
-    raw = titles.raw[:title_bytes]
-    identifiers = np.array(
-        [
-            raw[title_offsets[i]:title_offsets[i + 1]].decode(
-                "utf-8", "replace"
-            )
-            for i in range(n)
-        ],
-        dtype=object if n == 0 else None,
-    )
-    if n == 0:
-        identifiers = np.empty(0, dtype="U1")
     return {
         "identifier": identifiers,
         "precursor_mz": precursor_mz,
@@ -592,9 +609,31 @@ def _native_ingest(filename, entry, min_peaks, min_mz_range, mz_min,
         "n_blocks": n_blocks,
         # Spectra skipped for unsupported binary compression (numpress
         # etc.); ingest warns so a fully-numpress file is not silently
-        # dropped.  0 with a stale library build (symbol absent).
+        # dropped.
         "n_unsupported": n_unsupported,
+        "n_topn": n_topn,
+        "titles_fallback": titles_fallback,
     }
+
+
+def _identifiers(lib, handle, n: int) -> Optional[np.ndarray]:
+    """The titles of the result behind ``handle`` as the U array that
+    ``np.array`` of their decoded strings gives (its width the longest
+    title's code points, at least 1), made natively with no Python per
+    title; None where a title is not well-formed UTF-8."""
+    if n == 0:
+        return np.empty(0, dtype="U1")
+    width = int(lib.fc_result_title_width(handle))
+    if width < 0:
+        return None
+    width = max(width, 1)
+    block = np.empty(n * width, np.uint32)
+    rc = lib.fc_result_titles_u32(
+        handle, block.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        ctypes.c_int64(width))
+    if rc != 0:
+        raise RuntimeError("fc_result_titles_u32 failed")
+    return block.view(f"U{width}")
 
 
 def _u32_col(col) -> Optional[Tuple[np.ndarray, int]]:

@@ -22,9 +22,14 @@
 #include <cstring>
 #include <limits>
 #include <map>
+#include <memory>
 #include <numeric>
 #include <string>
 #include <vector>
+
+#include <fcntl.h>
+#include <sys/stat.h>
+#include <unistd.h>
 
 #include "falcon_ascii.h"
 
@@ -38,55 +43,106 @@ inline char ascii_upper(char c) { return falcon_ascii::upper(c); }
 inline char ascii_lower(char c) { return falcon_ascii::lower(c); }
 inline bool ascii_digit(char c) { return falcon_ascii::digit(c); }
 
-// Buffered line iterator over a file: fills a window with large freads
-// and splits lines with memchr — the per-line getline it replaced
-// measured ~1.8x slower on MGF scanning (per-line libc call + copy),
-// while staying robust to concurrent truncation (a short read is EOF;
-// an mmap of a shrinking file would SIGBUS the embedding process).
-// Returned [b, e) pointers are valid until the next next_line call.
-struct LineWindow {
-  explicit LineWindow(FILE* f, int64_t base) : f_(f), base_(base) {
-    window_.reserve(kChunk + 4096);
+// Line iterator over a byte range of a file, read with pread into one
+// window that is reused: reading the range into a buffer of its own size
+// costs the first touch of every page of it, which a window that stays
+// mapped (and cached) does not.  The bytes an unfinished line holds are
+// carried to the front of the window before the next read, so a line of
+// any length is whole when given out.  A short read is EOF, so a file
+// truncated meanwhile ends the scan, where an mmap of a shrinking file
+// would SIGBUS the embedding process.  Returned [b, e) pointers are valid
+// until the next next_line call.
+class RangeReader {
+ public:
+  // The lines from byte `start` on; reads stop short of `end` (< 0: the
+  // end of the file) by what the range's last lines need.  The partial
+  // line a mid-line `start` lands in belongs to the range before: the
+  // reader starts one byte early and drops the first line it finds, which
+  // ends at the first newline at or after start - 1.
+  RangeReader(int fd, int64_t start, int64_t end)
+      : fd_(fd), end_(end), base_(start > 0 ? start - 1 : 0) {
+    if (start > 0) {
+      const char* b;
+      const char* e;
+      int64_t line_start;
+      next_line(&b, &e, &line_start);
+    }
   }
 
   // Next line (without its trailing '\n').  Returns false at EOF.
   bool next_line(const char** b, const char** e, int64_t* line_start) {
     for (;;) {
-      const char* nl = static_cast<const char*>(
-          std::memchr(window_.data() + pos_, '\n', window_.size() - pos_));
+      const char* nl = len_ > pos_
+                           ? static_cast<const char*>(std::memchr(
+                                 buf_.get() + pos_, '\n', len_ - pos_))
+                           : nullptr;
       if (nl != nullptr) {
-        *b = window_.data() + pos_;
+        *b = buf_.get() + pos_;
         *e = nl;
         *line_start = base_ + static_cast<int64_t>(pos_);
-        pos_ = static_cast<size_t>(nl - window_.data()) + 1;
+        pos_ = static_cast<size_t>(nl - buf_.get()) + 1;
         return true;
       }
       if (eof_) {
-        if (pos_ >= window_.size()) return false;
-        *b = window_.data() + pos_;  // final line without newline
-        *e = window_.data() + window_.size();
+        if (pos_ >= len_) return false;
+        *b = buf_.get() + pos_;  // final line without newline
+        *e = buf_.get() + len_;
         *line_start = base_ + static_cast<int64_t>(pos_);
-        pos_ = window_.size();
+        pos_ = len_;
         return true;
       }
-      // Drop consumed bytes, then read more.
-      base_ += static_cast<int64_t>(pos_);
-      window_.erase(0, pos_);
-      pos_ = 0;
-      size_t old = window_.size();
-      window_.resize(old + kChunk);
-      size_t got = std::fread(&window_[old], 1, kChunk, f_);
-      window_.resize(old + got);
-      if (got == 0) eof_ = true;
+      refill();
     }
   }
 
+  // The bytes read and not yet given out, [*b, *e): whole lines, and a
+  // partial one at the end, for a caller that parses lines in place and
+  // hands back the start of the first line it did not take.
+  void rest(const char** b, const char** e) const {
+    *b = buf_.get() + pos_;
+    *e = buf_.get() + len_;
+  }
+  void take_to(const char* b) { pos_ = static_cast<size_t>(b - buf_.get()); }
+
  private:
-  static constexpr size_t kChunk = 4 << 20;
-  FILE* f_;
-  std::string window_;
-  size_t pos_ = 0;
-  int64_t base_;  // absolute file offset of window_[0]
+  static constexpr int64_t kWindow = 4 << 20;
+  static constexpr int64_t kSlack = 64 << 10;
+
+  // Keep the unread tail (a partial line), then read up to kWindow bytes
+  // after it: to the range's end and kSlack beyond, and past that only
+  // what finishes a line.
+  void refill() {
+    const size_t keep = len_ - pos_;
+    const int64_t at = base_ + static_cast<int64_t>(len_);
+    size_t want = static_cast<size_t>(
+        end_ < 0 ? kWindow
+                 : std::clamp<int64_t>(end_ + kSlack - at, kSlack, kWindow));
+    if (cap_ < keep + want) {
+      cap_ = keep + want;
+      std::unique_ptr<char[]> grown(new char[cap_]);
+      if (keep) std::memcpy(grown.get(), buf_.get() + pos_, keep);
+      buf_ = std::move(grown);
+    } else if (keep) {
+      std::memmove(buf_.get(), buf_.get() + pos_, keep);
+    }
+    base_ += static_cast<int64_t>(pos_);
+    pos_ = 0;
+    len_ = keep;
+    while (want > 0) {
+      ssize_t got = pread(fd_, buf_.get() + len_, want,
+                          base_ + static_cast<int64_t>(len_));
+      if (got <= 0) break;
+      len_ += static_cast<size_t>(got);
+      want -= static_cast<size_t>(got);
+    }
+    if (want > 0) eof_ = true;
+  }
+
+  int fd_;
+  int64_t end_;
+  std::unique_ptr<char[]> buf_;
+  size_t cap_ = 0, pos_ = 0, len_ = 0;
+  int64_t base_;  // absolute file offset of buf_[0]
   bool eof_ = false;
 };
 
@@ -110,6 +166,12 @@ struct IngestResult {
   // mzML/mzXML only) — surfaced via fc_result_n_unsupported so ingest
   // can warn instead of silently dropping a fully-numpress file.
   int64_t n_unsupported = 0;
+  // Spectra whose intensity filter cut them to the max_peaks_used most
+  // intense (fc_result_n_topn).
+  int64_t n_topn = 0;
+  // The order in which the copies give the rows out
+  // (fc_result_group_by_charge); empty: as parsed.
+  std::vector<int64_t> order;
 };
 
 struct Params {
@@ -131,6 +193,59 @@ bool parse_double(const char* begin, const char* end, double* out) {
   if (*begin == '+') ++begin;  // from_chars rejects a leading '+'
   auto res = std::from_chars(begin, end, *out);
   return res.ec == std::errc() && res.ptr == end;
+}
+
+// The common spelling of a number at [p, e): an optional '-', digits, and
+// optionally '.' and more digits, with at most 19 digits and a value
+// below 2^53.  That is w / 10^f for an integer w and f <= 22, both exact
+// doubles, so the one IEEE division rounds correctly and gives
+// from_chars' bits (Clinger's fast path).  Returns the end of the number
+// and its value, or nullptr for any other spelling.
+inline const char* fast_number(const char* p, const char* e, double* out) {
+  static constexpr double kPow10[] = {
+      1e0,  1e1,  1e2,  1e3,  1e4,  1e5,  1e6,  1e7,  1e8,  1e9,  1e10, 1e11,
+      1e12, 1e13, 1e14, 1e15, 1e16, 1e17, 1e18, 1e19, 1e20, 1e21, 1e22};
+  const bool neg = p < e && *p == '-';
+  p += neg;
+  const char* int_begin = p;
+  uint64_t w = 0;
+  while (p < e && ascii_digit(*p)) w = w * 10 + (*p++ - '0');
+  const int64_t n_int = p - int_begin;
+  int64_t n_frac = 0;
+  if (p < e && *p == '.') {
+    const char* frac_begin = ++p;
+    while (p < e && ascii_digit(*p)) w = w * 10 + (*p++ - '0');
+    n_frac = p - frac_begin;
+    if (n_frac == 0) return nullptr;
+  }
+  if (n_int == 0 || n_int + n_frac > 19 || w > (uint64_t{1} << 53) ||
+      n_frac > 22) {
+    return nullptr;
+  }
+  const double v = static_cast<double>(w) / kPow10[n_frac];
+  *out = neg ? -v : v;
+  return p;
+}
+
+// parse_double for a peak-line token, through fast_number where it can.
+inline bool parse_number(const char* begin, const char* end, double* out) {
+  return fast_number(begin, end, out) == end || parse_double(begin, end, out);
+}
+
+// A peak line at [p, e) in its common form: two fast_number spellings,
+// spaces or tabs between them, optional spaces, tabs or a carriage return
+// after, and its '\n' before e.  Returns the start of the next line and the
+// two values, or nullptr where the line needs the general parse (which
+// gives the same values where this one gives any).
+inline const char* fast_peak_line(const char* p, const char* e, double* m,
+                                  double* i) {
+  const char* q = fast_number(p, e, m);
+  if (q == nullptr || q == e || (*q != ' ' && *q != '\t')) return nullptr;
+  while (q < e && (*q == ' ' || *q == '\t')) ++q;
+  q = fast_number(q, e, i);
+  if (q == nullptr) return nullptr;
+  while (q < e && (*q == ' ' || *q == '\t' || *q == '\r')) ++q;
+  return q < e && *q == '\n' ? q + 1 : nullptr;
 }
 
 // mgf_io.py:_parse_charge — first whitespace token, rstrip ',', trailing
@@ -165,11 +280,62 @@ bool spectrum_valid(const std::vector<float>& mz, const Params& p) {
   return static_cast<double>(mz.back() - mz.front()) >= p.min_mz_range;
 }
 
+// Buffers one thread reuses from spectrum to spectrum, so that
+// preprocessing allocates nothing per spectrum, and its count of top-N cuts.
+struct Scratch {
+  std::vector<uint64_t> keyed;
+  std::vector<double> remove_mz;
+  int64_t n_topn = 0;
+};
+
+// A finite float and its position as one integer that orders as the pair
+// (value, position) does under float comparison: -0.0 and 0.0 tie.
+inline uint64_t order_key(float v, size_t position) {
+  uint32_t bits;
+  v = v == 0.0f ? 0.0f : v;
+  std::memcpy(&bits, &v, sizeof bits);
+  bits = bits & 0x80000000u ? ~bits : bits | 0x80000000u;
+  return (static_cast<uint64_t>(bits) << 32) | position;
+}
+
+// The k-th smallest of n distinct keys (from 0), reordering them:
+// quickselect whose partition moves every key by the same steps whatever
+// it compares to, so that a spectrum's few hundred comparisons cost no
+// mispredicted branch (std::nth_element's cost most of the
+// preprocessing).
+uint64_t select_kth(uint64_t* a, size_t n, size_t k) {
+  size_t lo = 0, hi = n;  // the k-th lies in [lo, hi)
+  while (hi - lo > 1) {
+    // Median of three as the pivot, parked at hi - 1.
+    size_t mid = lo + (hi - lo) / 2;
+    uint64_t x = a[lo], y = a[mid], z = a[hi - 1];
+    uint64_t pivot = std::max(std::min(x, y), std::min(std::max(x, y), z));
+    size_t at = pivot == x ? lo : pivot == y ? mid : hi - 1;
+    std::swap(a[at], a[hi - 1]);
+    size_t i = lo;
+    for (size_t j = lo; j + 1 < hi; ++j) {
+      const uint64_t v = a[j];
+      a[j] = a[i];
+      a[i] = v;
+      i += v < pivot;
+    }
+    std::swap(a[i], a[hi - 1]);
+    if (k == i) return pivot;
+    if (k < i) {
+      hi = i;
+    } else {
+      lo = i + 1;
+    }
+  }
+  return a[lo];
+}
+
 // The full preprocessing chain (preprocess/spectrum.py:136-200) on one
 // spectrum's float32 peak arrays (already m/z-sorted by MGF convention;
 // the Python path also assumes sorted input).  Returns false if rejected.
 bool preprocess(std::vector<float>& mz, std::vector<float>& inten,
-                double precursor_mz, int32_t charge, const Params& p) {
+                double precursor_mz, int32_t charge, const Params& p,
+                Scratch& scratch) {
   // 0. Non-finite gate (documented divergence, SURVEY.md §3.5): a
   // NaN/inf precursor m/z silently DISABLES the precursor-peak removal
   // below (every NaN comparison is false) and breaks the
@@ -215,8 +381,8 @@ bool preprocess(std::vector<float>& mz, std::vector<float>& inten,
   if (!std::isnan(p.remove_precursor_tol)) {
     int z = charge == kNullCharge ? 1 : std::max(static_cast<int>(charge), 1);
     double neutral_mass = (precursor_mz - kProton) * z;
-    std::vector<double> remove_mz;
-    remove_mz.reserve(z);
+    std::vector<double>& remove_mz = scratch.remove_mz;
+    remove_mz.clear();
     for (int c = z; c >= 1; --c) remove_mz.push_back(neutral_mass / c + kProton);
     size_t w = 0;
     for (size_t i = 0; i < mz.size(); ++i) {
@@ -241,24 +407,22 @@ bool preprocess(std::vector<float>& mz, std::vector<float>& inten,
 
   // 4. Intensity filtering (preprocess/spectrum.py:98-113): keep peaks
   //    with intensity strictly > min_intensity * base peak, then at most
-  //    the max_peaks_used most intense; stable ascending sort so ties
-  //    resolve by peak position.
+  //    the max_peaks_used most intense: the tail of a stable ascending
+  //    sort, so at a tie on the cut the later position is kept.
   if ((!std::isnan(p.min_intensity) || p.max_peaks_used > 0) &&
       !inten.empty()) {
     double min_int = std::isnan(p.min_intensity) ? 0.0 : p.min_intensity;
     size_t n = inten.size();
-    int64_t max_num = p.max_peaks_used > 0
-                          ? p.max_peaks_used : static_cast<int64_t>(n);
-    if (static_cast<int64_t>(n) <= max_num) {
-      // Common case (most spectra have fewer peaks than the cap): the
-      // top-N cut is inactive, so the sorted order is only needed for
-      // the base peak — the kept set is exactly "intensity strictly
-      // above min_int * base", in original order.  Skips the
-      // stable_sort, which dominates the preprocessing profile.
-      double base = static_cast<double>(
-          *std::max_element(inten.begin(), inten.end()));
-      double threshold = min_int * base;
-      size_t w = 0;
+    size_t max_num = p.max_peaks_used > 0
+                         ? static_cast<size_t>(p.max_peaks_used) : n;
+    double threshold = min_int * static_cast<double>(
+        *std::max_element(inten.begin(), inten.end()));
+    size_t above = 0;
+    for (float v : inten) above += static_cast<double>(v) > threshold;
+    size_t w = 0;
+    if (above <= max_num) {
+      // The cap cuts nothing: the kept set is every peak above the
+      // threshold, in original order.
       for (size_t i = 0; i < n; ++i) {
         if (static_cast<double>(inten[i]) > threshold) {
           mz[w] = mz[i];
@@ -266,38 +430,23 @@ bool preprocess(std::vector<float>& mz, std::vector<float>& inten,
           ++w;
         }
       }
-      mz.resize(w);
-      inten.resize(w);
     } else {
-      std::vector<int64_t> order(n);
-      std::iota(order.begin(), order.end(), 0);
-      std::stable_sort(order.begin(), order.end(),
-                       [&](int64_t a, int64_t b) {
-        return inten[a] < inten[b];
-      });
-      double threshold =
-          min_int * static_cast<double>(inten[order.back()]);
-      // side='right' searchsorted: first index with value > threshold.
-      int64_t start_i = 0;
-      while (start_i < static_cast<int64_t>(n) &&
-             static_cast<double>(inten[order[start_i]]) <= threshold) {
-        ++start_i;
+      // The max_num largest by (intensity, position), all above the
+      // threshold since more than max_num are: select the least of them
+      // and keep what does not order below it.
+      ++scratch.n_topn;
+      std::vector<uint64_t>& keyed = scratch.keyed;
+      keyed.resize(n);
+      for (size_t i = 0; i < n; ++i) keyed[i] = order_key(inten[i], i);
+      const uint64_t least = select_kth(keyed.data(), n, n - max_num);
+      for (size_t i = 0; i < n; ++i) {  // about half kept: no branch
+        mz[w] = mz[i];
+        inten[w] = inten[i];
+        w += order_key(inten[i], i) >= least;
       }
-      int64_t lo = std::max(start_i, static_cast<int64_t>(n) - max_num);
-      std::vector<uint8_t> keep(n, 0);
-      for (int64_t i = lo; i < static_cast<int64_t>(n); ++i)
-        keep[order[i]] = 1;
-      size_t w = 0;
-      for (size_t i = 0; i < n; ++i) {
-        if (keep[i]) {
-          mz[w] = mz[i];
-          inten[w] = inten[i];
-          ++w;
-        }
-      }
-      mz.resize(w);
-      inten.resize(w);
     }
+    mz.resize(w);
+    inten.resize(w);
     if (!spectrum_valid(mz, p)) return false;
   }
 
@@ -369,7 +518,7 @@ struct MgfParams {
 
 void finish_spectrum(IngestResult* res, const Params& p,
                      const MgfParams& prm, std::vector<float>& mz,
-                     std::vector<float>& inten) {
+                     std::vector<float>& inten, Scratch& scratch) {
   const bool have_title = prm.have_title, have_pepmass = prm.have_pepmass;
   const bool have_charge = prm.have_charge, have_rt = prm.have_rt;
   const std::string& title = prm.title;
@@ -399,7 +548,8 @@ void finish_spectrum(IngestResult* res, const Params& p,
   res->n_read += 1;
   // Non-finite RT ("RTINSECONDS=nan") would poison the RT-refinement
   // sort; missing RT is always the finite -1.0 (SURVEY.md §3.5).
-  if (!std::isfinite(rt) || !preprocess(mz, inten, pepmass, charge, p)) {
+  if (!std::isfinite(rt) ||
+      !preprocess(mz, inten, pepmass, charge, p, scratch)) {
     res->n_low_quality += 1;
     return;
   }
@@ -430,26 +580,30 @@ bool is_comment_start(char c) {
 // scan and the in-block param branch so the two stay in sync.
 void apply_mgf_param(const char* b, const char* e, const char* eq,
                      MgfParams* out) {
-  std::string key(b, eq);
-  size_t k0 = key.find_first_not_of(" \t");
-  size_t k1 = key.find_last_not_of(" \t");
-  key = k0 == std::string::npos ? "" : key.substr(k0, k1 - k0 + 1);
-  for (auto& c : key) c = ascii_upper(c);
-  std::string value(eq + 1, e);
-  size_t v0 = value.find_first_not_of(" \t");
-  size_t v1 = value.find_last_not_of(" \t");
-  value = v0 == std::string::npos ? "" : value.substr(v0, v1 - v0 + 1);
-  if (key == "TITLE") {
-    out->title = value;
+  auto tab_space = [](char c) { return c == ' ' || c == '\t'; };
+  const char* kb = b;
+  const char* ke = eq;
+  while (kb < ke && tab_space(*kb)) ++kb;
+  while (ke > kb && tab_space(ke[-1])) --ke;
+  const char* vb = eq + 1;
+  const char* ve = e;
+  while (vb < ve && tab_space(*vb)) ++vb;
+  while (ve > vb && tab_space(ve[-1])) --ve;
+  auto key_is = [&](const char* name) {
+    return static_cast<size_t>(ke - kb) == std::strlen(name) &&
+           istarts_with(kb, static_cast<size_t>(ke - kb), name);
+  };
+  if (key_is("TITLE")) {
+    out->title.assign(vb, ve);
     out->have_title = true;
-  } else if (key == "PEPMASS") {
-    out->pepmass = value;
+  } else if (key_is("PEPMASS")) {
+    out->pepmass.assign(vb, ve);
     out->have_pepmass = true;
-  } else if (key == "RTINSECONDS") {
-    out->rt = value;
+  } else if (key_is("RTINSECONDS")) {
+    out->rt.assign(vb, ve);
     out->have_rt = true;
-  } else if (key == "CHARGE") {
-    out->charge = value;
+  } else if (key_is("CHARGE")) {
+    out->charge.assign(vb, ve);
     out->have_charge = true;
   }
 }
@@ -575,7 +729,8 @@ const std::string* msp_get(const std::map<std::string, std::string>& m,
 
 // msp_io._make_spectrum: Name + a precursor m/z required; malformed
 // entries skipped silently (not counted as read).
-void msp_finish(IngestResult* res, const Params& p, MspEntry* e) {
+void msp_finish(IngestResult* res, const Params& p, MspEntry* e,
+                Scratch& scratch) {
   if (!e->started || e->malformed) return;
   auto name_it = e->fields.find("name");
   if (name_it == e->fields.end()) return;
@@ -639,7 +794,7 @@ void msp_finish(IngestResult* res, const Params& p, MspEntry* e) {
     e->inten = std::move(i2);
   }
   if (!std::isfinite(rt) ||
-      !preprocess(e->mz, e->inten, precursor_mz, charge, p)) {
+      !preprocess(e->mz, e->inten, precursor_mz, charge, p, scratch)) {
     res->n_low_quality += 1;
     return;
   }
@@ -655,27 +810,65 @@ void msp_finish(IngestResult* res, const Params& p, MspEntry* e) {
   res->peak_offsets.push_back(static_cast<int64_t>(res->mz.size()));
 }
 
-// Fill out_counts from a (possibly empty) result and hand it back —
-// used when a range seek lands past EOF so the caller still gets a
-// well-formed empty handle rather than NULL ("cannot open").
-void* res_counts_empty(IngestResult* res, int64_t* out_counts) {
-  out_counts[0] = static_cast<int64_t>(res->precursor_mz.size());
-  out_counts[1] = static_cast<int64_t>(res->mz.size());
-  out_counts[2] = static_cast<int64_t>(res->title_bytes.size());
-  out_counts[3] = res->n_read;
-  out_counts[4] = res->n_low_quality;
-  out_counts[5] = 0;
-  out_counts[6] = 0;
-  return res;
+// Decode well-formed UTF-8 (Unicode's table 3-7, which Python's decoder
+// follows) into code points at `out` (when not null, at most `cap` of
+// them); returns their count, or -1 at the first ill-formed sequence.
+int64_t utf8_decode(const unsigned char* s, const unsigned char* e,
+                    uint32_t* out, int64_t cap = 0) {
+  int64_t n = 0;
+  while (s < e) {
+    uint32_t c = *s;
+    int more;
+    unsigned char lo = 0x80, hi = 0xBF;  // bounds of the second byte
+    if (c < 0x80) {
+      more = 0;
+    } else if (c >= 0xC2 && c <= 0xDF) {
+      more = 1;
+      c &= 0x1F;
+    } else if (c >= 0xE0 && c <= 0xEF) {
+      more = 2;
+      if (c == 0xE0) lo = 0xA0;
+      if (c == 0xED) hi = 0x9F;
+      c &= 0x0F;
+    } else if (c >= 0xF0 && c <= 0xF4) {
+      more = 3;
+      if (c == 0xF0) lo = 0x90;
+      if (c == 0xF4) hi = 0x8F;
+      c &= 0x07;
+    } else {
+      return -1;
+    }
+    if (e - s <= more) return -1;
+    for (int k = 1; k <= more; ++k) {
+      unsigned char b = s[k];
+      if (b < (k == 1 ? lo : 0x80) || b > (k == 1 ? hi : 0xBF)) return -1;
+      c = (c << 6) | (b & 0x3F);
+    }
+    s += more + 1;
+    if (out != nullptr) {
+      if (n >= cap) return -1;
+      out[n] = c;
+    }
+    ++n;
+  }
+  return n;
 }
+
+thread_local Scratch tl_scratch;
 
 }  // namespace
 
 extern "C" {
 
+// Spectra the calling thread's fc_preprocess_spectrum calls have cut to
+// max_peaks_used so far: a sibling parser reads it before and after a
+// parse.
+int64_t fc_preprocess_topn() { return tl_scratch.n_topn; }
+
 // Preprocessing hook for sibling parsers (falcon_mzml.cc): runs the full
 // chain in place on (mz, inten, *n) and shrinks *n; returns false when
-// the spectrum fails a quality gate.
+// the spectrum fails a quality gate.  Its buffers and its count of top-N
+// cuts (fc_preprocess_topn) are the calling thread's.
 bool fc_preprocess_spectrum(float* mz_arr, float* int_arr, int64_t* n,
                             double precursor_mz, int32_t charge,
                             int min_peaks, double min_mz_range,
@@ -687,7 +880,8 @@ bool fc_preprocess_spectrum(float* mz_arr, float* int_arr, int64_t* n,
            remove_precursor_tol, min_intensity, max_peaks_used, scaling};
   std::vector<float> mz(mz_arr, mz_arr + *n);
   std::vector<float> inten(int_arr, int_arr + *n);
-  if (!preprocess(mz, inten, precursor_mz, charge, p)) return false;
+  if (!preprocess(mz, inten, precursor_mz, charge, p, tl_scratch))
+    return false;
   std::memcpy(mz_arr, mz.data(), mz.size() * sizeof(float));
   std::memcpy(int_arr, inten.data(), inten.size() * sizeof(float));
   *n = static_cast<int64_t>(mz.size());
@@ -718,31 +912,21 @@ void* fc_mgf_ingest_range(const char* path, int64_t start, int64_t end,
                           double remove_precursor_tol, double min_intensity,
                           int max_peaks_used, int scaling,
                           int64_t* out_counts) {
-  FILE* f = std::fopen(path, "rb");
-  if (!f) return nullptr;
+  int fd = open(path, O_RDONLY | O_CLOEXEC);
+  if (fd < 0) return nullptr;
   Params p{min_peaks, min_mz_range, mz_min, mz_max,
            remove_precursor_tol, min_intensity, max_peaks_used, scaling};
   auto* res = new IngestResult();
-
-  int64_t base = 0;
-  if (start > 0) {
-    // A range that begins mid-line must not see that partial line: peek
-    // at the byte before `start` — if it is not a newline, the line
-    // containing `start` began earlier and belongs to the previous
-    // range, so skip to the next line.
-    if (std::fseek(f, static_cast<long>(start - 1), SEEK_SET) != 0) {
-      std::fclose(f);
-      return res_counts_empty(res, out_counts);
-    }
-    int prev = std::fgetc(f);
-    base = start;
-    if (prev != '\n' && prev != EOF) {
-      int c;
-      while ((c = std::fgetc(f)) != EOF) {
-        ++base;
-        if (c == '\n') break;
-      }
-    }
+  {
+    // Room for the kept peaks of a range of peak lines, so that the
+    // arrays are not copied as they grow (what is never touched costs no
+    // memory): a peak line takes 16 bytes or more in practice.
+    struct stat st;
+    int64_t bytes = end >= 0                 ? end - start
+                    : fstat(fd, &st) == 0 ? st.st_size - start
+                                          : 0;
+    res->mz.reserve(static_cast<size_t>(std::max<int64_t>(bytes / 16, 0)));
+    res->intensity.reserve(res->mz.capacity());
   }
 
   MgfParams hdr;
@@ -755,8 +939,31 @@ void* fc_mgf_ingest_range(const char* path, int64_t start, int64_t end,
   std::vector<float> mz, inten;
   mz.reserve(4096);
   inten.reserve(4096);
+  Scratch scratch;
 
-  LineWindow lines(f, base);
+  // A peak line: at least two whitespace tokens, fewer skip the line; a
+  // token that does not parse skips the whole spectrum silently, as the
+  // Python parser does (and pyteomics, raising inside the reference's
+  // loop).  Once the block is malformed its lines need no parse.
+  auto peak_line = [&](const char* b, const char* e) {
+    if (malformed) return;
+    const char* s = b;
+    while (s < e && !ascii_space(*s)) ++s;
+    const char* tok0_e = s;
+    while (s < e && ascii_space(*s)) ++s;
+    const char* tok1_b = s;
+    while (s < e && !ascii_space(*s)) ++s;
+    if (tok1_b == s) return;
+    double m, i;
+    if (parse_number(b, tok0_e, &m) && parse_number(tok1_b, s, &i)) {
+      mz.push_back(static_cast<float>(m));
+      inten.push_back(static_cast<float>(i));
+    } else {
+      malformed = true;
+    }
+  };
+
+  RangeReader lines(fd, start, end);
   const char* b;
   const char* e;
   int64_t line_start;
@@ -764,9 +971,29 @@ void* fc_mgf_ingest_range(const char* path, int64_t start, int64_t end,
     // strip() both ends.
     while (b < e && ascii_space(*b)) ++b;
     while (e > b && ascii_space(e[-1])) --e;
-    if (b == e || is_comment_start(*b)) continue;
+    if (b == e) continue;
+    // A line that starts like a number is neither BEGIN nor END IONS nor
+    // a parameter: a peak line inside a block, ignored outside one.
+    if (ascii_digit(*b) || *b == '-') {
+      if (!in_ions) continue;
+      peak_line(b, e);
+      // Peak lines come one after another: parse those in the common form
+      // in place, with no line split, up to the first that is not.
+      if (malformed) continue;
+      const char* p;
+      const char* rest_end;
+      lines.rest(&p, &rest_end);
+      double m, i;
+      while (const char* next = fast_peak_line(p, rest_end, &m, &i)) {
+        mz.push_back(static_cast<float>(m));
+        inten.push_back(static_cast<float>(i));
+        p = next;
+      }
+      lines.take_to(p);
+      continue;
+    }
+    if (is_comment_start(*b)) continue;
     size_t len = static_cast<size_t>(e - b);
-
     if (istarts_with(b, len, "BEGIN IONS")) {
       if (end >= 0 && line_start >= end) break;  // next range owns it
       ++n_blocks;
@@ -778,39 +1005,20 @@ void* fc_mgf_ingest_range(const char* path, int64_t start, int64_t end,
       inten.clear();
     } else if (istarts_with(b, len, "END IONS")) {
       if (in_ions && !malformed) {
-        finish_spectrum(res, p, cur, mz, inten);
+        finish_spectrum(res, p, cur, mz, inten, scratch);
       }
       in_ions = false;
     } else if (in_ions) {
       const char* eq = static_cast<const char*>(std::memchr(b, '=', len));
-      bool first_digit = ascii_digit(b[0]) || b[0] == '-';
-      if (eq && !first_digit) {
+      if (eq) {
         apply_mgf_param(b, e, eq, &cur);
       } else {
-        // Peak line: >= 2 whitespace tokens; parse failures skip the line.
-        const char* s = b;
-        const char* tok0_b = s;
-        while (s < e && !ascii_space(*s)) ++s;
-        const char* tok0_e = s;
-        while (s < e && ascii_space(*s)) ++s;
-        const char* tok1_b = s;
-        while (s < e && !ascii_space(*s)) ++s;
-        const char* tok1_e = s;
-        if (tok1_b == tok1_e) continue;  // fewer than 2 tokens
-        double m, i;
-        if (parse_double(tok0_b, tok0_e, &m) &&
-            parse_double(tok1_b, tok1_e, &i)) {
-          mz.push_back(static_cast<float>(m));
-          inten.push_back(static_cast<float>(i));
-        } else {
-          // Mirrors the Python parser (and pyteomics raising inside the
-          // reference's loop): the whole spectrum is skipped silently.
-          malformed = true;
-        }
+        peak_line(b, e);
       }
     }
   }
-  std::fclose(f);
+  close(fd);
+  res->n_topn = scratch.n_topn;
 
   out_counts[0] = static_cast<int64_t>(res->precursor_mz.size());
   out_counts[1] = static_cast<int64_t>(res->mz.size());
@@ -841,34 +1049,16 @@ void* fc_msp_ingest_range(const char* path, int64_t start, int64_t end,
                           double remove_precursor_tol, double min_intensity,
                           int max_peaks_used, int scaling,
                           int64_t* out_counts) {
-  FILE* f = std::fopen(path, "rb");
-  if (!f) return nullptr;
+  int fd = open(path, O_RDONLY | O_CLOEXEC);
+  if (fd < 0) return nullptr;
   Params p{min_peaks, min_mz_range, mz_min, mz_max,
            remove_precursor_tol, min_intensity, max_peaks_used, scaling};
   auto* res = new IngestResult();
-
-  int64_t base = 0;
-  if (start > 0) {
-    // Skip the partial line a mid-line range start would otherwise see
-    // (same contract as fc_mgf_ingest_range).
-    if (std::fseek(f, static_cast<long>(start - 1), SEEK_SET) != 0) {
-      std::fclose(f);
-      return res_counts_empty(res, out_counts);
-    }
-    int prev = std::fgetc(f);
-    base = start;
-    if (prev != '\n' && prev != EOF) {
-      int c;
-      while ((c = std::fgetc(f)) != EOF) {
-        ++base;
-        if (c == '\n') break;
-      }
-    }
-  }
+  Scratch scratch;
 
   MspEntry entry;
   int64_t n_blocks = 0;
-  LineWindow lines(f, base);
+  RangeReader lines(fd, start, end);
   const char* b;
   const char* e;
   int64_t line_start;
@@ -879,7 +1069,7 @@ void* fc_msp_ingest_range(const char* path, int64_t start, int64_t end,
       // Blank line: ends the peak list (entry boundary); tolerated
       // between header fields.
       if (entry.in_peaks) {
-        msp_finish(res, p, &entry);
+        msp_finish(res, p, &entry, scratch);
         entry = MspEntry();
       }
       continue;
@@ -904,7 +1094,7 @@ void* fc_msp_ingest_range(const char* path, int64_t start, int64_t end,
         // A new Name ends the previous entry — whether in its header
         // or its peak list.
         if (end >= 0 && line_start >= end) break;  // next range owns it
-        msp_finish(res, p, &entry);
+        msp_finish(res, p, &entry, scratch);
         entry = MspEntry();
         entry.started = true;
         entry.fields["name"] = value;
@@ -954,8 +1144,9 @@ void* fc_msp_ingest_range(const char* path, int64_t start, int64_t end,
     }
     // No colon outside a peak list: ignored, like the Python reader.
   }
-  std::fclose(f);
-  msp_finish(res, p, &entry);
+  close(fd);
+  msp_finish(res, p, &entry, scratch);
+  res->n_topn = scratch.n_topn;
 
   out_counts[0] = static_cast<int64_t>(res->precursor_mz.size());
   out_counts[1] = static_cast<int64_t>(res->mz.size());
@@ -987,19 +1178,39 @@ int fc_mgf_result_copy(void* handle, double* precursor_mz, int32_t* charge,
   if (!handle) return 1;
   auto* res = static_cast<IngestResult*>(handle);
   size_t n = res->precursor_mz.size();
-  std::memcpy(precursor_mz, res->precursor_mz.data(), n * sizeof(double));
-  std::memcpy(charge, res->precursor_charge.data(), n * sizeof(int32_t));
-  std::memcpy(retention_time, res->retention_time.data(),
-              n * sizeof(double));
-  std::memcpy(peak_offsets, res->peak_offsets.data(),
-              (n + 1) * sizeof(int64_t));
-  std::memcpy(mz, res->mz.data(), res->mz.size() * sizeof(float));
-  std::memcpy(intensity, res->intensity.data(),
-              res->intensity.size() * sizeof(float));
-  std::memcpy(title_offsets, res->title_offsets.data(),
-              (n + 1) * sizeof(int64_t));
-  std::memcpy(title_bytes, res->title_bytes.data(),
-              res->title_bytes.size());
+  if (res->order.empty()) {
+    std::memcpy(precursor_mz, res->precursor_mz.data(), n * sizeof(double));
+    std::memcpy(charge, res->precursor_charge.data(), n * sizeof(int32_t));
+    std::memcpy(retention_time, res->retention_time.data(),
+                n * sizeof(double));
+    std::memcpy(peak_offsets, res->peak_offsets.data(),
+                (n + 1) * sizeof(int64_t));
+    std::memcpy(mz, res->mz.data(), res->mz.size() * sizeof(float));
+    std::memcpy(intensity, res->intensity.data(),
+                res->intensity.size() * sizeof(float));
+    std::memcpy(title_offsets, res->title_offsets.data(),
+                (n + 1) * sizeof(int64_t));
+    std::memcpy(title_bytes, res->title_bytes.data(),
+                res->title_bytes.size());
+    return 0;
+  }
+  peak_offsets[0] = title_offsets[0] = 0;
+  for (size_t k = 0; k < n; ++k) {
+    const int64_t i = res->order[k];
+    precursor_mz[k] = res->precursor_mz[i];
+    charge[k] = res->precursor_charge[i];
+    retention_time[k] = res->retention_time[i];
+    const int64_t p0 = res->peak_offsets[i], p1 = res->peak_offsets[i + 1];
+    std::memcpy(mz + peak_offsets[k], res->mz.data() + p0,
+                (p1 - p0) * sizeof(float));
+    std::memcpy(intensity + peak_offsets[k], res->intensity.data() + p0,
+                (p1 - p0) * sizeof(float));
+    peak_offsets[k + 1] = peak_offsets[k] + (p1 - p0);
+    const int64_t t0 = res->title_offsets[i], t1 = res->title_offsets[i + 1];
+    std::memcpy(title_bytes + title_offsets[k], res->title_bytes.data() + t0,
+                t1 - t0);
+    title_offsets[k + 1] = title_offsets[k] + (t1 - t0);
+  }
   return 0;
 }
 
@@ -1012,6 +1223,73 @@ void fc_mgf_result_free(void* handle) {
 // a stale library build degrades to "no warning", never to a crash.
 int64_t fc_result_n_unsupported(void* handle) {
   return static_cast<IngestResult*>(handle)->n_unsupported;
+}
+
+// Spectra of the parse behind `handle` that the intensity filter cut to
+// max_peaks_used.
+int64_t fc_result_n_topn(void* handle) {
+  return static_cast<IngestResult*>(handle)->n_topn;
+}
+
+// Give the rows of the result behind `handle` out (fc_mgf_result_copy,
+// fc_result_titles_u32) so that the rows of one store charge come
+// together, in ascending order of that charge and each in file order: the
+// order in which the store writes a batch.  The store charge is the charge
+// cast to int16, with a missing charge (and the int16 sentinel itself) at
+// INT16_MIN.
+void fc_result_group_by_charge(void* handle) {
+  auto* r = static_cast<IngestResult*>(handle);
+  const size_t n = r->precursor_mz.size();
+  std::vector<int16_t> key(n);
+  bool grouped = true;
+  for (size_t i = 0; i < n; ++i) {
+    int32_t c = r->precursor_charge[i];
+    key[i] = c == kNullCharge || c == INT16_MIN ? INT16_MIN
+                                                : static_cast<int16_t>(c);
+    grouped = grouped && (i == 0 || key[i - 1] <= key[i]);
+  }
+  r->order.clear();
+  if (grouped) return;
+  r->order.resize(n);
+  std::iota(r->order.begin(), r->order.end(), 0);
+  std::stable_sort(r->order.begin(), r->order.end(),
+                   [&](int64_t a, int64_t b) { return key[a] < key[b]; });
+}
+
+// Width in code points of the longest title of the result behind `handle`
+// (what NumPy's U dtype of the decoded titles takes), or -1 where a title
+// is not well-formed UTF-8, so that decode("utf-8", "replace") would
+// replace some of its bytes.
+int64_t fc_result_title_width(void* handle) {
+  auto* r = static_cast<IngestResult*>(handle);
+  const auto* bytes =
+      reinterpret_cast<const unsigned char*>(r->title_bytes.data());
+  int64_t width = 0;
+  for (size_t i = 0; i + 1 < r->title_offsets.size(); ++i) {
+    int64_t n = utf8_decode(bytes + r->title_offsets[i],
+                            bytes + r->title_offsets[i + 1], nullptr);
+    if (n < 0) return -1;
+    width = std::max(width, n);
+  }
+  return width;
+}
+
+// The titles as UCS4 code points, `width` a title, zero-padded: the bytes
+// of a NumPy U{width} array.  `width` is at least fc_result_title_width's.
+int fc_result_titles_u32(void* handle, uint32_t* out, int64_t width) {
+  auto* r = static_cast<IngestResult*>(handle);
+  const auto* bytes =
+      reinterpret_cast<const unsigned char*>(r->title_bytes.data());
+  const size_t n = r->title_offsets.size() - 1;
+  std::memset(out, 0, n * width * sizeof(uint32_t));
+  for (size_t k = 0; k < n; ++k) {
+    const int64_t i = r->order.empty() ? static_cast<int64_t>(k) : r->order[k];
+    int64_t got = utf8_decode(bytes + r->title_offsets[i],
+                              bytes + r->title_offsets[i + 1],
+                              out + k * width, width);
+    if (got < 0) return 1;
+  }
+  return 0;
 }
 
 }  // extern "C"

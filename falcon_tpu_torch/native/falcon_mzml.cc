@@ -55,6 +55,8 @@ struct IngestResult {
   // etc.) — surfaced so ingest can warn instead of silently
   // dropping a fully-numpress file.
   int64_t n_unsupported = 0;
+  int64_t n_topn = 0;  // spectra cut to max_peaks_used
+  std::vector<int64_t> order;  // the copies' row order; empty: as parsed
 };
 
 struct Params {
@@ -77,6 +79,8 @@ extern "C" bool fc_preprocess_spectrum(float* mz, float* inten, int64_t* n,
                                        double remove_precursor_tol,
                                        double min_intensity,
                                        int max_peaks_used, int scaling);
+// The calling thread's count of top-N cuts so far (falcon_ingest.cc).
+extern "C" int64_t fc_preprocess_topn();
 
 namespace {
 
@@ -553,6 +557,7 @@ void* fc_mzml_ingest_range(const char* path, int64_t start, int64_t end,
   Params p{min_peaks, min_mz_range, mz_min, mz_max,
            remove_precursor_tol, min_intensity, max_peaks_used, scaling};
   auto* res = new IngestResult();
+  const int64_t topn0 = fc_preprocess_topn();
   int64_t n_blocks = 0;  // structural <spectrum> elements found (any
                          // MS level) — distinguishes "scanner saw
                          // nothing" from "file has no MS2 spectra"
@@ -563,6 +568,7 @@ void* fc_mzml_ingest_range(const char* path, int64_t start, int64_t end,
         parse_spectrum_block(block, p, res);
       });
   std::fclose(f);
+  res->n_topn = fc_preprocess_topn() - topn0;
 
   out_counts[0] = static_cast<int64_t>(res->precursor_mz.size());
   out_counts[1] = static_cast<int64_t>(res->mz.size());
@@ -813,6 +819,7 @@ void* fc_mzxml_ingest_range(const char* path, int64_t start, int64_t end,
   Params p{min_peaks, min_mz_range, mz_min, mz_max,
            remove_precursor_tol, min_intensity, max_peaks_used, scaling};
   auto* res = new IngestResult();
+  const int64_t topn0 = fc_preprocess_topn();
   int64_t n_blocks = 0;  // structural <scan> elements found (any level)
   bool truncated = scan_blocks_range(
       f, start, end, "<scan", "</scan>", true,
@@ -821,6 +828,7 @@ void* fc_mzxml_ingest_range(const char* path, int64_t start, int64_t end,
         parse_scan_block(block, p, res);
       });
   std::fclose(f);
+  res->n_topn = fc_preprocess_topn() - topn0;
 
   out_counts[0] = static_cast<int64_t>(res->precursor_mz.size());
   out_counts[1] = static_cast<int64_t>(res->mz.size());

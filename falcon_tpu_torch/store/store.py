@@ -53,6 +53,20 @@ def charge_key(charge: Optional[int]) -> str:
     return "None" if charge is None else str(int(charge))
 
 
+def charge16(raw_charge) -> np.ndarray:
+    """The stored charge column of raw charges: int16, with
+    ``NULL_CHARGE`` where the charge is missing (``NULL_CHARGE`` or the
+    native int32 sentinel)."""
+    raw_charge = np.asarray(raw_charge)
+    null_mask = (raw_charge == -(2**31)) | (raw_charge == NULL_CHARGE)
+    return np.where(null_mask, NULL_CHARGE, raw_charge).astype(np.int16)
+
+
+def _stored_key(charge_val) -> str:
+    """``charge_key`` of a stored (int16) charge."""
+    return "None" if charge_val == NULL_CHARGE else str(int(charge_val))
+
+
 class ShardWriter:
     """Buffers processed-spectrum dicts per charge and writes shards.
 
@@ -72,12 +86,9 @@ class ShardWriter:
         self.shard_prefix = shard_prefix
         self._shard_counts: Dict[str, int] = {}
         self._buffers: Dict[str, List[dict]] = {}
-        # Columnar fast path: per-charge lists of column-dict chunks plus
-        # buffered row counts (fed by ``add_batch``).
-        self._col_buffers: Dict[str, List[Dict[str, np.ndarray]]] = {}
-        self._col_counts: Dict[str, int] = {}
         self._locks: Dict[str, threading.Lock] = {}
         self._global_lock = threading.Lock()
+        self.shards_written = 0
         os.makedirs(root, exist_ok=True)
 
     def _charge_lock(self, key: str) -> threading.Lock:
@@ -100,62 +111,14 @@ class ShardWriter:
         for spec in specs:
             self.add(spec)
 
-    def add_batch(self, batch: Dict[str, np.ndarray]) -> List[str]:
-        """Append a columnar batch, partitioned by precursor charge.
-
-        ``batch`` holds the columns produced by the native ingest fast
-        path (``native.mgf_ingest`` plus a ``filename`` unicode column):
-        ``identifier``/``filename`` (unicode), ``precursor_mz`` (f64),
-        ``precursor_charge`` (int-like; ``NULL_CHARGE`` or the native
-        int32 sentinel marks a missing charge), ``retention_time`` (f64),
-        ``peak_offsets`` (i64, n+1), ``mz``/``intensity`` (f32 flat).
-
-        Returns the charge keys seen in the batch.
-        """
-        offsets = np.asarray(batch["peak_offsets"], np.int64)
-        n = len(offsets) - 1
-        if n <= 0:
-            return []
-        lengths = np.diff(offsets)
-        raw_charge = np.asarray(batch["precursor_charge"])
-        null_mask = (raw_charge == -(2**31)) | (raw_charge == NULL_CHARGE)
-        charge16 = np.where(null_mask, NULL_CHARGE, raw_charge).astype(
-            np.int16
-        )
-        keys_seen = []
-        for charge_val in np.unique(charge16):
-            mask = charge16 == charge_val
-            key = ("None" if charge_val == NULL_CHARGE
-                   else str(int(charge_val)))
-            keys_seen.append(key)
-            flat_mask = np.repeat(mask, lengths)
-            sub_lengths = lengths[mask]
-            sub_offsets = np.zeros(len(sub_lengths) + 1, np.int64)
-            np.cumsum(sub_lengths, out=sub_offsets[1:])
-            chunk = {
-                "identifier": np.asarray(batch["identifier"])[mask],
-                "filename": np.asarray(batch["filename"])[mask],
-                "precursor_mz": np.asarray(
-                    batch["precursor_mz"], np.float32)[mask],
-                "precursor_charge": charge16[mask],
-                "retention_time": np.asarray(
-                    batch["retention_time"], np.float32)[mask],
-                "peak_offsets": sub_offsets,
-                "mz": np.asarray(batch["mz"], np.float32)[flat_mask],
-                "intensity": np.asarray(
-                    batch["intensity"], np.float32)[flat_mask],
-            }
-            with self._charge_lock(key):
-                chunks = self._col_buffers.setdefault(key, [])
-                chunks.append(chunk)
-                self._col_counts[key] = (
-                    self._col_counts.get(key, 0) + int(mask.sum())
-                )
-                if self._col_counts[key] >= self.batch_size:
-                    self._write_shard(key, _concat_chunks(chunks))
-                    self._col_buffers[key] = []
-                    self._col_counts[key] = 0
-        return keys_seen
+    def plan_runs(self, filename: str, pool=None) -> "RunPlan":
+        """A :class:`RunPlan` that writes this writer's shards of columnar
+        batches, with ``filename`` as every row's ``filename``, on ``pool``
+        (a ``concurrent.futures`` executor; None: on the calling thread).
+        The writer must hold no row that ``add`` buffered."""
+        if any(self._buffers.values()):
+            raise ValueError("plan_runs needs a writer with nothing buffered")
+        return RunPlan(self, filename, pool)
 
     def close(self) -> List[str]:
         """Flush all remaining buffers; returns the charge keys written.
@@ -171,14 +134,7 @@ class ShardWriter:
                 if buf:
                     self._flush_charge(key, buf)
                     self._buffers[key] = []
-        for key in list(self._col_buffers):
-            with self._charge_lock(key):
-                chunks = self._col_buffers.get(key)
-                if chunks:
-                    self._write_shard(key, _concat_chunks(chunks))
-                    self._col_buffers[key] = []
-                    self._col_counts[key] = 0
-        return sorted(set(self._buffers) | set(self._col_buffers))
+        return sorted(self._buffers)
 
     def _flush_charge(self, key: str, rows: List[dict]) -> None:
         n = len(rows)
@@ -206,41 +162,130 @@ class ShardWriter:
         self._write_shard(key, columns)
 
     def _write_shard(self, key: str, columns: Dict[str, np.ndarray]) -> None:
+        self._publish(key, self._shard_name(key), columns)
+
+    def _shard_name(self, key: str) -> str:
+        """The name of the next shard of ``key``'s dataset."""
         dataset_dir = os.path.join(self.root, f"spectra_charge_{key}")
         os.makedirs(dataset_dir, exist_ok=True)
         if self.shard_prefix:
             seq = self._shard_counts.get(key, 0)
             self._shard_counts[key] = seq + 1
-            name = f"shard_{self.shard_prefix}{seq:06d}"
-        else:
-            existing = [d for d in os.listdir(dataset_dir)
-                        if d.startswith("shard_")]
-            name = f"shard_{len(existing):06d}"
-        shard_dir = os.path.join(dataset_dir, name)
+            return f"shard_{self.shard_prefix}{seq:06d}"
+        existing = [d for d in os.listdir(dataset_dir)
+                    if d.startswith("shard_")]
+        return f"shard_{len(existing):06d}"
+
+    def _publish(self, key: str, name: str,
+                 columns: Dict[str, np.ndarray]) -> None:
+        shard_dir = os.path.join(self.root, f"spectra_charge_{key}", name)
         tmp_dir = shard_dir + ".tmp"
         os.makedirs(tmp_dir)
         for col, arr in columns.items():
             np.save(os.path.join(tmp_dir, f"{col}.npy"), arr)
         os.rename(tmp_dir, shard_dir)  # atomic publish
+        with self._global_lock:
+            self.shards_written += 1
 
 
-def _concat_chunks(
-    chunks: List[Dict[str, np.ndarray]]
-) -> Dict[str, np.ndarray]:
-    """Concatenate columnar chunks, rebasing the ragged peak offsets."""
-    if len(chunks) == 1:
-        return chunks[0]
-    out: Dict[str, np.ndarray] = {}
-    for name in ("identifier", "filename", "precursor_mz",
-                 "precursor_charge", "retention_time", "mz", "intensity"):
-        out[name] = np.concatenate([c[name] for c in chunks])
+class RunPlan:
+    """Shards of columnar batches whose rows come grouped by charge
+    (``native.mgf_ingest(..., by_charge=True)``), planned as the batches
+    arrive in file order and written as soon as each is whole.
+
+    A batch holds ``identifier`` (unicode), ``precursor_mz`` (f64),
+    ``precursor_charge`` (int-like; ``NULL_CHARGE`` or the native int32
+    sentinel marks a missing charge), ``retention_time`` (f64),
+    ``peak_offsets`` (i64, n+1) and ``mz``/``intensity`` (f32 flat).  A
+    charge's runs of rows gather in file order until they hold
+    ``batch_size`` rows or more, and the last ones whatever they hold; each
+    gathering is a shard, the charge's shards numbered in that order.  These
+    are the shards, names and bytes of the JAX package's ``add_batch`` of
+    each batch and ``close``.  The plan needs the row counts alone, so a
+    shard is named on the calling thread and written on the pool while
+    later batches are still to come.
+    """
+
+    def __init__(self, writer: ShardWriter, filename: str, pool=None):
+        self._writer = writer
+        self._filename = filename
+        self._fn_dtype = np.array([filename]).dtype
+        # Without a shard prefix a name counts the shards on disk, so those
+        # are written one at a time, in order.
+        self._pool = pool if writer.shard_prefix else None
+        self._gathering: Dict[str, list] = {}
+        self._counts: Dict[str, int] = {}
+        self._writes: list = []
+
+    def add(self, batch: Dict[str, np.ndarray]) -> None:
+        """Plan the next batch of the file, and write what it completes."""
+        charges = charge16(batch["precursor_charge"])
+        edges = np.r_[0, np.flatnonzero(np.diff(charges)) + 1,
+                      len(charges)].tolist()
+        for lo, hi in zip(edges[:-1], edges[1:]):
+            if hi == lo:
+                continue
+            key = _stored_key(charges[lo])
+            self._gathering.setdefault(key, []).append((batch, lo, hi))
+            self._counts[key] = self._counts.get(key, 0) + hi - lo
+            if self._counts[key] >= self._writer.batch_size:
+                self._write(key, self._gathering.pop(key))
+                self._counts[key] = 0
+
+    def finish(self) -> List[str]:
+        """Write the last shard of each charge, wait for every write, and
+        return the charge keys seen."""
+        for key, runs in self._gathering.items():
+            self._write(key, runs)
+        self._gathering = {}
+        for write in self._writes:
+            write.result()
+        return sorted(self._counts)
+
+    def _write(self, key: str, runs: list) -> None:
+        name = self._writer._shard_name(key)
+
+        def write():
+            self._writer._publish(key, name, _run_columns(
+                runs, self._filename, self._fn_dtype))
+
+        if self._pool is None:
+            write()
+        else:
+            self._writes.append(self._pool.submit(write))
+
+
+def _run_columns(runs: list, filename: str,
+                 fn_dtype: np.dtype) -> Dict[str, np.ndarray]:
+    """The columns of one shard made of ``runs``, each a (batch, lo, hi)
+    run of rows of one charge: the runs' rows one after the other, the
+    identifiers as wide as the widest batch's, the peak offsets rebased."""
+    def cat(parts):
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
     offsets = [np.zeros(1, np.int64)]
     base = 0
-    for c in chunks:
-        offsets.append(c["peak_offsets"][1:] + base)
-        base += int(c["peak_offsets"][-1])
-    out["peak_offsets"] = np.concatenate(offsets)
-    return out
+    for batch, lo, hi in runs:
+        off = batch["peak_offsets"]
+        offsets.append(off[lo + 1:hi + 1] - off[lo] + base)
+        base += int(off[hi] - off[lo])
+    rows = sum(hi - lo for _, lo, hi in runs)
+    return {
+        "identifier": cat([b["identifier"][lo:hi] for b, lo, hi in runs]),
+        "filename": np.full(rows, filename, fn_dtype),
+        "precursor_mz": cat([b["precursor_mz"][lo:hi].astype(np.float32)
+                             for b, lo, hi in runs]),
+        "precursor_charge": cat([charge16(b["precursor_charge"][lo:hi])
+                                 for b, lo, hi in runs]),
+        "retention_time": cat([b["retention_time"][lo:hi].astype(np.float32)
+                               for b, lo, hi in runs]),
+        "peak_offsets": np.concatenate(offsets),
+        "mz": cat([b["mz"][b["peak_offsets"][lo]:b["peak_offsets"][hi]]
+                   for b, lo, hi in runs]),
+        "intensity": cat([
+            b["intensity"][b["peak_offsets"][lo]:b["peak_offsets"][hi]]
+            for b, lo, hi in runs]),
+    }
 
 
 class ChargeDataset:

@@ -7,6 +7,7 @@ summary is the same with and without recording; a phase is a
 same CSV bytes with recording on and off."""
 
 import json
+import os
 import sys
 import threading
 import time
@@ -14,7 +15,7 @@ import time
 import pytest
 import torch
 
-from falcon_tpu_torch import cli
+from falcon_tpu_torch import cli, ingest
 from falcon_tpu_torch.device import DEVICE_ENV
 from falcon_tpu_torch.simulate import make_clustered_spectra, write_mgf
 from falcon_tpu_torch.utils.profiling import (PhaseProfiler,
@@ -221,10 +222,43 @@ def test_summary_is_the_same_with_and_without_recording(corpus):
         summaries.append(profiler.summary())
     assert list(summaries[0]) == list(summaries[1])
     assert "run" not in summaries[1]
-    for name in ("ann: load", "ann: components", "ann: linkage"):
+    for name in ("ann: load", "ann: components", "ann: linkage",
+                 "ingest: parse", "ingest: write"):
         assert name in summaries[1]
     # Every phase of the summary was recorded as a span.
     assert set(summaries[1]) <= {s.name for s in profiler.spans()}
+
+
+@pytest.mark.parametrize("n_ranges", [1, 4])
+def test_ingest_counts_its_ranges_and_nests_its_phases(tmp_path, monkeypatch,
+                                                       n_ranges):
+    """One MGF of spectra over the 50-peak cap, parsed whole or as byte
+    ranges: the recorder counts the ranges, the spectra, the top-N cuts,
+    the shards and no title decoded in Python, and the parse and the
+    writes are phases inside ``ingest``."""
+    monkeypatch.setenv(DEVICE_ENV, "cpu")
+    spectra, _ = make_clustered_spectra(
+        n_clusters=12, cluster_size=6, n_noise=20, n_peaks=(60, 90), seed=9,
+        charges=(2, 3), precursor_classes=6)
+    mgf = write_mgf(str(tmp_path / "in.mgf"), spectra)
+    size = os.path.getsize(mgf)
+    monkeypatch.setattr(ingest, "_RANGE_MIN_BYTES", 1)
+    monkeypatch.setattr(ingest, "_RANGE_TARGET_BYTES", size // 4)
+    monkeypatch.setattr(ingest.multiprocessing, "cpu_count",
+                        lambda: n_ranges)
+    _run_cli(tmp_path, mgf, [], record=True)
+    counters = profiler.counters()
+    assert counters["ingest.ranges"] == n_ranges
+    assert counters["ingest.spectra"] == len(spectra)
+    assert counters["ingest.topn_cut"] > 0
+    assert counters["ingest.titles_fallback"] == 0
+    assert counters["ingest.shards"] == 2  # one a charge
+    spans = profiler.spans()
+    (whole,) = [s for s in spans if s.name == "ingest"]
+    for name in ("ingest: parse", "ingest: write"):
+        (span,) = [s for s in spans if s.name == name]
+        assert span.parent == whole.id
+        assert whole.start_ns <= span.start_ns <= span.end_ns <= whole.end_ns
 
 
 def test_a_phase_is_a_profiler_range_that_starts_with_its_span(tmp_path):
