@@ -116,7 +116,7 @@ its labels against the JAX package's.
 import contextlib
 import logging
 import os
-from concurrent.futures import ThreadPoolExecutor, as_completed
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple
 
 import numpy as np
@@ -142,12 +142,9 @@ from ..parallel.sharded_pipeline import (ann_cluster_sharded,
                                          sharded_medoid_scores)
 from ..store.store import ChargeDataset, padded_peaks
 from ..utils.profiling import profiler
+from .grouped import score_and_link
 from .intervals import mass_diff, precursor_mz_splits
-from .postprocess import (
-    cluster_group_slices,
-    link_components,
-    postprocess_cluster,
-)
+from .postprocess import cluster_group_slices, postprocess_cluster
 
 logger = logging.getLogger("falcon_tpu")
 
@@ -811,10 +808,9 @@ def _linkage_refine_and_medoids(
     at eps, so this gives the full-matrix flat clusters.  ``devices`` (a
     list, or None for ``dev`` alone): the small components' launches go
     round-robin over them, and one host thread per device scores its share
-    of the large ones.  Linkage and refinement stay on this thread: each
-    launch of small components, and each large component, in one native
-    call (``postprocess.link_components``), and the components are
-    assembled in their order.
+    of the large ones.  Scoring and linking are the stage both engines
+    share (``cluster/grouped.py``); the components are assembled in their
+    order.
     """
     with profiler.phase("ann: components"):
         comp = np.asarray(comp, np.int64)
@@ -846,43 +842,9 @@ def _linkage_refine_and_medoids(
 
         member_pos = (np.concatenate(positions) if positions
                       else np.zeros(0, np.int64))
-        mz_all, int_all, _ = padded_peaks(offsets, mz_flat, int_flat,
-                                          pad_to, order[member_pos])
         sizes = np.asarray([len(p) for p in positions], np.int64)
         comp_off = np.zeros(len(positions) + 1, np.int64)
         np.cumsum(sizes, out=comp_off[1:])
-        group_max = linkage_group_max()
-        small_ids = np.flatnonzero(sizes <= group_max)
-        small = small_ids.tolist()
-        large = np.flatnonzero(sizes > group_max).tolist()
-        # Each member's precursor m/z, RT and dataset row, in its
-        # component's order, and the routine's outputs at its row.
-        member_mz = mz_sorted[member_pos]
-        member_rt = rt_sorted[member_pos] if rt_tol is not None else None
-        member_ids = order[member_pos].astype(np.int64)
-        member_labels = np.full(len(member_pos), -1, np.int32)
-        member_medoids = np.zeros(len(member_pos), np.int64)
-        n_clusters = np.zeros(len(positions), np.int64)
-        n_medoids = np.zeros(len(positions), np.int64)
-    profiler.count("ann.linkage.components", len(positions))
-    profiler.count("ann.linkage.pairs", int((sizes * (sizes - 1) // 2).sum()))
-
-    def comp_peaks(i):
-        lo, hi = comp_off[i], comp_off[i + 1]
-        return mz_all[lo:hi], int_all[lo:hi]
-
-    def link(comps, dist):
-        """Link, cut, split and pick the medoids of the components
-        ``comps``, whose condensed distances ``dist`` holds in turn."""
-        with profiler.timer("ann.linkage.native_ns"):
-            n_whole = link_components(
-                dist, comps, comp_off, member_mz, member_rt, member_ids,
-                linkage, eps, precursor_tol_mass, precursor_tol_mode, rt_tol,
-                member_labels, n_clusters, member_medoids, n_medoids)
-        with profiler.timer("ann.linkage.refine_ns"):
-            profiler.count("ann.linkage.batches")
-            profiler.count("ann.linkage.whole", n_whole)
-            profiler.count("ann.linkage.linked", len(comps) - n_whole)
 
     # Complete and single linkage cut at eps never read a distance above
     # eps, so large components score only the pairs whose spread bound can
@@ -891,57 +853,33 @@ def _linkage_refine_and_medoids(
     # from the unpruned one's.
     prune = linkage in ("complete", "single") and linkage_prune()
 
-    def large_pdist(i, d):
-        mz_c, int_c = comp_peaks(i)
+    def score_large(mz_c, int_c, d):
         if prune:
             return pairwise.pruned_condensed_distances(
                 mz_c, int_c, hasher, eps, fragment_tol, min_matches, device=d)
         return pairwise.condensed_distances(mz_c, int_c, fragment_tol,
                                             min_matches, device=d)
 
-    def on_device(i, d):
-        with worker_stream(d):
-            return large_pdist(i, d)
-
-    # ann.linkage.wait_ns: getting each launch's or component's distances.
     with profiler.phase("ann: linkage"):
-        if small:
-            for group, dist in profiler.timed(
-                    "ann.linkage.wait_ns",
-                    pairwise.condensed_distance_groups(
-                        [comp_peaks(i) for i in small], fragment_tol,
-                        min_matches, device=dev, devices=devices)):
-                with profiler.timer("ann.linkage.refine_ns"):
-                    comps = small_ids[group]
-                link(comps, dist)
-        if large and devices:
-            with ThreadPoolExecutor(len(devices)) as pool:
-                futures = {
-                    pool.submit(profiler.bind(on_device), i,
-                                devices[j % len(devices)]): i
-                    for j, i in enumerate(large)}
-                for future in profiler.timed("ann.linkage.wait_ns",
-                                             as_completed(futures)):
-                    link([futures[future]], future.result())
-        else:
-            for i in large:
-                with profiler.timer("ann.linkage.wait_ns"):
-                    pdist = large_pdist(i, dev)
-                link([i], pdist)
+        linked = score_and_link(
+            offsets, mz_flat, int_flat, pad_to, order[member_pos], comp_off,
+            mz_sorted[member_pos],
+            rt_sorted[member_pos] if rt_tol is not None else None, linkage,
+            eps, precursor_tol_mass, precursor_tol_mode, rt_tol, min_matches,
+            fragment_tol, linkage_group_max(), score_large, dev, devices)
 
     with profiler.phase("ann: refine"):
         # Assemble in component order, so labels do not depend on the
         # order the components were scored in: each component's labels
         # after those of the components before it, and its medoids after
         # theirs, the rows outside every component first.
-        offset = np.repeat(np.cumsum(n_clusters) - n_clusters, sizes)
+        offset = np.repeat(np.cumsum(linked.n_clusters) - linked.n_clusters,
+                           sizes)
         final = np.full(n, -1, np.int32)
-        final[member_pos] = np.where(member_labels >= 0,
-                                     member_labels + offset, -1)
-        local = np.arange(len(member_pos)) - np.repeat(comp_off[:-1], sizes)
-        medoids = np.concatenate([
-            order[noise_pos].astype(np.int64),
-            member_medoids[local < np.repeat(n_medoids, sizes)]])
+        final[member_pos] = np.where(linked.labels >= 0,
+                                     linked.labels + offset, -1)
+        medoids = np.concatenate([order[noise_pos].astype(np.int64),
+                                  linked.medoids])
     return final, medoids
 
 

@@ -22,11 +22,12 @@ identical observable semantics:
 - :func:`assign_global_cluster_labels` — reference
   ``_assign_global_cluster_labels`` (``cluster.py:556-590``).
 
-- :func:`link_component` — one eps-component of the ann engine as one
-  exact-engine interval: linkage, the cut at eps, the precursor / RT
-  split and the medoids; :func:`link_components` runs it on a batch of
-  components in one native call (``fc_link_components``), or component by
-  component where the native library is unavailable.
+- :func:`link_component` — one group of spectra (an exact-engine interval
+  or an eps-component of the ann engine): linkage, the cut at eps, the
+  precursor / RT split and the medoids; :func:`link_components` runs it on
+  a batch of groups in one native call (``fc_link_components``), or group
+  by group where the native library is unavailable
+  (``cluster/grouped.py`` calls it for both engines).
 """
 
 from typing import Iterator, Optional, Tuple
@@ -224,19 +225,27 @@ def link_component(
     precursor_tol_mass: float,
     precursor_tol_mode: str,
     rt_tol: Optional[float],
+    eps_far: Optional[float] = None,
 ) -> Tuple[np.ndarray, int, np.ndarray, bool]:
-    """One eps-component as one exact-engine interval.
+    """One group of spectra (an eps-component, or an exact-engine
+    interval) linked, cut at eps, split by precursor (and RT) and given
+    its medoids.
 
     ``pdist``: its condensed float32 distances; ``mzs``, ``rts`` (read
     only with ``rt_tol``) and ``ids`` (dataset row ids): its members in
     the matrix's order.  Returns (each member's label, from 0, -1 for a
     member split off alone; the number of clusters; the medoid ids, noise
-    first; whether it closed whole).  It closes whole when every distance
-    is within eps, so any linkage cut at eps gives one cluster, and the
-    precursor (and RT) span is within tolerance, so the split keeps it.
+    first; whether it closed whole).  It closes whole when no distance is
+    above ``eps_far`` and the precursor (and RT) span is within tolerance:
+    then the split keeps the one cluster that any linkage cut at eps gives
+    when every distance is within eps.  ``eps_far`` defaults to
+    ``native.far_threshold(eps)``, eps as NumPy compares a float32
+    distance with it (the JAX package's ann engine); the exact engine
+    passes eps itself, as the cut compares.
     """
     size = len(ids)
-    if not pdist.max(initial=0.0) > eps and _spans_within(
+    far = native.far_threshold(eps) if eps_far is None else eps_far
+    if not float(pdist.max(initial=0.0)) > far and _spans_within(
             mzs, rts, precursor_tol_mass, precursor_tol_mode, rt_tol):
         labels = np.zeros(size, np.int32)
         med = cluster_medoids(np.asarray(ids, np.int64), labels, pdist,
@@ -278,15 +287,18 @@ def link_components(
     n_clusters: np.ndarray,
     medoids: np.ndarray,
     n_medoids: np.ndarray,
+    eps_far: Optional[float] = None,
 ) -> int:
     """:func:`link_component` on each component of ``comps``, writing its
     results in place (``native.link_components``' contract): in one native
     call, or one component at a time where the library is unavailable.
     Returns the number of components closed whole."""
+    if eps_far is None:
+        eps_far = native.far_threshold(eps)
     n_whole = native.link_components(
         dist, comps, member_off, mzs, rts, ids, method, eps,
         precursor_tol_mass, precursor_tol_mode, rt_tol, labels, n_clusters,
-        medoids, n_medoids)
+        medoids, n_medoids, eps_far)
     if n_whole is not None:
         return n_whole
     n_whole, pair_at = 0, 0
@@ -296,7 +308,7 @@ def link_components(
         lab, n_cl, med, whole = link_component(
             dist[pair_at:pair_at + n_pairs], mzs[lo:hi],
             rts[lo:hi] if rt_tol is not None else None, ids[lo:hi], method,
-            eps, precursor_tol_mass, precursor_tol_mode, rt_tol)
+            eps, precursor_tol_mass, precursor_tol_mode, rt_tol, eps_far)
         pair_at += n_pairs
         labels[lo:hi] = lab
         n_clusters[c] = n_cl

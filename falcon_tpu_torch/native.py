@@ -304,7 +304,7 @@ def fcluster(z: np.ndarray, t: float, n: Optional[int] = None) -> np.ndarray:
     return labels
 
 
-def _far_threshold(eps: float) -> float:
+def far_threshold(eps: float) -> float:
     """The float64 threshold above which a float32 distance reads as
     ``> eps`` to NumPy, which compares a float32 scalar with a Python float
     in float32 (NumPy 2) or in float64 (NumPy 1)."""
@@ -320,7 +320,7 @@ def link_components(dist: np.ndarray, comps: np.ndarray,
                     eps: float, tol_mass: float, tol_mode: str,
                     rt_tol: Optional[float], labels: np.ndarray,
                     n_clusters: np.ndarray, medoids: np.ndarray,
-                    n_medoids: np.ndarray) -> Optional[int]:
+                    n_medoids: np.ndarray, eps_far: float) -> Optional[int]:
     """``cluster.postprocess.link_component`` on each component of
     ``comps`` in one call with the interpreter lock released
     (``fc_link_components``); None when the library is unavailable.
@@ -331,6 +331,7 @@ def link_components(dist: np.ndarray, comps: np.ndarray,
     and ``ids``.  Writes each member's label at its row of ``labels`` (from
     0 within its component), the component's medoids from its first row of
     ``medoids`` on, and its counts at ``n_clusters[c]``, ``n_medoids[c]``.
+    A component closes whole when no distance is above ``eps_far``.
     Returns the number of components closed whole."""
     if method not in _METHODS:
         raise ValueError(f"unsupported linkage method {method!r}")
@@ -370,7 +371,7 @@ def link_components(dist: np.ndarray, comps: np.ndarray,
         ptr(member_off, ctypes.c_int64), _as_double_ptr(mz),
         _as_double_ptr(rt) if rt_tol is not None else None,
         ptr(ids, ctypes.c_int64), ctypes.c_int(_METHODS[method]),
-        ctypes.c_double(eps), ctypes.c_double(_far_threshold(eps)),
+        ctypes.c_double(eps), ctypes.c_double(eps_far),
         ctypes.c_double(tol_mass), ctypes.c_int(tol_mode == "ppm"),
         ctypes.c_double(0.0 if rt_tol is None else rt_tol),
         ptr(labels, ctypes.c_int32), ptr(n_clusters, ctypes.c_int64),

@@ -10,8 +10,8 @@ Port of the scoring in ``falcon_tpu/ops/pairwise.py``:
   every upper-triangle pair of many small intervals in one launch.  The
   intervals are ragged (``starts`` offsets) rather than padded to a common
   size, and the output is the concatenation of their condensed orders.
-  ``condensed_distance_groups`` feeds it, a launch's intervals at a time;
-  ``grouped_condensed_distances`` slices each launch into its intervals.
+  ``condensed_distance_groups`` feeds it, a launch of groups at a time,
+  padded from the store's ragged peaks as it is dispatched.
 - ``pair_list_scores`` replaces the exact scoring of the XLA
   ``rerank_scan_body`` (``falcon_tpu/ops/rerank.py``): each query row
   against its own list of pool ids.  ``pruned_condensed_distances`` feeds
@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, synchronize
+from ..store.store import padded_peaks
 from ..utils.profiling import profiler
 from . import _build
 from .knn import NEG, _pow2_at_least, refuse_tf32, stable_topk
@@ -314,96 +315,79 @@ def batched_block_scores_plain(
 
 
 def condensed_distance_groups(
-    interval_peaks,  # list of (mz (m_i, P), intensity (m_i, P)) numpy
+    peaks: Tuple[np.ndarray, np.ndarray, np.ndarray],
+    pad_to: int,
+    rows: np.ndarray,
+    group_off: np.ndarray,
     fragment_tol: float,
     min_matches: int = 0,
     rounds: int = DEFAULT_ROUNDS,
     max_group_pairs: int = 2**24,
     device=None,
     devices=None,
-) -> Iterator[Tuple[List[int], np.ndarray]]:
-    """Condensed distance matrices of many small intervals, a launch of
-    them at a time.
+) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Condensed distance matrices of many small groups of spectra, a
+    launch of them at a time.
 
-    Consecutive intervals are scored together, up to ``max_group_pairs``
-    pairs per launch (at least one interval each).  Yields (the launch's
-    interval indices, their condensed float32 distances one after the
-    other) in interval order, where distance = 1 - score and a pair with
-    fewer than ``min_matches`` matched peaks has distance 1.  ``devices``
-    (a list of ``torch.device``): the launches go round-robin over them,
-    up to two a device in flight, and are read back in launch order
-    (``falcon_tpu/ops/pairwise.py``'s mesh scale-out); else every launch
-    runs on ``device`` and is read back before the next.
+    Group g is the dataset rows ``rows[group_off[g]:group_off[g + 1]]`` of
+    the ragged ``peaks`` (``offsets, mz_flat, int_flat`` as the store keeps
+    them); each launch's rows are padded to ``pad_to`` peaks when it is
+    dispatched.  Consecutive groups are scored together, up to
+    ``max_group_pairs`` pairs per launch (at least one group each).  Yields
+    (the launch's group indices, their condensed float32 distances one
+    after the other) in group order, where distance = 1 - score and a pair
+    with fewer than ``min_matches`` matched peaks has distance 1.
+    ``devices`` (a list of ``torch.device``): the launches go round-robin
+    over them, up to two a device in flight, and are read back in launch
+    order (``falcon_tpu/ops/pairwise.py``'s mesh scale-out); else every
+    launch runs on ``device`` and is read back before the next.
     """
     devs = list(devices) if devices else [resolve_device(device)]
-    groups: List[List[int]] = []
-    group_pairs = 0
-    for idx, (mz, _) in enumerate(interval_peaks):
-        m = mz.shape[0]
-        if not groups or group_pairs + m * (m - 1) // 2 > max_group_pairs:
-            groups.append([])
-            group_pairs = 0
-        groups[-1].append(idx)
-        group_pairs += m * (m - 1) // 2
+    group_off = np.asarray(group_off, np.int64)
+    sizes = np.diff(group_off)
+    pairs = sizes * (sizes - 1) // 2
+    bounds, launch_pairs = [0], 0
+    for g, p in enumerate(pairs.tolist()):
+        if g > bounds[-1] and launch_pairs + p > max_group_pairs:
+            bounds.append(g)
+            launch_pairs = 0
+        launch_pairs += p
+    if len(pairs):
+        bounds.append(len(pairs))
 
     with_matches = min_matches > 0
     window = 2 * len(devs) if devices else 1
 
-    def dispatch(g, dev):
-        group = groups[g]
-        starts = np.concatenate([[0], np.cumsum(
-            [interval_peaks[k][0].shape[0] for k in group])]).astype(np.int64)
-        mz = torch.from_numpy(np.concatenate(
-            [np.asarray(interval_peaks[k][0], np.float32) for k in group]
-        )).to(dev)
-        intensity = torch.from_numpy(np.concatenate(
-            [np.asarray(interval_peaks[k][1], np.float32) for k in group]
-        )).to(dev)
+    def dispatch(launch, dev):
+        g0, g1 = bounds[launch], bounds[launch + 1]
+        lo, hi = group_off[g0], group_off[g1]
+        mz, intensity, _ = padded_peaks(*peaks, pad_to, rows[lo:hi])
+        mz = torch.from_numpy(mz).to(dev)
+        intensity = torch.from_numpy(intensity).to(dev)
         with profiler.phase("score groups (K4)"):
             scores, matches = batched_block_scores(
-                mz, intensity, torch.from_numpy(starts).to(dev),
-                fragment_tol, rounds, with_matches,
+                mz, intensity, torch.from_numpy(group_off[g0:g1 + 1] - lo)
+                .to(dev), fragment_tol, rounds, with_matches,
             )
             if with_matches:
                 scores = torch.where(matches >= min_matches, scores, 0.0)
             dist = 1.0 - scores
             if window == 1:
                 synchronize(dev)
-        return group, dist
+        return np.arange(g0, g1), dist
 
     def drain(pending):
-        group, dist = pending.pop(0)
+        groups, dist = pending.pop(0)
         with profiler.phase("groups to host"):
-            return group, dist.cpu().numpy()
+            return groups, dist.cpu().numpy()
 
     pending = []
-    for g in range(len(groups)):
-        pending.append(dispatch(g, devs[g % len(devs)]))
+    for launch in range(len(bounds) - 1):
+        pending.append(dispatch(launch, devs[launch % len(devs)]))
         if len(pending) >= window:
             yield drain(pending)
     while pending:
         yield drain(pending)
-
-
-def grouped_condensed_distances(
-    interval_peaks,  # list of (mz (m_i, P), intensity (m_i, P)) numpy
-    fragment_tol: float,
-    min_matches: int = 0,
-    rounds: int = DEFAULT_ROUNDS,
-    max_group_pairs: int = 2**24,
-    device=None,
-    devices=None,
-) -> Iterator[Tuple[int, np.ndarray]]:
-    """:func:`condensed_distance_groups`, one interval at a time: yields
-    (interval index, condensed float32 pdist) in interval order."""
-    for group, dist in condensed_distance_groups(
-            interval_peaks, fragment_tol, min_matches, rounds,
-            max_group_pairs, device, devices):
-        pair_off = 0
-        for idx in group:
-            m = interval_peaks[idx][0].shape[0]
-            yield idx, dist[pair_off:pair_off + m * (m - 1) // 2]
-            pair_off += m * (m - 1) // 2
 
 
 def condensed_distances(

@@ -11,15 +11,16 @@ The port adds a recorder, off by default.  Between
 :meth:`~PhaseProfiler.start_recording` and
 :meth:`~PhaseProfiler.stop_recording` it keeps every phase and every
 recorder-only :meth:`~PhaseProfiler.span` as a :class:`Span` (start and
-end on ``time.time_ns``, thread, parent, root), and the counters:
-:meth:`~PhaseProfiler.count`, the nanosecond accumulators of
-:meth:`~PhaseProfiler.timer` and :meth:`~PhaseProfiler.timed`, and the
-gauges of :meth:`~PhaseProfiler.gauge` (blocks open at once) and
-:meth:`~PhaseProfiler.level` (a size seen).  A span's parent is the
+end on ``time.time_ns``, thread, parent, root; a sum given to
+:meth:`~PhaseProfiler.add` is a span that ends when it is added), and the
+counters:
+:meth:`~PhaseProfiler.count` (counts, and nanoseconds where a caller
+times its own work), and the gauges of :meth:`~PhaseProfiler.gauge`
+(blocks open at once) and :meth:`~PhaseProfiler.level` (a size seen).  A span's parent is the
 innermost span open on its thread; work handed to another thread takes its
 parent through :meth:`~PhaseProfiler.bind`.  While recording is off a span
-costs one flag test besides what a phase costs, and a counter, an
-accumulator or a gauge one flag test.
+costs one flag test besides what a phase costs, and a counter or a gauge
+one flag test.
 
 The device trace is the port's own: ``--profile DIR`` records a
 ``torch.profiler`` trace (CPU activity of every thread and, where present,
@@ -34,8 +35,7 @@ import logging
 import os
 import threading
 import time
-from typing import Dict, Iterable, Iterator, List, NamedTuple, Optional, \
-    Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 logger = logging.getLogger("falcon_tpu")
 
@@ -59,22 +59,6 @@ class Span(NamedTuple):
 Frame = Tuple[int, int]
 
 _NULL = contextlib.nullcontext()
-_END = object()
-
-
-class _Timer:
-    """Adds the nanoseconds of its ``with`` block to an accumulator."""
-
-    __slots__ = ("_prof", "_name", "_t0")
-
-    def __init__(self, prof: "PhaseProfiler", name: str) -> None:
-        self._prof, self._name = prof, name
-
-    def __enter__(self) -> None:
-        self._t0 = time.perf_counter_ns()
-
-    def __exit__(self, *exc) -> None:
-        self._prof._bump(self._name, time.perf_counter_ns() - self._t0)
 
 
 class PhaseProfiler:
@@ -96,6 +80,13 @@ class PhaseProfiler:
         self._gauges: Dict[str, List[int]] = {}
 
     def add(self, name: str, elapsed: float) -> None:
+        """Add ``elapsed`` seconds to the phase ``name``; while recording,
+        also a span of that length that ends now, a child of the span open
+        on this thread."""
+        if self.recording:
+            frame, parent, _ = self._open(name)
+            self._close(name, frame, parent,
+                        time.time_ns() - int(elapsed * 1e9))
         with self._lock:
             self._phases.append((name, elapsed))
         logger.debug("phase %-28s %8.3f s", name, elapsed)
@@ -209,30 +200,6 @@ class PhaseProfiler:
         """Add ``n`` to the counter ``name``."""
         if self.recording:
             self._bump(name, n)
-
-    def timer(self, name: str):
-        """Add the nanoseconds of the ``with`` block to the accumulator
-        ``name``; keeps no span, for inner loops."""
-        if not self.recording:
-            return _NULL
-        return _Timer(self, name)
-
-    def timed(self, name: str, items: Iterable) -> Iterable:
-        """``items``, with the nanoseconds spent getting each item (the
-        iterator's ``next``) added to the accumulator ``name``."""
-        if not self.recording:
-            return items
-        return self._timed(name, items)
-
-    def _timed(self, name: str, items: Iterable) -> Iterator:
-        it = iter(items)
-        while True:
-            t0 = time.perf_counter_ns()
-            item = next(it, _END)
-            self._bump(name, time.perf_counter_ns() - t0)
-            if item is _END:
-                return
-            yield item
 
     def gauge(self, name: str):
         """Count the ``with`` block as one level of the gauge ``name`` for

@@ -4,7 +4,8 @@
 ``falcon_tpu.cluster.engine.generate_clusters`` cluster the same charge
 bucket; labels and medoids must be identical, through the grouped route
 (intervals of 2..1024 spectra in one launch) and through the panel route
-(every interval streamed in row panels).
+(every interval streamed in row panels), on corpora whose lowest intervals
+link nothing and whose intervals are all single spectra.
 """
 
 import numpy as np
@@ -19,7 +20,7 @@ from falcon_tpu_torch.cluster import engine
 from falcon_tpu_torch.ops import pairwise
 
 
-def _dataset(tmp_path_factory, name, **kwargs):
+def _rows(**kwargs):
     spectra, _ = make_clustered_spectra(**kwargs)
     rows = []
     for s in spectra:
@@ -27,6 +28,11 @@ def _dataset(tmp_path_factory, name, **kwargs):
                                None)
         if out is not None:
             rows.append(out)
+    return rows
+
+
+def _dataset(tmp_path_factory, name, **kwargs):
+    rows = _rows(**kwargs)
     store = SpectrumStore(str(tmp_path_factory.mktemp(name)))
     writer = store.writer(batch_size=37)
     writer.add_many(rows)
@@ -49,19 +55,59 @@ def dense_fixture(tmp_path_factory):
                     precursor_mz_range=(600.0, 600.2))
 
 
-@pytest.mark.parametrize("panel_only", [False, True],
-                         ids=["grouped", "panel"])
-@pytest.mark.parametrize("linkage", ["complete", "single", "average"])
-def test_generate_clusters_matches_jax(dataset_fixture, linkage,
+@pytest.fixture(scope="module")
+def low_noise_fixture(tmp_path_factory):
+    # The two lowest intervals hold 6 and 3 unrelated spectra each, which
+    # link nothing, below clusters at 500..1200 m/z.
+    rows = (_rows(n_clusters=0, n_noise=6, seed=21, charges=(2,),
+                  precursor_mz_range=(400.0, 400.002))
+            + _rows(n_clusters=0, n_noise=3, seed=22, charges=(2,),
+                    precursor_mz_range=(410.0, 410.002))
+            + _rows(n_clusters=8, cluster_size=5, n_noise=10, seed=23,
+                    charges=(2,), precursor_mz_range=(500.0, 1200.0)))
+    store = SpectrumStore(str(tmp_path_factory.mktemp("low_noise")))
+    writer = store.writer(batch_size=37)
+    writer.add_many(rows)
+    writer.close()
+    return store.dataset(2)
+
+
+@pytest.fixture(scope="module")
+def singletons_fixture(tmp_path_factory):
+    # Twenty unrelated spectra over 400..1200 m/z: every interval is one
+    # spectrum.
+    return _dataset(tmp_path_factory, "singletons", n_clusters=0,
+                    n_noise=20, seed=24, charges=(2,))
+
+
+@pytest.mark.parametrize("corpus,linkage,panel_only", [
+    *[pytest.param("dataset_fixture", linkage, panel_only,
+                   id=f"{linkage}-{route}")
+      for linkage in ("complete", "single", "average")
+      for route, panel_only in (("grouped", False), ("panel", True))],
+    pytest.param("low_noise_fixture", "complete", False,
+                 id="lowest_intervals_link_nothing"),
+    pytest.param("singletons_fixture", "complete", False,
+                 id="singleton_intervals_only"),
+])
+def test_generate_clusters_matches_jax(request, corpus, linkage,
                                        panel_only):
-    args = (dataset_fixture, linkage, 0.1, 0, 20.0, "ppm", None, 0.05,
-            2**15)
+    dataset = request.getfixturevalue(corpus)
+    args = (dataset, linkage, 0.1, 0, 20.0, "ppm", None, 0.05, 2**15)
     labels, medoids = engine.generate_clusters(
         *args, max_peaks=50, device="cpu", panel_only=panel_only)
     ref_labels, ref_medoids = jax_engine.generate_clusters(
         *args, max_peaks=50, backend="xla")
     np.testing.assert_array_equal(labels, ref_labels)
     np.testing.assert_array_equal(medoids, ref_medoids)
+    if corpus == "low_noise_fixture":
+        # The label offset advanced past the intervals that linked
+        # nothing: no spectrum has label 0.
+        assert labels.min() > 0
+        assert len(np.unique(labels)) < len(labels)
+    if corpus == "singletons_fixture":
+        assert sorted(labels) == list(range(len(labels)))
+        assert sorted(medoids) == list(range(len(labels)))
 
 
 @pytest.mark.parametrize("panel_only", [False, True],
@@ -82,7 +128,7 @@ def test_routes_split_at_group_max(dense_fixture, monkeypatch):
     # Intervals up to GROUP_MAX go to the grouped scorer, larger ones to
     # the panel scorer.
     calls = {"grouped": 0, "panel": 0}
-    grouped, condensed = (pairwise.grouped_condensed_distances,
+    grouped, condensed = (pairwise.condensed_distance_groups,
                           pairwise.condensed_distances)
 
     def count_grouped(*a, **k):
@@ -93,7 +139,7 @@ def test_routes_split_at_group_max(dense_fixture, monkeypatch):
         calls["panel"] += 1
         return condensed(*a, **k)
 
-    monkeypatch.setattr(pairwise, "grouped_condensed_distances",
+    monkeypatch.setattr(pairwise, "condensed_distance_groups",
                         count_grouped)
     monkeypatch.setattr(pairwise, "condensed_distances", count_panel)
     args = (dense_fixture, "complete", 0.2, 0, 20.0, "ppm", None, 0.05,

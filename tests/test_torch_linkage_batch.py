@@ -3,7 +3,8 @@
 batch) against the per-component Python composition
 (``postprocess.link_component``) that it replaces and that runs where the
 native library is unavailable, on seeded batches: equal labels, cluster
-counts, medoid ids in their order, and components closed whole."""
+counts, medoid ids in their order, and components closed whole, with the
+whole test at NumPy's reading of eps or at the cut's."""
 
 import numpy as np
 import pytest
@@ -122,7 +123,7 @@ CASES = {
 }
 
 
-def _run(case, comps, batched):
+def _run(case, comps, batched, eps=EPS, eps_far=None):
     batch, method, tol, mode, rt_tol = case
     n = len(batch["ids"])
     out = dict(labels=np.full(n, -7, np.int32),
@@ -135,9 +136,9 @@ def _run(case, comps, batched):
     if batched:
         out["whole"] = postprocess.link_components(
             dist, np.asarray(comps, np.int64), batch["member_off"],
-            batch["mz"], rt, batch["ids"], method, EPS, tol, mode, rt_tol,
+            batch["mz"], rt, batch["ids"], method, eps, tol, mode, rt_tol,
             out["labels"], out["n_clusters"], out["medoids"],
-            out["n_medoids"])
+            out["n_medoids"], eps_far)
         return out
     out["whole"] = 0
     off = batch["member_off"]
@@ -146,7 +147,7 @@ def _run(case, comps, batched):
         lab, n_cl, med, whole = postprocess.link_component(
             batch["dists"][c], batch["mz"][lo:hi],
             rt[lo:hi] if rt is not None else None, batch["ids"][lo:hi],
-            method, EPS, tol, mode, rt_tol)
+            method, eps, tol, mode, rt_tol, eps_far)
         out["labels"][lo:hi] = lab
         out["n_clusters"][c] = n_cl
         out["medoids"][lo:lo + len(med)] = med
@@ -209,6 +210,30 @@ def test_distances_equal_to_eps_read_as_numpy_reads_them(eps_bits):
     case = (batch, "complete", 20.0, "ppm", None)
     comps = list(range(len(sizes)))
     _assert_same(_run(case, comps, True), _run(case, comps, False))
+
+
+def test_eps_far_at_eps_reads_distances_as_the_cut_does():
+    # float32(0.3) is above the float64 0.3 and is a distance 1 - score can
+    # take.  By default such a distance reads as within eps, as NumPy
+    # compares it; with eps_far = eps (the exact engine's) it reads as the
+    # cut at 0.3 does, above it, and its group is linked, not closed whole.
+    eps = 0.3
+    value = np.float32(eps)
+    assert float(value) > eps
+    batch = _batch(20, [2, 3, 5, 9], n_groups=1, within=0.2)
+    for d in batch["dists"]:
+        d[0] = value
+    case = (batch, "complete", 20.0, "ppm", None)
+    comps = list(range(4))
+    for eps_far, n_whole in ((None, 4), (eps, 0)):
+        got = _run(case, comps, True, eps, eps_far)
+        _assert_same(got, _run(case, comps, False, eps, eps_far))
+        assert got["whole"] == n_whole
+    # The pair at float32(0.3) is two clusters of one under the cut: noise.
+    flat = native.fcluster(native.linkage(batch["dists"][0], "complete"),
+                           eps, n=2)
+    assert flat[0] != flat[1]
+    assert (got["labels"][:2] == -1).all()
 
 
 @pytest.mark.parametrize("sizes", [MIXED, [2600]], ids=["mixed", "2600"])

@@ -114,7 +114,10 @@ def test_panel_scores_without_matches(padded_dataset):
     assert torch.equal(with_m, without)
 
 
-def _intervals(sizes, seed=5):
+def _groups(sizes, seed=5):
+    """Random groups of spectra of ``sizes``, drawn without replacement: the
+    ragged peaks (offsets, m/z, intensity), the groups' rows one after the
+    other with their offsets, and each group's padded (m/z, intensity)."""
     spectra, _ = make_clustered_spectra(
         n_clusters=25, cluster_size=8, n_noise=120, seed=seed
     )
@@ -123,15 +126,18 @@ def _intervals(sizes, seed=5):
     rows = [r for r in rows if r is not None]
     offsets = np.zeros(len(rows) + 1, np.int64)
     offsets[1:] = np.cumsum([len(r["mz"]) for r in rows])
-    mz, intensity, _ = padded_peaks(
-        offsets, np.concatenate([r["mz"] for r in rows]),
-        np.concatenate([r["intensity"] for r in rows]), 64)
+    ragged = (offsets, np.concatenate([r["mz"] for r in rows]),
+              np.concatenate([r["intensity"] for r in rows]))
+    mz, intensity, _ = padded_peaks(*ragged, 64)
     rng = np.random.default_rng(seed)
-    out = []
-    for m in sizes:
-        idx = rng.choice(mz.shape[0], size=m, replace=False)
-        out.append((mz[idx], intensity[idx]))
-    return out
+    picked = [rng.choice(mz.shape[0], size=m, replace=False) for m in sizes]
+    group_off = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    return (ragged, np.concatenate(picked).astype(np.int64), group_off,
+            [(mz[idx], intensity[idx]) for idx in picked])
+
+
+def _intervals(sizes, seed=5):
+    return _groups(sizes, seed)[3]
 
 
 SIZES = [1, 2, 3, 9, 17, 33, 70, 5, 64, 12]
@@ -139,16 +145,25 @@ SIZES = [1, 2, 3, 9, 17, 33, 70, 5, 64, 12]
 
 @pytest.mark.parametrize("min_matches", [0, 6])
 def test_grouped_condensed_distances_vs_jax(min_matches):
-    peaks = _intervals(SIZES)
-    # A small pair budget splits the intervals over several launches.
-    ours = dict(tp.grouped_condensed_distances(
-        peaks, TOL, min_matches=min_matches, max_group_pairs=3000,
-        device="cpu"))
+    ragged, rows, group_off, peaks = _groups(SIZES)
+    # A small pair budget splits the groups over several launches.
+    launches = list(tp.condensed_distance_groups(
+        ragged, 64, rows, group_off, TOL, min_matches=min_matches,
+        max_group_pairs=3000, device="cpu"))
+    assert len(launches) > 1
+    ours = {}
+    for groups, dist in launches:
+        assert dist.dtype == np.float32
+        pair_at = 0
+        for k in groups.tolist():
+            m = SIZES[k]
+            ours[k] = dist[pair_at:pair_at + m * (m - 1) // 2]
+            pair_at += m * (m - 1) // 2
+        assert pair_at == len(dist)
     ref = dict(jp.grouped_condensed_distances(peaks, TOL,
                                               min_matches=min_matches))
-    assert sorted(ours) == sorted(ref) == list(range(len(SIZES)))
+    assert list(ours) == sorted(ref) == list(range(len(SIZES)))
     for k, m in enumerate(SIZES):
-        assert ours[k].dtype == np.float32
         assert ours[k].shape == ref[k].shape == (m * (m - 1) // 2,)
         np.testing.assert_array_equal(ours[k], ref[k])
 

@@ -315,21 +315,35 @@ def test_linkage_over_the_mesh_matches_jax(shards, dataset, monkeypatch):
 
 
 def test_grouped_distances_round_robin_equal_one_device(rows):
+    rows = sorted(rows, key=lambda r: r["precursor_mz"])
+    offsets = np.zeros(len(rows) + 1, np.int64)
+    offsets[1:] = np.cumsum([len(r["mz"]) for r in rows])
+    ragged = (offsets, np.concatenate([r["mz"] for r in rows]),
+              np.concatenate([r["intensity"] for r in rows]))
     mz, intensity, _, _ = _sorted_padded(rows)
     sizes = [2, 5, 3, 9, 4, 7, 6, 2]
     bounds = np.cumsum([0] + sizes)
     peaks = [(mz[a:b], intensity[a:b]) for a, b in zip(bounds[:-1],
                                                          bounds[1:])]
-    one = list(pairwise.grouped_condensed_distances(
-        peaks, TOL, 2, max_group_pairs=20, device="cpu"))
-    many = list(pairwise.grouped_condensed_distances(
-        peaks, TOL, 2, max_group_pairs=20, devices=[CPU] * 3))
+    args = (ragged, 64, np.arange(bounds[-1]), bounds, TOL, 2)
+    one = list(pairwise.condensed_distance_groups(
+        *args, max_group_pairs=20, device="cpu"))
+    many = list(pairwise.condensed_distance_groups(
+        *args, max_group_pairs=20, devices=[CPU] * 3))
     ref = {i: d for i, d in jax_pairwise.grouped_condensed_distances(
         peaks, TOL, 2)}
-    assert [i for i, _ in one] == [i for i, _ in many] == list(range(8))
-    for (i, a), (_, b) in zip(one, many):
+    assert len(one) > 3
+    assert ([g.tolist() for g, _ in one] == [g.tolist() for g, _ in many])
+    assert np.concatenate([g for g, _ in one]).tolist() == list(range(8))
+    for (groups, a), (_, b) in zip(one, many):
         np.testing.assert_array_equal(a, b)
-        np.testing.assert_allclose(a, ref[i], atol=1e-6)
+        pair_at = 0
+        for i in groups.tolist():
+            m = sizes[i]
+            np.testing.assert_allclose(a[pair_at:pair_at + m * (m - 1) // 2],
+                                       ref[i], atol=1e-6)
+            pair_at += m * (m - 1) // 2
+        assert pair_at == len(a)
 
 
 @pytest.fixture(scope="module")

@@ -1,7 +1,7 @@
 """The port's span and counter recorder (``utils/profiling.py``) on the
 CPU: nothing is kept while recording is off; spans nest by parent and
-thread, and the work of the charge, block and producer threads leads up
-to the pass's ``run`` root; the accumulators sum what they time; the phase
+thread, and the work of the charge and block threads, and the exact
+backend's scoring and linking, lead up to the pass's ``run`` root; the accumulators sum what they time; the phase
 summary is the same with and without recording; a phase is a
 ``torch.profiler`` range of ``--profile``'s trace; and the CLI writes the
 same CSV bytes with recording on and off."""
@@ -12,11 +12,14 @@ import sys
 import threading
 import time
 
+import numpy as np
 import pytest
 import torch
 
 from falcon_tpu_torch import cli, ingest
+from falcon_tpu_torch.cluster.grouped import score_and_link
 from falcon_tpu_torch.device import DEVICE_ENV
+from falcon_tpu_torch.ops import pairwise
 from falcon_tpu_torch.simulate import make_clustered_spectra, write_mgf
 from falcon_tpu_torch.utils.profiling import (PhaseProfiler,
                                               TorchPhaseProfiler, profiler)
@@ -62,11 +65,11 @@ def _chain(spans, span):
 def test_recording_off_keeps_nothing(corpus):
     tmp_path, mgf = corpus
     p = PhaseProfiler()
-    with p.phase("a"), p.span("b"), p.timer("t"), p.gauge("g"):
+    with p.phase("a"), p.span("b"), p.gauge("g"):
         p.count("c", 3)
-        list(p.timed("w", range(3)))
+        p.add("d", 0.5)
     assert p.spans() == [] and p.counters() == {}
-    assert p.summary().keys() == {"a"}
+    assert p.summary().keys() == {"a", "d"}
 
     profiler.start_recording()
     profiler.stop_recording()
@@ -118,8 +121,8 @@ def test_spans_nest_by_parent_and_thread():
     (ANN, {}, "ann: load"),
     (ANN, {"FALCON_TPU_DEVICE_BLOCK_CAP": "48",
            "FALCON_TPU_BLOCK_PIPELINE": "2"}, "ann: upload"),
-    ([], {}, "score groups (K4)"),
-], ids=["charge_threads", "block_threads", "exact_producer"])
+    ([], {}, None),
+], ids=["charge_threads", "block_threads", "exact_backend"])
 def test_worker_threads_lead_up_to_the_run_root(corpus, monkeypatch, flags,
                                                 env, thread_phase):
     tmp_path, mgf = corpus
@@ -133,53 +136,75 @@ def test_worker_threads_lead_up_to_the_run_root(corpus, monkeypatch, flags,
     assert {s.root for s in spans} == {run.id}
     assert all(run.start_ns <= s.start_ns <= s.end_ns <= run.end_ns
                for s in spans)
+    if thread_phase is None:
+        # The exact backend scores and links each charge on the charge's
+        # own thread: K4's launches and the stage's two sums lead up to
+        # the charge, then to the run.
+        for name in ("score groups (K4)", "wait for scores",
+                     "linkage and refinement"):
+            found = [s for s in spans if s.name == name]
+            assert found, f"no {name!r} span"
+            for s in found:
+                chain = _chain(spans, s)
+                assert chain[1].startswith("cluster charge ")
+                assert chain[2:] == ["run"]
+                assert s.thread == run.thread
+        return
     workers = [s for s in spans
                if s.name == thread_phase and s.thread != run.thread]
     assert workers, f"no {thread_phase!r} span off the main thread"
     for s in workers:
         assert _chain(spans, s)[-1] == "run"
-    if flags == []:
-        by_name = {}
-        for s in spans:
-            by_name.setdefault(s.name, []).append(s)
-        for name, charge_thread in (("exact: consume", True),
-                                    ("exact: produce", False)):
-            for s in by_name[name]:
-                parent = next(x for x in spans if x.id == s.parent)
-                assert parent.name.startswith("cluster charge ")
-                assert (s.thread == parent.thread) == charge_thread
-        assert {_chain(spans, s)[1] for s in workers} == {"exact: produce"}
 
 
 def test_accumulators_sum_what_they_time():
+    # The score-and-link stage's accumulators split the seconds it
+    # returns: waiting (here on a large group's scorer, 10 ms a group) and
+    # linking.  A sum given to ``add`` is a span that ends when it is
+    # added.
+    spectra, _ = make_clustered_spectra(n_clusters=4, cluster_size=5,
+                                        n_noise=0, seed=7, charges=(2,))
+    offsets = np.concatenate([[0], np.cumsum([len(s.mz) for s in spectra])])
+    mz_flat = np.concatenate([s.mz for s in spectra]).astype(np.float32)
+    int_flat = np.concatenate([s.intensity for s in spectra]).astype(
+        np.float32)
+    group_off = np.cumsum([0, 2, 5, 3, 6, 4])
+    rows = np.arange(group_off[-1])
+    mzs = np.asarray([s.precursor_mz for s in spectra])[rows]
+
+    def slow(mz, intensity, device):
+        time.sleep(0.01)
+        return pairwise.condensed_distances(mz, intensity, 0.05,
+                                            device=device)
+
+    profiler.start_recording()
+    t0 = time.perf_counter_ns()
+    try:
+        linked = score_and_link(
+            offsets, mz_flat, int_flat, 64, rows, group_off, mzs, None,
+            "complete", 0.1, 20.0, "ppm", None, 0, 0.05, 4, slow,
+            torch.device("cpu"), counters="t")
+    finally:
+        profiler.stop_recording()
+    outside = time.perf_counter_ns() - t0
+    counters = profiler.counters()
+    assert counters["t.components"] == 5
+    assert counters["t.batches"] == 3  # one K4 launch, two large groups
+    assert 2 * 10**7 <= counters["t.wait_ns"] <= outside
+    assert abs(counters["t.wait_ns"] - linked.wait_s * 1e9) < 10**3
+    linking = counters["t.native_ns"] + counters["t.refine_ns"]
+    assert abs(linking - linked.link_s * 1e9) < 10**3
+    assert counters["t.wait_ns"] + linking <= outside
+
     p = PhaseProfiler()
     p.start_recording()
-    t0 = time.perf_counter_ns()
-    for _ in range(3):
-        with p.timer("t"):
-            time.sleep(0.01)
-    outside = time.perf_counter_ns() - t0
-
-    def slow():
-        for i in range(4):
-            time.sleep(0.005)
-            yield i
-
-    got = []
-    t0 = time.perf_counter_ns()
-    for i in p.timed("w", slow()):
-        got.append(i)
-        time.sleep(0.02)  # the consumer's own time is not counted
-    loop = time.perf_counter_ns() - t0
-    p.count("c")
-    p.count("c", 41)
+    with p.span("outer"):
+        p.add("waited", 0.25)
     p.stop_recording()
-    counters = p.counters()
-    assert got == [0, 1, 2, 3]
-    assert 3 * 10**7 <= counters["t"] <= outside
-    assert 2 * 10**7 <= counters["w"] <= loop - 8 * 10**7
-    assert counters["c"] == 42
-    assert p.spans() == []
+    waited, outer = p.spans()
+    assert waited.name == "waited" and waited.parent == outer.id
+    assert abs(waited.end_ns - waited.start_ns - 25 * 10**7) < 10**6
+    assert p.summary() == {"waited": 0.25}
 
 
 def test_counters_and_gauges_lose_no_update_across_threads():
@@ -191,7 +216,7 @@ def test_counters_and_gauges_lose_no_update_across_threads():
     def work():
         start.wait(timeout=30)
         for _ in range(n_each):
-            with p.gauge("g"), p.timer("t"):
+            with p.gauge("g"):
                 p.count("c")
 
     old = sys.getswitchinterval()
@@ -284,23 +309,22 @@ def test_csv_bytes_are_the_same_with_recording_on_and_off(corpus, flags):
     on = _run_cli(tmp_path, mgf, flags, record=True)
     assert on == off
     counters = profiler.counters()
+    prefix = "ann.linkage" if flags else "exact.linkage"
+    assert counters[f"{prefix}.components"] == (
+        counters.get(f"{prefix}.whole", 0) + counters[f"{prefix}.linked"])
+    assert counters[f"{prefix}.pairs"] > 0
+    # The batched native linkage ran: a call per K4 launch and per large
+    # group.
+    assert 0 < counters[f"{prefix}.batches"] <= (
+        counters[f"{prefix}.components"])
+    for name in ("wait_ns", "native_ns", "refine_ns"):
+        assert counters[f"{prefix}.{name}"] > 0
     if flags:
-        assert counters["ann.linkage.components"] == (
-            counters.get("ann.linkage.whole", 0)
-            + counters["ann.linkage.linked"])
         assert counters["ann.linkage.whole"] > 0
-        assert counters["ann.linkage.pairs"] > 0
-        # The batched native linkage ran: a call per K4 launch and per
-        # large component.
-        assert 0 < counters["ann.linkage.batches"] <= (
-            counters["ann.linkage.components"])
-        for name in ("wait_ns", "native_ns", "refine_ns"):
-            assert counters[f"ann.linkage.{name}"] > 0
         linkage = sum(s.end_ns - s.start_ns for s in profiler.spans()
                       if s.name == "ann: linkage")
         parts = sum(counters[f"ann.linkage.{name}"]
                     for name in ("wait_ns", "native_ns", "refine_ns"))
         assert parts <= linkage
     else:
-        assert counters["exact.intervals.linked"] > 0
-        assert counters["exact.linkage.native_ns"] > 0
+        assert not any(name.startswith("ann.linkage.") for name in counters)
