@@ -45,6 +45,26 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
+class ExportVisit(ctypes.Structure):
+    """One visit of an export tie group, as ``falcon_native.cc`` reads it:
+    the rows one shard holds of the group's files, columns in place."""
+
+    _fields_ = [
+        ("n", ctypes.c_int64),
+        ("filename", ctypes.c_void_p),
+        ("filename_width", ctypes.c_int64),
+        ("filename_const", ctypes.c_int64),
+        ("id", ctypes.c_void_p),
+        ("id_width", ctypes.c_int64),
+        ("charge", ctypes.c_void_p),
+        ("mz", ctypes.c_void_p),
+        ("mz_f32", ctypes.c_int64),
+        ("rt", ctypes.c_void_p),
+        ("rt_f32", ctypes.c_int64),
+        ("cluster", ctypes.c_void_p),
+    ]
+
+
 def library_path() -> str:
     """Where the library for the current sources lives."""
     digest = hashlib.sha256(" ".join(_CXXFLAGS).encode())
@@ -196,35 +216,17 @@ def get_lib() -> Optional[ctypes.CDLL]:
                     ctypes.c_double, ctypes.c_int, ctypes.c_int,
                     ctypes.POINTER(ctypes.c_int64),
                 ]
-        lib.fc_natsort_pairs.restype = ctypes.c_int
-        lib.fc_natsort_pairs.argtypes = [
-            ctypes.POINTER(ctypes.c_char), ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_char), ctypes.POINTER(ctypes.c_int64),
-            ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
+        lib.fc_natsort_visits.restype = ctypes.c_int
+        lib.fc_natsort_visits.argtypes = [
+            ctypes.POINTER(ExportVisit), ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
         ]
-        if hasattr(lib, "fc_natsort_pairs_u32"):
-            lib.fc_natsort_pairs_u32.restype = ctypes.c_int
-            lib.fc_natsort_pairs_u32.argtypes = [
-                ctypes.POINTER(ctypes.c_uint32), ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_uint32), ctypes.c_int64,
-                ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
-                ctypes.c_int,
-            ]
-        if hasattr(lib, "fc_csv_format_rows_u32"):
-            lib.fc_csv_format_rows_u32.restype = ctypes.c_int64
-            lib.fc_csv_format_rows_u32.argtypes = [
-                ctypes.POINTER(ctypes.c_uint32), ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_uint32), ctypes.c_int64,
-                ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-                ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_int,
-                ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-                ctypes.POINTER(ctypes.POINTER(ctypes.c_char)),
-                ctypes.c_int,
-            ]
-            lib.fc_buffer_free.restype = None
-            lib.fc_buffer_free.argtypes = [
-                ctypes.POINTER(ctypes.c_char)]
+        lib.fc_export_rows.restype = ctypes.c_int64
+        lib.fc_export_rows.argtypes = [
+            ctypes.c_int, ctypes.POINTER(ExportVisit), ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ]
         _lib = lib
         return lib
 
@@ -663,123 +665,114 @@ def _export_threads() -> int:
     return max(1, min(t, 16))
 
 
-def natsort_pairs(primary, secondary) -> Optional[np.ndarray]:
-    """Stable natural-order argsort of (primary, secondary) string pairs.
+def _visit_array(visits):
+    """ctypes array of ``ExportVisit`` rows from their field dicts."""
+    array = (ExportVisit * max(len(visits), 1))()
+    for slot, fields in zip(array, visits):
+        for name, value in fields.items():
+            setattr(slot, name, value)
+    return array
 
-    Matches ``utils.natsort.natsort_key`` tuple semantics (digits compare
-    numerically and before text at the same position; parity enforced by
-    tests/test_utils.py).  Returns None when the native library is
-    unavailable (caller falls back to the Python keys).
 
-    Numpy U-dtype arrays take a zero-copy fast path (the raw fixed-width
-    UTF-32 buffer goes straight to the native sort); at 25M export rows
-    the per-string Python-object repacking this skips costs tens of
-    seconds.
-    """
-    lib = get_lib()
-    if lib is None or not hasattr(lib, "fc_natsort_pairs"):
+def _id_fields(ids, keep: list) -> Optional[dict]:
+    """The ``ExportVisit`` fields of one visit's id column, or None if it
+    is not a numpy U column; arrays the fields point into go on ``keep``."""
+    col = _u32_col(ids)
+    if col is None or col[1] == 0:
         return None
-    n = len(primary)
-    if hasattr(lib, "fc_natsort_pairs_u32"):
-        fa, fb = _u32_col(primary), _u32_col(secondary)
-        if fa is not None and fb is not None:
-            (arr_a, w_a), (arr_b, w_b) = fa, fb
-            order = np.empty(n, np.int64)
-            rc = lib.fc_natsort_pairs_u32(
-                arr_a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
-                ctypes.c_int64(w_a),
-                arr_b.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
-                ctypes.c_int64(w_b),
-                ctypes.c_int64(n),
-                order.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-                ctypes.c_int(_export_threads()),
-            )
-            if rc != 0:
-                raise RuntimeError("fc_natsort_pairs_u32 failed")
-            return order
+    arr, width = col
+    keep.append(arr)
+    return {"n": len(arr), "id": arr.ctypes.data, "id_width": width}
 
-    def pack(strings):
-        encoded = [s.encode("utf-8") for s in strings]
-        offsets = np.zeros(n + 1, np.int64)
-        np.cumsum([len(e) for e in encoded], out=offsets[1:])
-        return b"".join(encoded), offsets
 
-    bytes_a, offs_a = pack(primary)
-    bytes_b, offs_b = pack(secondary)
-    order = np.empty(n, np.int64)
-    rc = lib.fc_natsort_pairs(
-        ctypes.cast(ctypes.c_char_p(bytes_a),
-                    ctypes.POINTER(ctypes.c_char)),
-        offs_a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        ctypes.cast(ctypes.c_char_p(bytes_b),
-                    ctypes.POINTER(ctypes.c_char)),
-        offs_b.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        ctypes.c_int64(n),
+def natsort_rows(id_columns) -> Optional[np.ndarray]:
+    """Stable natural-order argsort of the rows of ``id_columns`` (numpy U
+    columns, rows numbered column after column): the order of
+    ``utils.natsort.natsort_key`` with ties in row order (parity enforced
+    by tests/test_torch_natsort.py), from keys encoded once a row and
+    sorted on ``_export_threads()`` threads.  Returns None when the native
+    library is unavailable or a column is not a U column."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    keep: list = []
+    visits = [_id_fields(ids, keep) for ids in id_columns]
+    if any(v is None for v in visits):
+        return None
+    order = np.empty(sum(v["n"] for v in visits), np.int64)
+    rc = lib.fc_natsort_visits(
+        _visit_array(visits), ctypes.c_int64(len(visits)),
         order.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-    )
+        ctypes.c_int(_export_threads()))
     if rc != 0:
-        raise RuntimeError("fc_natsort_pairs failed")
+        raise RuntimeError("fc_natsort_visits failed")
     return order
 
 
-def csv_rows(filenames, identifiers, charges, null_charge, mzs, rts,
-             clusters) -> Optional[bytes]:
-    """Format cluster-assignment CSV rows natively, byte-for-byte like
+def export_rows(fd: int, order: np.ndarray, visits, null_charge: int,
+                chunk_rows: int) -> Optional[int]:
+    """Write the rows of ``visits`` in ``order`` to the file descriptor
+    ``fd`` as cluster-assignment CSV rows, byte-for-byte like
     ``csv.writer(f, lineterminator="\\n")`` fed ``str()`` of the same
-    values (parity enforced by tests/test_export.py, including Python
-    float-repr semantics, QUOTE_MINIMAL quoting, and the empty
-    null-charge field).  ``filenames``/``identifiers`` must be numpy
-    string arrays.  Returns the encoded UTF-8 bytes, or None when the
-    native path is unavailable (caller falls back to csv.writer)."""
+    values (Python float-repr semantics, QUOTE_MINIMAL quoting, the empty
+    null-charge field; parity enforced by tests/test_torch_export.py),
+    formatted ``chunk_rows`` rows at a time on ``_export_threads()``
+    threads.
+
+    ``visits``: per visit, (filename, identifiers, charges, m/z, retention
+    times, clusters), the filename a ``str`` naming every row or a U
+    column; ``order`` numbers the rows visit after visit.  Returns the
+    bytes written, or None (nothing written) when the native library is
+    unavailable or a column has a type the formatter does not render as
+    ``csv.writer`` would (the caller falls back to it)."""
     lib = get_lib()
-    if lib is None or not hasattr(lib, "fc_csv_format_rows_u32"):
+    if lib is None:
         return None
-    n = len(clusters)
-    if n == 0:
-        return b""
-    fn = _u32_col(np.asarray(filenames))
-    sid = _u32_col(np.asarray(identifiers))
-    if fn is None or sid is None:
-        return None
-    (fn_b, fn_w), (id_b, id_w) = fn, sid
-    charges = np.ascontiguousarray(charges, np.int64)
-
-    def float_col(col):
-        # Preserve storage precision: str(np.float32) formats
-        # differently from str(float) and the native side mirrors both.
-        # Any OTHER dtype (float16, int...) would silently diverge from
-        # the csv.writer fallback if widened -> decline the fast path.
-        arr = np.asarray(col)
-        if arr.dtype not in (np.float32, np.float64):
-            return None, 0
-        return np.ascontiguousarray(arr), int(arr.dtype == np.float32)
-
-    mzs, mz_f32 = float_col(mzs)
-    rts, rt_f32 = float_col(rts)
-    if mzs is None or rts is None:
-        return None
-    clusters = np.ascontiguousarray(clusters, np.int64)
-    buf_ptr = ctypes.POINTER(ctypes.c_char)()
-    written = lib.fc_csv_format_rows_u32(
-        fn_b.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
-        ctypes.c_int64(fn_w),
-        id_b.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
-        ctypes.c_int64(id_w),
-        charges.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        ctypes.c_int64(null_charge),
-        ctypes.c_void_p(mzs.ctypes.data), ctypes.c_int(mz_f32),
-        ctypes.c_void_p(rts.ctypes.data), ctypes.c_int(rt_f32),
-        clusters.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        ctypes.c_int64(n),
-        ctypes.byref(buf_ptr),
-        ctypes.c_int(_export_threads()),
-    )
+    keep: list = []
+    fields = []
+    for filename, ids, charges, mzs, rts, clusters in visits:
+        visit = _id_fields(ids, keep)
+        const = isinstance(filename, str)
+        fn = _u32_col(np.array([filename]) if const else filename)
+        if visit is None or fn is None or fn[1] == 0:
+            return None
+        fn_arr, fn_width = fn
+        if len(fn_arr) != (1 if const else visit["n"]):
+            raise ValueError("export columns differ in length")
+        visit.update(filename=fn_arr.ctypes.data, filename_width=fn_width,
+                     filename_const=int(const))
+        columns = [fn_arr, np.ascontiguousarray(charges, np.int64),
+                   np.ascontiguousarray(clusters, np.int64)]
+        for key, col in (("mz", mzs), ("rt", rts)):
+            # str(np.float32) formats differently from str(float) and the
+            # native side mirrors both; any other dtype would diverge
+            # from the csv.writer fallback if widened.
+            col = np.asarray(col)
+            if col.dtype not in (np.float32, np.float64):
+                return None
+            col = np.ascontiguousarray(col)
+            columns.append(col)
+            visit[key] = col.ctypes.data
+            visit[f"{key}_f32"] = int(col.dtype == np.float32)
+        if any(len(col) != visit["n"] for col in columns[1:]):
+            raise ValueError("export columns differ in length")
+        visit.update(charge=columns[1].ctypes.data,
+                     cluster=columns[2].ctypes.data)
+        keep.extend(columns)
+        fields.append(visit)
+    order = np.ascontiguousarray(order, np.int64)
+    err = ctypes.c_int(0)
+    written = lib.fc_export_rows(
+        ctypes.c_int(fd), _visit_array(fields), ctypes.c_int64(len(fields)),
+        order.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        ctypes.c_int64(len(order)), ctypes.c_int64(null_charge),
+        ctypes.c_int64(chunk_rows), ctypes.c_int(_export_threads()),
+        ctypes.byref(err))
+    if written == -2:
+        raise OSError(err.value, os.strerror(err.value))
     if written < 0:
-        return None
-    try:
-        return ctypes.string_at(buf_ptr, written)
-    finally:
-        lib.fc_buffer_free(buf_ptr)
+        raise RuntimeError("fc_export_rows failed")
+    return int(written)
 
 
 def connected_components(

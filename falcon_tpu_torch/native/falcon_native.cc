@@ -12,13 +12,17 @@
 //     with min_samples) engine of the published algorithm.
 //   - the ann engine's per-component linkage, cut, precursor split and
 //     medoids, a batch of eps-components a call (fc_link_components).
+//   - the CSV export's natural sort of a tie group's ids on keys encoded
+//     once (fc_natsort_visits) and its rows, formatted on threads and
+//     written to the file (fc_export_rows).
 //
 // Exposed via a plain C ABI for ctypes binding (no pybind11 dependency).
 //
 // Build: make -C native   ->  native/libfalcon_native.so
 
 #include <algorithm>
-#include <cctype>
+#include <atomic>
+#include <cerrno>
 #include <charconv>
 #include <cmath>
 #include <cstdint>
@@ -31,6 +35,8 @@
 #include <string>
 #include <thread>
 #include <vector>
+
+#include <unistd.h>
 
 namespace {
 
@@ -266,88 +272,7 @@ int64_t fc_fcluster_impl(const double* z, int64_t n, double t,
 
 namespace {
 
-// Natural-order comparison of two strings with Python-tuple semantics
-// matching falcon_tpu/utils/natsort.py: strings split into digit / text
-// runs; a digit run sorts before a text run at the same position; digit
-// runs compare numerically (leading zeros ignored; numerically equal
-// runs are a tie); text runs compare bytewise (UTF-8 bytes == code-point
-// order); exhausted string sorts first.
-int nat_compare(const char* a, const char* a_end,
-                const char* b, const char* b_end) {
-  while (true) {
-    bool a_done = a == a_end, b_done = b == b_end;
-    if (a_done && b_done) return 0;
-    if (a_done) return -1;
-    if (b_done) return 1;
-    bool a_digit = std::isdigit(static_cast<unsigned char>(*a));
-    bool b_digit = std::isdigit(static_cast<unsigned char>(*b));
-    if (a_digit != b_digit) return a_digit ? -1 : 1;  // (0, n) < (1, s)
-    if (a_digit) {
-      const char* a0 = a;
-      const char* b0 = b;
-      while (a < a_end && std::isdigit(static_cast<unsigned char>(*a)))
-        ++a;
-      while (b < b_end && std::isdigit(static_cast<unsigned char>(*b)))
-        ++b;
-      while (a0 < a && *a0 == '0') ++a0;  // strip leading zeros
-      while (b0 < b && *b0 == '0') ++b0;
-      int64_t la = a - a0, lb = b - b0;
-      if (la != lb) return la < lb ? -1 : 1;
-      int c = std::memcmp(a0, b0, static_cast<size_t>(la));
-      if (c != 0) return c < 0 ? -1 : 1;
-      // Numerically equal (possibly different leading zeros): tie.
-    } else {
-      while (a < a_end && b < b_end
-             && !std::isdigit(static_cast<unsigned char>(*a))
-             && !std::isdigit(static_cast<unsigned char>(*b))) {
-        if (*a != *b) {
-          return static_cast<unsigned char>(*a)
-                         < static_cast<unsigned char>(*b) ? -1 : 1;
-        }
-        ++a;
-        ++b;
-      }
-      // One (or both) text run ended: if one still has text while the
-      // other moved to digit/end *within the same tuple element*, the
-      // longer text string compares greater (Python str order decided
-      // the element).
-      bool a_text = a < a_end
-                    && !std::isdigit(static_cast<unsigned char>(*a));
-      bool b_text = b < b_end
-                    && !std::isdigit(static_cast<unsigned char>(*b));
-      if (a_text != b_text) return b_text ? -1 : 1;
-    }
-  }
-}
-
-}  // namespace
-
-// Stable natural-order argsort of (primary, secondary) string pairs.
-//   bytes_a/offs_a: concatenated primary strings + n+1 offsets; same for
-//   the secondary column.  order_out: n int64 indices.
-// Returns 0 on success.
-int fc_natsort_pairs_impl(const char* bytes_a, const int64_t* offs_a,
-                     const char* bytes_b, const int64_t* offs_b,
-                     int64_t n, int64_t* order_out) {
-  std::vector<int64_t> order(n);
-  std::iota(order.begin(), order.end(), 0);
-  std::stable_sort(order.begin(), order.end(), [&](int64_t x, int64_t y) {
-    int c = nat_compare(bytes_a + offs_a[x], bytes_a + offs_a[x + 1],
-                        bytes_a + offs_a[y], bytes_a + offs_a[y + 1]);
-    if (c != 0) return c < 0;
-    return nat_compare(bytes_b + offs_b[x], bytes_b + offs_b[x + 1],
-                       bytes_b + offs_b[y], bytes_b + offs_b[y + 1]) < 0;
-  });
-  std::memcpy(order_out, order.data(), n * sizeof(int64_t));
-  return 0;
-}
-
-namespace {
-
-// UTF-32 (numpy U-dtype) natural-order comparison, same semantics as
-// nat_compare above; code-point order == UTF-8 byte order, so the two
-// paths sort identically (parity enforced by tests/test_utils.py and
-// tests/test_export.py).
+// An ASCII digit, in a numpy U-dtype (UTF-32) string.
 inline bool u32_digit(uint32_t c) { return c >= '0' && c <= '9'; }
 
 // True end of a NUL-padded fixed-width slot.
@@ -355,41 +280,6 @@ inline const uint32_t* u32_trim(const uint32_t* s, int64_t width) {
   const uint32_t* e = s + width;
   while (e > s && e[-1] == 0) --e;
   return e;
-}
-
-int nat_compare_u32(const uint32_t* a, const uint32_t* a_end,
-                    const uint32_t* b, const uint32_t* b_end) {
-  while (true) {
-    bool a_done = a == a_end, b_done = b == b_end;
-    if (a_done && b_done) return 0;
-    if (a_done) return -1;
-    if (b_done) return 1;
-    bool a_digit = u32_digit(*a);
-    bool b_digit = u32_digit(*b);
-    if (a_digit != b_digit) return a_digit ? -1 : 1;  // (0, n) < (1, s)
-    if (a_digit) {
-      const uint32_t* a0 = a;
-      const uint32_t* b0 = b;
-      while (a < a_end && u32_digit(*a)) ++a;
-      while (b < b_end && u32_digit(*b)) ++b;
-      while (a0 < a && *a0 == '0') ++a0;  // strip leading zeros
-      while (b0 < b && *b0 == '0') ++b0;
-      int64_t la = a - a0, lb = b - b0;
-      if (la != lb) return la < lb ? -1 : 1;
-      for (; a0 < a; ++a0, ++b0)
-        if (*a0 != *b0) return *a0 < *b0 ? -1 : 1;
-      // Numerically equal (possibly different leading zeros): tie.
-    } else {
-      while (a < a_end && b < b_end && !u32_digit(*a) && !u32_digit(*b)) {
-        if (*a != *b) return *a < *b ? -1 : 1;
-        ++a;
-        ++b;
-      }
-      bool a_text = a < a_end && !u32_digit(*a);
-      bool b_text = b < b_end && !u32_digit(*b);
-      if (a_text != b_text) return b_text ? -1 : 1;
-    }
-  }
 }
 
 // Run task(0..t-1) on worker threads.  Thread construction can throw
@@ -437,64 +327,6 @@ inline void run_chunked(int t, const std::function<void(int)>& task) {
 }
 
 }  // namespace
-
-// Stable natural-order argsort over numpy U-dtype (fixed-width UTF-32,
-// NUL-padded) string columns, passed as raw buffers with widths in code
-// units.  Same ordering semantics as fc_natsort_pairs; this entry point
-// skips the per-string Python-object repacking (tens of seconds at the
-// 25M-row export scale).  threads > 1 sorts contiguous index chunks on
-// worker threads and stably merges pairwise (left before right, so the
-// order is IDENTICAL to the single-threaded sort — parity enforced by
-// tests/test_utils.py with a forced thread count); the 1-CPU dev box
-// can only verify correctness, the speedup is for multicore TPU-VM
-// hosts.  Returns 0 on success.
-int fc_natsort_pairs_u32_impl(const uint32_t* data_a, int64_t width_a,
-                         const uint32_t* data_b, int64_t width_b,
-                         int64_t n, int64_t* order_out, int threads) {
-  std::vector<const uint32_t*> end_a(n), end_b(n);
-  for (int64_t i = 0; i < n; ++i) {
-    end_a[i] = u32_trim(data_a + i * width_a, width_a);
-    end_b[i] = u32_trim(data_b + i * width_b, width_b);
-  }
-  std::vector<int64_t> order(n);
-  std::iota(order.begin(), order.end(), 0);
-  auto less = [&](int64_t x, int64_t y) {
-    int c = nat_compare_u32(data_a + x * width_a, end_a[x],
-                            data_a + y * width_a, end_a[y]);
-    if (c != 0) return c < 0;
-    return nat_compare_u32(data_b + x * width_b, end_b[x],
-                           data_b + y * width_b, end_b[y]) < 0;
-  };
-  if (threads <= 1 || n < (1 << 16)) {
-    std::stable_sort(order.begin(), order.end(), less);
-  } else {
-    int t = std::min<int64_t>(threads, n);
-    std::vector<int64_t> bounds(t + 1);
-    for (int i = 0; i <= t; ++i) bounds[i] = n * i / t;
-    run_chunked(t, [&](int i) {
-      std::stable_sort(order.begin() + bounds[i],
-                       order.begin() + bounds[i + 1], less);
-    });
-    // Pairwise stable merges until one run remains.
-    while (bounds.size() > 2) {
-      std::vector<int64_t> next;
-      next.push_back(bounds[0]);
-      int n_merges = static_cast<int>((bounds.size() - 1) / 2);
-      for (int m = 0; m < n_merges; ++m) next.push_back(bounds[2 * m + 2]);
-      run_chunked(n_merges, [&](int m) {
-        size_t i = static_cast<size_t>(2 * m);
-        std::inplace_merge(order.begin() + bounds[i],
-                           order.begin() + bounds[i + 1],
-                           order.begin() + bounds[i + 2], less);
-      });
-      if (bounds.size() % 2 == 0)  // odd run count: last carries over
-        next.push_back(bounds.back());
-      bounds = std::move(next);
-    }
-  }
-  std::memcpy(order_out, order.data(), n * sizeof(int64_t));
-  return 0;
-}
 
 // Connected components over an undirected edge list.
 //   u, v: edge endpoints (n_edges), nodes in [0, n_nodes).
@@ -549,7 +381,7 @@ namespace {
 // shortest digit string comes from std::to_chars (both it and CPython
 // produce the unique shortest correctly-rounded representation);
 // byte-for-byte parity with str(float) is enforced by
-// tests/test_export.py.
+// tests/test_torch_export.py.
 // Shortest round-trip digit string of a positive finite value via
 // std::to_chars scientific; sets decpt so that value = 0.<digits> *
 // 10^decpt.  Returns the digit count.
@@ -640,7 +472,7 @@ void append_py_float_repr(std::string& out, double v) {
 // digits alone would say '0.0001'.  Neither threshold is exactly
 // representable in float32, so the comparison never lands on the
 // boundary.  Parity with str(np.float32) is fuzzed in
-// tests/test_export.py.
+// tests/test_torch_export.py.
 void append_np_f32_repr(std::string& out, float v) {
   if (std::isnan(v)) {
     out += "nan";
@@ -714,75 +546,329 @@ void append_int64(std::string& out, int64_t v) {
 
 }  // namespace
 
+// One visit of an export tie group: the `n` rows one shard holds of the
+// group's files, each column as loaded (numpy U columns are fixed-width
+// UTF-32, NUL-padded, widths in code units).  `filename_const` set: the
+// one slot `filename` names every row; else `filename` is a column.
+struct ExportVisit {
+  int64_t n;
+  const uint32_t* filename;
+  int64_t filename_width;
+  int64_t filename_const;
+  const uint32_t* id;
+  int64_t id_width;
+  const int64_t* charge;
+  const void* mz;
+  int64_t mz_f32;
+  const void* rt;
+  int64_t rt_f32;
+  const int64_t* cluster;
+};
+
 namespace {
 
-// Format cluster-assignment CSV rows
+// Rows at or above which the export kernels split their work over
+// threads (below it a thread's start costs more than it saves).
+constexpr int64_t kExportParallelRows = 1 << 14;
+
+// Row offsets of the visits, one after the other (n_visits + 1).
+std::vector<int64_t> visit_starts(const ExportVisit* v, int64_t n_visits) {
+  std::vector<int64_t> starts(n_visits + 1, 0);
+  for (int64_t i = 0; i < n_visits; ++i) starts[i + 1] = starts[i] + v[i].n;
+  return starts;
+}
+
+// The visit that holds row r.
+inline int64_t visit_of(const std::vector<int64_t>& starts, int64_t r) {
+  return std::upper_bound(starts.begin() + 1, starts.end(), r)
+         - (starts.begin() + 1);
+}
+
+// Write the order-preserving byte key of a UTF-32 string at p, which has
+// room for nat_key_bound bytes, and return its end: two keys compare by
+// memcmp, a prefix first, as utils/natsort.py's natsort_key orders their
+// strings (digit runs numerically, leading zeros ignored, before text at
+// the same position; text by code point; an ended string first), with
+// ASCII digits as the digits.  Runs, in turn:
+//   digit run: 0x01, the count of its digits without leading zeros (one
+//     byte under 255, else 0xFF and eight bytes big-endian), then those
+//     digits two to a byte; so numerically equal runs give equal bytes;
+//   text run: 0x02, each code point in UTF-8's byte order (which is code
+//     point order; NUL as 0x00 0x01, and above 0x1FFFFF as 0xF8 and four
+//     bytes big-endian), then 0x00 0x00, below every code point.
+// A digit run's tag sorts before a text run's, and an ended string before
+// either.
+unsigned char* write_nat_key(unsigned char* p, const uint32_t* s,
+                             const uint32_t* end) {
+  while (s < end) {
+    if (u32_digit(*s)) {
+      const uint32_t* e = s;
+      while (e < end && u32_digit(*e)) ++e;
+      while (s < e && *s == '0') ++s;
+      uint64_t len = static_cast<uint64_t>(e - s);
+      *p++ = 0x01;
+      if (len < 0xFF) {
+        *p++ = static_cast<unsigned char>(len);
+      } else {
+        *p++ = 0xFF;
+        for (int shift = 56; shift >= 0; shift -= 8)
+          *p++ = static_cast<unsigned char>(len >> shift);
+      }
+      for (; s + 1 < e; s += 2)
+        *p++ = static_cast<unsigned char>(((s[0] - '0') << 4) | (s[1] - '0'));
+      if (s < e) *p++ = static_cast<unsigned char>((*s++ - '0') << 4);
+    } else {
+      *p++ = 0x02;
+      for (; s < end && !u32_digit(*s); ++s) {
+        uint32_t c = *s;
+        if (c - 1 < 0x7F) {  // 1..0x7F
+          *p++ = static_cast<unsigned char>(c);
+        } else if (c == 0) {
+          *p++ = 0x00;
+          *p++ = 0x01;
+        } else if (c < 0x800) {
+          *p++ = static_cast<unsigned char>(0xC0 | (c >> 6));
+          *p++ = static_cast<unsigned char>(0x80 | (c & 0x3F));
+        } else if (c < 0x10000) {
+          *p++ = static_cast<unsigned char>(0xE0 | (c >> 12));
+          *p++ = static_cast<unsigned char>(0x80 | ((c >> 6) & 0x3F));
+          *p++ = static_cast<unsigned char>(0x80 | (c & 0x3F));
+        } else if (c < 0x200000) {
+          *p++ = static_cast<unsigned char>(0xF0 | (c >> 18));
+          *p++ = static_cast<unsigned char>(0x80 | ((c >> 12) & 0x3F));
+          *p++ = static_cast<unsigned char>(0x80 | ((c >> 6) & 0x3F));
+          *p++ = static_cast<unsigned char>(0x80 | (c & 0x3F));
+        } else {
+          *p++ = 0xF8;
+          for (int shift = 24; shift >= 0; shift -= 8)
+            *p++ = static_cast<unsigned char>(c >> shift);
+        }
+      }
+      *p++ = 0x00;
+      *p++ = 0x00;
+    }
+  }
+  return p;
+}
+
+// Bytes enough for the key of a string of `len` code points: a run of k
+// code points takes at most 5k + 10.
+inline size_t nat_key_bound(int64_t len) {
+  return static_cast<size_t>(len) * 15 + 16;
+}
+
+struct NatItem {
+  const unsigned char* key;
+  int64_t len;
+  int64_t row;
+};
+
+// Keys in memcmp order, then rows: a strict total order, so any sort of
+// it gives the stable natural order.
+inline bool nat_item_less(const NatItem& a, const NatItem& b) {
+  int c = std::memcmp(a.key, b.key,
+                      static_cast<size_t>(std::min(a.len, b.len)));
+  if (c != 0) return c < 0;
+  if (a.len != b.len) return a.len < b.len;
+  return a.row < b.row;
+}
+
+// Rows of the visits (numbered visit after visit) in natural order of
+// their ids, ties in row order (parity with the JAX package's native
+// natural sort in tests/test_torch_natsort.py).  Each id is encoded once
+// (write_nat_key); on several threads a sample sort cuts the keys into
+// buckets by splitters drawn from an even sample, and the threads sort
+// whole buckets, so no merge of all rows runs on one thread.
+void natsort_visits(const ExportVisit* v, int64_t n_visits,
+                    int64_t* order_out, int threads) {
+  std::vector<int64_t> starts = visit_starts(v, n_visits);
+  const int64_t n = starts.back();
+  if (n == 0) return;
+  const int t = (threads <= 1 || n < kExportParallelRows)
+                    ? 1 : static_cast<int>(std::min<int64_t>(threads, n));
+  std::vector<NatItem> items(n);
+  std::vector<std::vector<unsigned char>> arenas(t);
+  run_chunked(t, [&](int i) {
+    const int64_t lo = n * i / t, hi = n * (i + 1) / t;
+    std::vector<unsigned char>& arena = arenas[i];
+    size_t used = 0;
+    int64_t vi = visit_of(starts, lo);
+    for (int64_t r = lo; r < hi; ++r) {
+      while (r >= starts[vi + 1]) ++vi;
+      const uint32_t* id = v[vi].id + (r - starts[vi]) * v[vi].id_width;
+      const uint32_t* end = u32_trim(id, v[vi].id_width);
+      const size_t room = used + nat_key_bound(end - id);
+      if (room > arena.size()) arena.resize(std::max(room, 2 * arena.size()));
+      items[r].len = static_cast<int64_t>(used);
+      items[r].row = r;
+      used = write_nat_key(arena.data() + used, id, end) - arena.data();
+    }
+    for (int64_t r = lo; r < hi; ++r) {
+      int64_t begin = items[r].len;
+      int64_t end = r + 1 < hi ? items[r + 1].len : static_cast<int64_t>(used);
+      items[r].key = arena.data() + begin;
+      items[r].len = end - begin;
+    }
+  });
+  if (t == 1) {
+    std::sort(items.begin(), items.end(), nat_item_less);
+  } else {
+    const int n_buckets = 4 * t;
+    const int64_t n_sample = std::min<int64_t>(n, 64 * n_buckets);
+    std::vector<NatItem> sample(n_sample);
+    for (int64_t j = 0; j < n_sample; ++j) sample[j] = items[j * n / n_sample];
+    std::sort(sample.begin(), sample.end(), nat_item_less);
+    std::vector<NatItem> splitters;
+    for (int b = 1; b < n_buckets; ++b)
+      splitters.push_back(sample[b * n_sample / n_buckets]);
+    std::vector<int32_t> bucket(n);
+    std::vector<int64_t> counts(static_cast<size_t>(t) * n_buckets, 0);
+    run_chunked(t, [&](int i) {
+      int64_t* count = counts.data() + static_cast<size_t>(i) * n_buckets;
+      for (int64_t r = n * i / t; r < n * (i + 1) / t; ++r) {
+        bucket[r] = static_cast<int32_t>(
+            std::upper_bound(splitters.begin(), splitters.end(), items[r],
+                             nat_item_less) - splitters.begin());
+        ++count[bucket[r]];
+      }
+    });
+    // Where thread i's rows of bucket b go: buckets in order, and within
+    // a bucket the threads' rows in thread order.
+    std::vector<int64_t> bucket_start(n_buckets + 1, 0);
+    std::vector<int64_t> at(counts.size());
+    int64_t pos = 0;
+    for (int b = 0; b < n_buckets; ++b) {
+      bucket_start[b] = pos;
+      for (int i = 0; i < t; ++i) {
+        at[static_cast<size_t>(i) * n_buckets + b] = pos;
+        pos += counts[static_cast<size_t>(i) * n_buckets + b];
+      }
+    }
+    bucket_start[n_buckets] = pos;
+    std::vector<NatItem> sorted(n);
+    run_chunked(t, [&](int i) {
+      int64_t* next = at.data() + static_cast<size_t>(i) * n_buckets;
+      for (int64_t r = n * i / t; r < n * (i + 1) / t; ++r)
+        sorted[next[bucket[r]]++] = items[r];
+    });
+    std::atomic<int> next_bucket{0};
+    run_chunked(t, [&](int) {
+      for (int b; (b = next_bucket.fetch_add(1)) < n_buckets;)
+        std::sort(sorted.begin() + bucket_start[b],
+                  sorted.begin() + bucket_start[b + 1], nat_item_less);
+    });
+    items.swap(sorted);
+  }
+  for (int64_t k = 0; k < n; ++k) order_out[k] = items[k].row;
+}
+
+// Append one cluster-assignment CSV row
 // (filename,spectrum_id,precursor_charge,precursor_mz,retention_time,
 // cluster) byte-for-byte like csv.writer(lineterminator="\n") fed str()
-// of the same values (the export path's Python fallback).  String
-// columns arrive as numpy U-dtype buffers (fixed-width UTF-32,
-// NUL-padded, widths in code units); charge == null_charge renders as
-// an empty field.  The float columns keep their storage precision:
-// mz_f32/rt_f32 select str(np.float32) formatting (the store holds
-// float32, falcon_tpu/store/store.py) vs str(float).  Allocates the
-// exact-size UTF-8 output into *out_buf (caller frees with
-// fc_buffer_free) and returns its byte length, or -1 on allocation
-// failure.
-int64_t fc_csv_format_rows_u32_impl(const uint32_t* fn_data, int64_t fn_width,
-                               const uint32_t* id_data, int64_t id_width,
-                               const int64_t* charge, int64_t null_charge,
-                               const void* mz, int mz_f32, const void* rt,
-                               int rt_f32, const int64_t* cluster,
-                               int64_t n, char** out_buf, int threads) {
-  auto format_rows = [&](int64_t lo, int64_t hi, std::string& out) {
-    out.reserve(static_cast<size_t>(hi - lo) * 64);
-    for (int64_t i = lo; i < hi; ++i) {
-      const uint32_t* fn = fn_data + i * fn_width;
-      append_csv_str_field(out, fn, u32_trim(fn, fn_width));
-      out += ',';
-      const uint32_t* id = id_data + i * id_width;
-      append_csv_str_field(out, id, u32_trim(id, id_width));
-      out += ',';
-      if (charge[i] != null_charge) append_int64(out, charge[i]);
-      out += ',';
-      if (mz_f32)
-        append_np_f32_repr(out, static_cast<const float*>(mz)[i]);
-      else
-        append_py_float_repr(out, static_cast<const double*>(mz)[i]);
-      out += ',';
-      if (rt_f32)
-        append_np_f32_repr(out, static_cast<const float*>(rt)[i]);
-      else
-        append_py_float_repr(out, static_cast<const double*>(rt)[i]);
-      out += ',';
-      append_int64(out, cluster[i]);
-      out += '\n';
+// of the same values (the export path's Python fallback): charge ==
+// null_charge renders as an empty field; the float columns keep their
+// storage precision (str(np.float32) for float32, the store's dtype,
+// else str(float)).  `filename` is the row's file name field, already
+// quoted and encoded.
+void append_csv_row(std::string& out, const ExportVisit& v, int64_t i,
+                    const std::string& filename, int64_t null_charge) {
+  out += filename;
+  out += ',';
+  const uint32_t* id = v.id + i * v.id_width;
+  append_csv_str_field(out, id, u32_trim(id, v.id_width));
+  out += ',';
+  if (v.charge[i] != null_charge) append_int64(out, v.charge[i]);
+  out += ',';
+  if (v.mz_f32)
+    append_np_f32_repr(out, static_cast<const float*>(v.mz)[i]);
+  else
+    append_py_float_repr(out, static_cast<const double*>(v.mz)[i]);
+  out += ',';
+  if (v.rt_f32)
+    append_np_f32_repr(out, static_cast<const float*>(v.rt)[i]);
+  else
+    append_py_float_repr(out, static_cast<const double*>(v.rt)[i]);
+  out += ',';
+  append_int64(out, v.cluster[i]);
+  out += '\n';
+}
+
+// write(2) all of [data, data + len) to fd; false (errno set) on failure.
+bool write_all(int fd, const char* data, size_t len) {
+  while (len > 0) {
+    ssize_t w = ::write(fd, data, len);
+    if (w < 0) {
+      if (errno == EINTR) continue;
+      return false;
     }
-  };
-  // Rows are independent: format contiguous chunks on worker threads
-  // and concatenate in order (byte-identical to the serial pass; the
-  // speedup is for multicore TPU-VM hosts).
-  int t = (threads <= 1 || n < (1 << 16))
-              ? 1 : static_cast<int>(std::min<int64_t>(threads, n));
-  std::vector<std::string> parts(t);
-  if (t == 1) {
-    format_rows(0, n, parts[0]);
-  } else {
+    data += w;
+    len -= static_cast<size_t>(w);
+  }
+  return true;
+}
+
+// Write the visits' rows in `order` (n row numbers, visit after visit)
+// to fd as CSV rows, chunk_rows rows at a time: each chunk is formatted
+// in slices on threads, reading every column in place and each constant
+// file name from one encoded copy, and the slices are written in order.
+// Returns the bytes written; -1 on a row number out of range; -2 on a
+// failed write, with its errno in *err.
+int64_t export_rows(int fd, const ExportVisit* v, int64_t n_visits,
+                    const int64_t* order, int64_t n, int64_t null_charge,
+                    int64_t chunk_rows, int threads, int* err) {
+  std::vector<int64_t> starts = visit_starts(v, n_visits);
+  const int64_t n_all = starts.back();
+  std::vector<std::string> const_names(n_visits);
+  for (int64_t i = 0; i < n_visits; ++i) {
+    if (v[i].filename_const)
+      append_csv_str_field(const_names[i], v[i].filename,
+                           u32_trim(v[i].filename, v[i].filename_width));
+  }
+  chunk_rows = std::max<int64_t>(chunk_rows, 1);
+  std::vector<std::string> parts(std::max(threads, 1));
+  std::vector<char> bad(parts.size(), 0);
+  int64_t written = 0;
+  for (int64_t c0 = 0; c0 < n; c0 += chunk_rows) {
+    const int64_t m = std::min(chunk_rows, n - c0);
+    const int t = (threads <= 1 || m < kExportParallelRows)
+                      ? 1 : static_cast<int>(std::min<int64_t>(threads, m));
     run_chunked(t, [&](int i) {
-      format_rows(n * i / t, n * (i + 1) / t, parts[i]);
+      std::string& out = parts[i];
+      std::string name;
+      out.clear();
+      const int64_t lo = c0 + m * i / t, hi = c0 + m * (i + 1) / t;
+      out.reserve(static_cast<size_t>(hi - lo) * 96);
+      for (int64_t k = lo; k < hi; ++k) {
+        const int64_t r = order[k];
+        if (r < 0 || r >= n_all) {
+          bad[i] = 1;
+          return;
+        }
+        const int64_t vi = visit_of(starts, r);
+        const int64_t row = r - starts[vi];
+        const ExportVisit& visit = v[vi];
+        if (visit.filename_const) {
+          append_csv_row(out, visit, row, const_names[vi], null_charge);
+        } else {
+          const uint32_t* fn = visit.filename + row * visit.filename_width;
+          name.clear();
+          append_csv_str_field(name, fn, u32_trim(fn, visit.filename_width));
+          append_csv_row(out, visit, row, name, null_charge);
+        }
+      }
     });
+    for (int i = 0; i < t; ++i) {
+      if (bad[i]) return -1;
+    }
+    for (int i = 0; i < t; ++i) {
+      if (!write_all(fd, parts[i].data(), parts[i].size())) {
+        *err = errno;
+        return -2;
+      }
+      written += static_cast<int64_t>(parts[i].size());
+    }
   }
-  size_t total = 0;
-  for (const auto& p : parts) total += p.size();
-  char* buf = static_cast<char*>(std::malloc(total ? total : 1));
-  if (buf == nullptr) return -1;
-  size_t off = 0;
-  for (const auto& p : parts) {
-    std::memcpy(buf + off, p.data(), p.size());
-    off += p.size();
-  }
-  *out_buf = buf;
-  return static_cast<int64_t>(total);
+  return written;
 }
 
 }  // namespace
@@ -1186,29 +1272,6 @@ int64_t fc_link_components(
   }
 }
 
-int fc_natsort_pairs(const char* bytes_a, const int64_t* offs_a,
-                     const char* bytes_b, const int64_t* offs_b,
-                     int64_t n, int64_t* order_out) noexcept {
-  try {
-    return fc_natsort_pairs_impl(bytes_a, offs_a, bytes_b, offs_b, n,
-                                 order_out);
-  } catch (...) {
-    return 4;
-  }
-}
-
-int fc_natsort_pairs_u32(const uint32_t* data_a, int64_t width_a,
-                         const uint32_t* data_b, int64_t width_b,
-                         int64_t n, int64_t* order_out,
-                         int threads) noexcept {
-  try {
-    return fc_natsort_pairs_u32_impl(data_a, width_a, data_b, width_b, n,
-                                     order_out, threads);
-  } catch (...) {
-    return 4;
-  }
-}
-
 int64_t fc_connected_components(const int64_t* u, const int64_t* v,
                                 int64_t n_edges, int64_t n_nodes,
                                 int32_t* labels_out) noexcept {
@@ -1219,22 +1282,31 @@ int64_t fc_connected_components(const int64_t* u, const int64_t* v,
   }
 }
 
-int64_t fc_csv_format_rows_u32(const uint32_t* fn_data, int64_t fn_width,
-                               const uint32_t* id_data, int64_t id_width,
-                               const int64_t* charge, int64_t null_charge,
-                               const void* mz, int mz_f32, const void* rt,
-                               int rt_f32, const int64_t* cluster,
-                               int64_t n, char** out_buf,
-                               int threads) noexcept {
+// Stable natural-order argsort of the ids of an export tie group's
+// visits (rows numbered visit after visit; natsort_visits): order_out
+// gets the n rows.  Returns 0 on success.
+int fc_natsort_visits(const ExportVisit* visits, int64_t n_visits,
+                      int64_t* order_out, int threads) noexcept {
   try {
-    return fc_csv_format_rows_u32_impl(fn_data, fn_width, id_data, id_width,
-                                       charge, null_charge, mz, mz_f32, rt,
-                                       rt_f32, cluster, n, out_buf, threads);
+    natsort_visits(visits, n_visits, order_out, threads);
+    return 0;
+  } catch (...) {
+    return 4;
+  }
+}
+
+// Write an export tie group's rows in `order` to fd as CSV rows
+// (export_rows).  Returns the bytes written, or -1 on a bad row number or
+// an internal error, -2 on a failed write (its errno in *err).
+int64_t fc_export_rows(int fd, const ExportVisit* visits, int64_t n_visits,
+                       const int64_t* order, int64_t n, int64_t null_charge,
+                       int64_t chunk_rows, int threads, int* err) noexcept {
+  try {
+    return export_rows(fd, visits, n_visits, order, n, null_charge,
+                       chunk_rows, threads, err);
   } catch (...) {
     return -1;
   }
 }
-
-void fc_buffer_free(char* p) noexcept { std::free(p); }
 
 }  // extern "C"

@@ -58,6 +58,7 @@ import falcon_tpu_torch.store.store as t_store
 import falcon_tpu_torch.utils.natsort as t_natsort
 from falcon_tpu_torch.config import config as t_config
 from falcon_tpu_torch.ops.density import labels_from_parts as t_labels
+from torch_cases import EXPORT_TIE_CHARGES, export_tie_store
 
 PROCESS = dict(min_peaks=5, min_mz_range=250.0, mz_min=101.0, mz_max=1500.0,
                remove_precursor_tolerance=1.5, min_intensity=0.01,
@@ -363,6 +364,31 @@ def case_export_csv(tmp_path, spectra):
             out[name] = f.read()
     assert out["t"] == out["j"]
     assert out["t"].count(b"\n") == len(spectra) + 2
+
+
+def case_export_csv_tied_names_and_mixed_shards(tmp_path, spectra):
+    """Tied file names in one group, a multi-file shard run, duplicate
+    and leading-zero ids and the null charge, with the group larger than
+    a shrunken chunk of rows (``torch_cases.export_tie_store``)."""
+    store, labels = export_tie_store(str(tmp_path / "store"), t_store)
+    out = {}
+    for name, store_mod, export in (("t", t_store, t_export),
+                                    ("j", j_store, j_export)):
+        st = store_mod.SpectrumStore(str(tmp_path / "store"))
+        entries = [(st.dataset(c), lab)
+                   for c, lab in zip(EXPORT_TIE_CHARGES, labels)]
+        path = str(tmp_path / f"{name}.csv")
+        chunk_rows = export._CSV_CHUNK_ROWS
+        export._CSV_CHUNK_ROWS = 7
+        try:
+            export.export_cluster_csv(path, lambda f: f.write("# h\n"),
+                                      entries)
+        finally:
+            export._CSV_CHUNK_ROWS = chunk_rows
+        with open(path, "rb") as f:
+            out[name] = f.read()
+    assert out["t"] == out["j"]
+    assert out["t"].count(b"\n") == sum(len(lab) for lab in labels) + 2
 
 
 def case_config_api_and_manifest(tmp_path, spectra):

@@ -1,7 +1,9 @@
 """The port's span and counter recorder (``utils/profiling.py``) on the
 CPU: nothing is kept while recording is off; spans nest by parent and
 thread, and the work of the charge and block threads, and the exact
-backend's scoring and linking, lead up to the pass's ``run`` root; the accumulators sum what they time; the phase
+backend's scoring and linking, lead up to the pass's ``run`` root; the
+accumulators sum what they time; the export's phases nest in ``export``
+and its counters count its rows, groups and masked shards; the phase
 summary is the same with and without recording; a phase is a
 ``torch.profiler`` range of ``--profile``'s trace; and the CLI writes the
 same CSV bytes with recording on and off."""
@@ -16,13 +18,16 @@ import numpy as np
 import pytest
 import torch
 
+import falcon_tpu_torch.store.store as t_store
 from falcon_tpu_torch import cli, ingest
 from falcon_tpu_torch.cluster.grouped import score_and_link
 from falcon_tpu_torch.device import DEVICE_ENV
+from falcon_tpu_torch.export import export_cluster_csv
 from falcon_tpu_torch.ops import pairwise
 from falcon_tpu_torch.simulate import make_clustered_spectra, write_mgf
 from falcon_tpu_torch.utils.profiling import (PhaseProfiler,
                                               TorchPhaseProfiler, profiler)
+from torch_cases import EXPORT_TIE_CHARGES, export_tie_store
 
 ANN = ["--backend", "ann"]
 
@@ -284,6 +289,49 @@ def test_ingest_counts_its_ranges_and_nests_its_phases(tmp_path, monkeypatch,
         (span,) = [s for s in spans if s.name == name]
         assert span.parent == whole.id
         assert whole.start_ns <= span.start_ns <= span.end_ns <= whole.end_ns
+
+
+def test_export_nests_its_phases_and_counts_its_rows(corpus):
+    """A one-file CLI run: the export's shard loads, sort and row
+    formatting are phases inside ``export``, and the recorder counts one
+    tie group, every CSV row and no masked shard."""
+    tmp_path, mgf = corpus
+    csv = _run_cli(tmp_path, mgf, ANN, record=True)
+    counters = profiler.counters()
+    rows = [line for line in csv.splitlines()
+            if not line.startswith(b"#")][1:]
+    assert counters["export.rows"] == len(rows) > 0
+    assert counters["export.groups"] == 1
+    assert counters["export.masked_shards"] == 0
+    spans = profiler.spans()
+    (whole,) = [s for s in spans if s.name == "export"]
+    for name in ("export: load", "export: sort", "export: format"):
+        inner = [s for s in spans if s.name == name]
+        assert inner
+        for span in inner:
+            assert span.parent == whole.id
+            assert (whole.start_ns <= span.start_ns <= span.end_ns
+                    <= whole.end_ns)
+
+
+def test_export_counts_the_shards_it_masks(tmp_path):
+    """Shards that each hold rows of several files take the masked path,
+    and the recorder counts them."""
+    store, labels = export_tie_store(str(tmp_path / "store"), t_store)
+    entries = [(store.dataset(c), lab)
+               for c, lab in zip(EXPORT_TIE_CHARGES, labels)]
+    profiler.start_recording()
+    try:
+        n = export_cluster_csv(str(tmp_path / "out.csv"), lambda f: None,
+                               entries)
+    finally:
+        profiler.stop_recording()
+    counters = profiler.counters()
+    several = sum(len(set(np.load(os.path.join(s, "filename.npy")))) > 1
+                  for ds, _ in entries for s in ds.shards)
+    assert counters["export.masked_shards"] == several > 0
+    assert counters["export.groups"] == 2  # b,2 and the three tied names
+    assert counters["export.rows"] == n == sum(len(lab) for lab in labels)
 
 
 def test_a_phase_is_a_profiler_range_that_starts_with_its_span(tmp_path):

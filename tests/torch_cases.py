@@ -2,7 +2,11 @@
 ``tests/test_torch_*.py`` files, made with numpy from a seed: spectra as
 (n, 64) float32 m/z and intensity with padding m/z -1e6 and intensity 0,
 sparse neighbour lists for the medoid scores, and peaks for the consensus
-table.  Numpy only, so the card's tests can use them without JAX."""
+table; and a store and CSV rows for the export.  Numpy only, so the card's
+tests can use them without JAX."""
+
+import csv
+import io
 
 import numpy as np
 
@@ -159,3 +163,67 @@ def tiers_reached(sizes, warp_cap: int, small: int = 16):
     return (bool(((sizes > 1) & (sizes <= small)).any()),
             bool(((sizes > small) & (sizes <= warp_cap)).any()),
             bool((sizes > warp_cap).any()))
+
+
+EXPORT_TIE_CHARGES = (None, 2, 3)
+
+
+def export_tie_store(root: str, store_mod, seed: int = 23, rows: int = 40,
+                     batch_size: int = 6):
+    """A store whose CSV export meets its hard cases, written with
+    ``store_mod``'s ``SpectrumStore`` (the port's or the JAX package's):
+    one unprefixed shard run that mixes ``run001,x.mgf`` with ``b,2.mgf``,
+    so its shards are masked per file, then ``run01,x.mgf`` and
+    ``run1,x.mgf`` each in shards of their own; ``rows`` rows a run, in
+    shards of ``batch_size`` rows a charge.  The three ``run`` names tie
+    under the natural order, so their rows form one group that interleaves
+    them by id; every name needs quoting.  Half the ids come from a pool
+    whose ids repeat, differ only in leading zeros, or hold digit runs past
+    64 bits, the rest are scan numbers with leading zeros; the charges are
+    None (the empty field), 2 and 3.  Returns the store and, per charge of
+    ``EXPORT_TIE_CHARGES``, its labels (noise -1 among them)."""
+    rng = np.random.default_rng(seed)
+    pool = ["scan=5", "scan=05", "scan=005", "scan=10", "scan=9", "scan=0",
+            "scan=00", "s", "", "scan=5a", "x,1", 'q"2', "idé7",
+            "scan=18446744073709551617", "scan=018446744073709551617"]
+
+    def spectrum_id():
+        if rng.random() < 0.5:
+            return str(rng.choice(pool))
+        return "scan=" + "0" * int(rng.integers(3)) + str(rng.integers(10**6))
+
+    def spectra(names, n):
+        for i in range(n):
+            yield {
+                "identifier": spectrum_id(),
+                "filename": names[i % len(names)],
+                "precursor_mz": float(rng.uniform(101.0, 1500.0)),
+                "precursor_charge": EXPORT_TIE_CHARGES[int(rng.integers(3))],
+                "retention_time": float(rng.uniform(0.0, 5400.0)),
+                "mz": np.asarray([110.0, 220.0, 330.0, 440.0, 550.0],
+                                 np.float32),
+                "intensity": np.full(5, 0.447, np.float32),
+            }
+
+    store = store_mod.SpectrumStore(root)
+    for prefix, names in (("", ["run001,x.mgf", "b,2.mgf"]),
+                          ("f0_", ["run01,x.mgf"]), ("f1_", ["run1,x.mgf"])):
+        writer = store.writer(batch_size=batch_size, shard_prefix=prefix)
+        writer.add_many(spectra([f"{root}/{name}" for name in names], rows))
+        writer.close()
+    store.save_charges(list(EXPORT_TIE_CHARGES))
+    labels = [rng.integers(-1, 30, store.dataset(c).count_rows())
+              for c in EXPORT_TIE_CHARGES]
+    return store, labels
+
+
+def csv_writer_rows(fns, ids, charges, null_charge, mzs, rts, clusters):
+    """The bytes ``csv.writer(lineterminator="\\n")`` writes for these
+    cluster-assignment rows: the export's fallback, which its native rows
+    match byte for byte."""
+    buf = io.StringIO()
+    writer = csv.writer(buf, lineterminator="\n")
+    charge_str = np.where(np.asarray(charges) == null_charge, "",
+                          np.asarray(charges).astype(str))
+    writer.writerows(zip(fns, ids, charge_str, mzs, rts, clusters))
+    return buf.getvalue().encode("utf-8")
