@@ -444,7 +444,8 @@ def _cluster_range(offsets, mz_flat, int_flat, order, mz_sorted, rt_sorted,
             offsets, mz_flat, int_flat, order, mz_sorted, rt_sorted, hasher,
             pad_to, eps, min_samples, min_matches, precursor_tol_mass,
             precursor_tol_mode, rt_tol, fragment_tol, k_final,
-            n_neighbors_ann, n_probe, ann_index, do_rerank, dev, mesh)
+            n_neighbors_ann, n_probe, ann_index, do_rerank, dev, mesh,
+            count=cluster_method == "dbscan")
     if cluster_method == "linkage":
         del medoid_scores
         return _linkage_refine_and_medoids(
@@ -461,13 +462,15 @@ def _single_device_chain(offsets, mz_flat, int_flat, order, mz_sorted,
                          rt_sorted, hasher, pad_to, eps, min_samples,
                          min_matches, precursor_tol_mass, precursor_tol_mode,
                          rt_tol, fragment_tol, k_final, n_neighbors_ann,
-                         n_probe, ann_index, do_rerank, dev, mesh):
+                         n_probe, ann_index, do_rerank, dev, mesh,
+                         count=False):
     """The block's lists on ``dev`` and DBSCAN on them: (labels, medoid
     scores of (seg, n_seg), numpy).  With ``mesh`` set, the search runs
     sharded over it: the exact index (``parallel/sharded_exact_index.py``),
     the IVF ring (``parallel/sharded_ivf.py``) or, under ``--rerank off``,
     the halo k-NN; each falls back to one device, with the JAX package's
-    warning, where that search returns None."""
+    warning, where that search returns None.  ``count``: DBSCAN keeps its
+    recorder counters (dbscan mode; linkage mode records none)."""
     n = len(order)
     exact_index = ann_index == "exact"
     with profiler.phase("ann: upload"):
@@ -538,7 +541,7 @@ def _single_device_chain(offsets, mz_flat, int_flat, order, mz_sorted,
             synchronize(dev)
     del mz_pad, int_pad
     with profiler.phase("ann: dbscan"):
-        labels = dbscan(sims, neigh, eps, n, min_samples)
+        labels = dbscan(sims, neigh, eps, n, min_samples, count)
 
     def medoid_scores(seg, n_seg):
         """Scores of the rows (numpy, (n,)); ``seg`` puts noise in the
@@ -548,9 +551,16 @@ def _single_device_chain(offsets, mz_flat, int_flat, order, mz_sorted,
             # distances the clustering ran on.
             seg_pad = np.full(sims.shape[0], n_seg - 1, np.int32)
             seg_pad[:n] = seg
+            seg_t = torch.from_numpy(seg_pad).to(dev)
             scores = medoid_ops.sparse_medoid_scores(
-                sims.contiguous(), neigh.contiguous(),
-                torch.from_numpy(seg_pad).to(dev), n_seg - 1)
+                sims.contiguous(), neigh.contiguous(), seg_t, n_seg - 1)
+            if profiler.recording:
+                # The listed pairs the launch scores: both rows in one
+                # cluster (a device read, so only while recording).
+                same = seg_t[neigh.clamp_min(0)] == seg_t[:, None]
+                profiler.count("ann.medoids.listed", int(
+                    ((neigh >= 0) & same & (seg_t != n_seg - 1)[:, None])
+                    .sum()))
         else:
             # --rerank off clustered on the hashed cosines: medoids from
             # the same vectors.
@@ -893,7 +903,11 @@ def _refine_and_medoids(labels, order, mz_sorted, rt_sorted, n,
     refinement of each cluster (clusters inside the span are kept whole or
     demoted below ``max(min_samples, 2)`` members), then per cluster the
     first row with the largest ``medoid_scores_fn(seg, n_seg + 1)`` score,
-    noise in the spill segment ``n_seg``."""
+    noise in the spill segment ``n_seg``.  The recorder keeps
+    ``ann.refine.clusters`` (clusters kept), ``ann.refine.split``
+    (clusters out of the precursor / RT span, sent through
+    ``postprocess_cluster``) and ``ann.refine.demoted`` (clusters left
+    with no group of ``max(min_samples, 2)`` members)."""
     with profiler.phase("ann: refine"):
         # 4. Refinement: precursor m/z / RT splitting per cluster,
         # identical semantics to the exact engine.
@@ -921,12 +935,14 @@ def _refine_and_medoids(labels, order, mz_sorted, rt_sorted, n,
             rt_max_ = np.maximum.reduceat(rts_interval, starts)
             mz_ok &= (rt_max_ - rt_min_) <= rt_tol
         min_samples_eff = max(min_samples, 2)
+        n_split = n_demoted = 0
         for k_i, (start_i, stop_i) in enumerate(slices):
             if sorted_labels[start_i] == -1:
                 continue
             if mz_ok[k_i]:
                 if stop_i - start_i < min_samples_eff:
                     sorted_labels[start_i:stop_i] = -1
+                    n_demoted += 1
                 else:
                     sorted_labels[start_i:stop_i] = current_label
                     current_label += 1
@@ -939,6 +955,11 @@ def _refine_and_medoids(labels, order, mz_sorted, rt_sorted, n,
                 min_samples_eff, current_label,
             )
             current_label += n_clusters
+            n_split += 1
+            n_demoted += n_clusters == 0
+        profiler.count("ann.refine.clusters", current_label)
+        profiler.count("ann.refine.split", n_split)
+        profiler.count("ann.refine.demoted", n_demoted)
 
         final = np.full(n, -1, np.int32)
         final[order2] = sorted_labels

@@ -22,17 +22,21 @@ function) numbers the components.
 import numpy as np
 import torch
 
+from ..utils.profiling import profiler
 from .knn import NEG
 from .matching import f32_tolerance
 
 
 def dbscan(sims: torch.Tensor, neigh: torch.Tensor, eps: float, n: int,
-           min_samples: int) -> np.ndarray:
+           min_samples: int, count: bool = False) -> np.ndarray:
     """DBSCAN labels for the first ``n`` rows; -1 marks noise.
 
     ``sims`` (n_pad, k) float32 and ``neigh`` (n_pad, k) int64 (-1 =
     none) are the k-NN stage's padded lists, on any device.  Components
-    are numbered by first occurrence.
+    are numbered by first occurrence.  With ``count`` (dbscan mode), the
+    recorder keeps ``ann.dbscan.rounds`` (propagation rounds run) and
+    ``ann.dbscan.core`` (core rows, counted from the core mask the host
+    reads anyway).
     """
     n_pad, k = sims.shape
     device = sims.device
@@ -52,7 +56,9 @@ def dbscan(sims: torch.Tensor, neigh: torch.Tensor, eps: float, n: int,
     off = torch.searchsorted(target, torch.arange(n_pad + 1, device=device))
     src = order[:int(off[-1])] // k
     in_degree = off[1:] - off[:-1]
+    rounds = 0
     for _ in range(n_pad):
+        rounds += 1
         # Out-edges: the smallest neighbour label.
         new = torch.minimum(
             labels,
@@ -79,7 +85,11 @@ def dbscan(sims: torch.Tensor, neigh: torch.Tensor, eps: float, n: int,
     best_id = torch.gather(neigh, 1, best_pos[:, None])[:, 0]
     attach = torch.where(core_neigh.any(dim=1) & ~core & in_range, best_id,
                          -1)
-    return labels_from_parts(comp[:n].cpu().numpy(), core[:n].cpu().numpy(),
+    core_host = core[:n].cpu().numpy()
+    if count and profiler.recording:
+        profiler.count("ann.dbscan.rounds", rounds)
+        profiler.count("ann.dbscan.core", int(core_host.sum()))
+    return labels_from_parts(comp[:n].cpu().numpy(), core_host,
                              attach[:n].cpu().numpy(), n)
 
 

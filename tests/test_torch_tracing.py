@@ -3,7 +3,9 @@ CPU: nothing is kept while recording is off; spans nest by parent and
 thread, and the work of the charge and block threads, and the exact
 backend's scoring and linking, lead up to the pass's ``run`` root; the
 accumulators sum what they time; the export's phases nest in ``export``
-and its counters count its rows, groups and masked shards; the phase
+and its counters count its rows, groups and masked shards; dbscan mode's
+counters are counted inside their phases and charges, and linkage mode
+counts none of them; the phase
 summary is the same with and without recording; a phase is a
 ``torch.profiler`` range of ``--profile``'s trace; and the CLI writes the
 same CSV bytes with recording on and off."""
@@ -348,6 +350,55 @@ def test_a_phase_is_a_profiler_range_that_starts_with_its_span(tmp_path):
                 if e.get("name") == "traced phase"]
     event_ns = int(event["ts"] * 1000) + trace.get("baseTimeNanoseconds", 0)
     assert abs(event_ns - span.start_ns) < 5 * 10**6
+
+
+DBSCAN_COUNTERS = {
+    "ann.dbscan.rounds": "ann: dbscan", "ann.dbscan.core": "ann: dbscan",
+    "ann.refine.clusters": "ann: refine", "ann.refine.split": "ann: refine",
+    "ann.refine.demoted": "ann: refine", "ann.medoids.listed": "ann: medoids"}
+
+
+def test_dbscan_counters_are_counted_inside_their_charge(corpus,
+                                                         monkeypatch):
+    """Each of dbscan mode's counters is counted inside its phase, on the
+    way up to its charge's span and the run; each charge counts them; and
+    linkage mode counts none of them.  The charges run in turn, each in
+    its ``cluster charge N`` phase (two at once, each runs on a pool thread
+    under the run while the phase waits for it)."""
+    tmp_path, mgf = corpus
+    monkeypatch.setenv("FALCON_TPU_NO_CHARGE_OVERLAP", "1")
+    real = profiler.count
+
+    def count(name, n=1):
+        # A recorder span marks where the count was taken.
+        with profiler.span(f"count {name}"):
+            real(name, n)
+    monkeypatch.setattr(profiler, "count", count)
+    _run_cli(tmp_path, mgf, ANN + ["--cluster_method", "dbscan"],
+             record=True)
+    spans = profiler.spans()
+    counters = profiler.counters()
+    assert set(DBSCAN_COUNTERS) <= set(counters)
+    assert counters["ann.dbscan.rounds"] > 0
+    assert counters["ann.refine.clusters"] > 0
+    charges = {s.name for s in spans if s.name.startswith("cluster charge ")}
+    assert len(charges) == 2
+    for name, phase in DBSCAN_COUNTERS.items():
+        seen = set()
+        for s in spans:
+            if s.name != f"count {name}":
+                continue
+            chain = _chain(spans, s)
+            assert chain[1] == phase, (name, chain)
+            assert chain[-1] == "run"
+            (charge,) = [c for c in chain if c.startswith("cluster charge ")]
+            seen.add(charge)
+        assert seen == charges, name
+
+    _run_cli(tmp_path, mgf, ANN, record=True)
+    counters = profiler.counters()
+    assert counters["ann.linkage.components"] > 0
+    assert not set(DBSCAN_COUNTERS) & set(counters)
 
 
 @pytest.mark.parametrize("flags", [ANN, []], ids=["ann_linkage", "exact"])
